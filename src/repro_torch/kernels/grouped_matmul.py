@@ -1,0 +1,122 @@
+"""K1: the fused MoE FFN — wrapper over the CUDA kernel and its plain
+PyTorch version (counterpart of `repro.kernels.grouped_matmul.fused_moe_ffn`).
+
+Operands follow the reference's expert-aligned layout
+(`kernels.ops._fused_layout`): x (T, d) unsorted activations; w1/w3
+(G, d, ff) and w2 (G, ff, d); row_idx (n_m, bm) int32 token per padded
+row; gates (n_m, bm) fp32 router weight per row, 0 for padding;
+tile_group (n_m,) int32 expert per row tile, G for all-padding tiles.
+The result is (T, d) fp32: sum over rows of gate * FFN_e(x[row_idx]).
+
+`fused_moe_ffn` takes the plain version for CPU tensors and launches the
+kernel (csrc/fused_moe_ffn.cu) for CUDA tensors, raising on anything the
+kernel does not take.  Never a fallback.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import build
+
+GATED_ACTS = ("swiglu", "geglu")
+_ACT_IDS = {"swiglu": 0, "geglu": 1, "gelu": 2, "squared_relu": 3}
+# The CUDA kernel's column tile: d and ff must be multiples of it.
+TILE_N = 64
+
+
+def apply_act(name: str, x: torch.Tensor) -> torch.Tensor:
+    """The reference's activations, op for op in x's dtype
+    (jax.nn.silu = x * sigmoid(x); jax.nn.gelu uses the tanh form with
+    its constants rounded to x's dtype, as JAX's weak typing does)."""
+    if name == "swiglu":
+        return x * torch.sigmoid(x)
+    if name in ("geglu", "gelu"):
+        c = torch.tensor([0.7978845608028654, 0.044715], dtype=x.dtype,
+                         device=x.device)
+        cdf = 0.5 * (1.0 + torch.tanh(c[0] * (x + c[1] * (x * x * x))))
+        return x * cdf
+    if name == "squared_relu":
+        r = torch.relu(x)
+        return r * r
+    raise ValueError(name)
+
+
+def fused_moe_ffn_ref(x, w1, w2, w3, row_idx, gates, tile_group, *,
+                      act: str = "swiglu") -> torch.Tensor:
+    """Plain version of K1: fp32 operands, fp32 hidden, per-expert
+    products, and a gated combine that adds rows in ascending row order
+    (on the CPU; `index_add_` on CUDA uses atomics)."""
+    T, d = x.shape
+    G = w1.shape[0]
+    n_m, bm = row_idx.shape
+    tok = row_idx.reshape(-1).long()
+    gate = gates.reshape(-1).float()
+    expert = tile_group.long().repeat_interleave(bm)
+    live = (gate != 0) & (expert < G)
+    xs = x.float()
+    y = torch.zeros((n_m * bm, d), dtype=torch.float32, device=x.device)
+    for e in range(G):
+        sel = torch.nonzero(live & (expert == e)).squeeze(1)
+        if sel.numel() == 0:
+            continue
+        xe = xs[tok[sel]]
+        h = apply_act(act, xe @ w1[e].float())
+        if w3 is not None:
+            h = h * (xe @ w3[e].float())
+        y[sel] = (h @ w2[e].float()) * gate[sel, None]
+    rows = torch.nonzero(live).squeeze(1)
+    out = torch.zeros((T, d), dtype=torch.float32, device=x.device)
+    return out.index_add_(0, tok[rows], y[rows])
+
+
+def fused_moe_ffn(x, w1, w2, w3, row_idx, gates, tile_group, *,
+                  act: str = "swiglu") -> torch.Tensor:
+    """K1.  CPU tensors: the plain version.  CUDA tensors: the kernel."""
+    if x.device.type == "cpu":
+        return fused_moe_ffn_ref(x, w1, w2, w3, row_idx, gates, tile_group,
+                                 act=act)
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_moe_ffn: unsupported device {x.device}")
+    T, d = x.shape
+    G, _, ff = w1.shape
+    n_m, bm = row_idx.shape
+    gated = act in GATED_ACTS
+    if gated != (w3 is not None):
+        raise ValueError(f"act={act!r} needs w3 iff it is gated")
+    weights = (w1, w2) + ((w3,) if gated else ())
+    for name, t in (("x", x),) + tuple(zip(("w1", "w2", "w3"), weights)):
+        if t.dtype != torch.bfloat16 or not t.is_contiguous():
+            raise ValueError(f"fused_moe_ffn: {name} must be contiguous "
+                             f"bf16, got {t.dtype}")
+    if w2.shape != (G, ff, d) or d % TILE_N or ff % TILE_N:
+        raise ValueError(f"fused_moe_ffn: w1 {tuple(w1.shape)} / w2 "
+                         f"{tuple(w2.shape)}: d and ff must be multiples "
+                         f"of {TILE_N}")
+    row_idx = row_idx.to(torch.int32).contiguous()
+    gates = gates.to(torch.float32).contiguous()
+    tile_group = tile_group.to(torch.int32).contiguous()
+    # combine order: each token's live rows, ascending (a stable sort of
+    # rows by token keeps row order within a token)
+    tok = row_idx.reshape(-1).long()
+    live = (gates.reshape(-1) != 0) & (
+        tile_group.long().repeat_interleave(bm) < G)
+    key = torch.where(live, tok, T)
+    order = torch.argsort(key, stable=True).to(torch.int32)
+    # scatter_add_, not bincount: no device->host read of the max
+    counts = torch.zeros(T + 1, dtype=torch.long, device=x.device) \
+        .scatter_add_(0, key, torch.ones_like(key))[:T]
+    offsets = (torch.cumsum(counts, 0) - counts).to(torch.int32)
+    counts = counts.to(torch.int32)
+    h = torch.empty((n_m * bm, ff), dtype=torch.float32, device=x.device)
+    y = torch.empty((n_m * bm, d), dtype=torch.float32, device=x.device)
+    out = torch.empty((T, d), dtype=torch.float32, device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    err = build.entry("fused_moe_ffn")(
+        x.data_ptr(), w1.data_ptr(), w3.data_ptr() if gated else None,
+        w2.data_ptr(), row_idx.data_ptr(), gates.data_ptr(),
+        tile_group.data_ptr(), order.data_ptr(), offsets.data_ptr(),
+        counts.data_ptr(), h.data_ptr(), y.data_ptr(), out.data_ptr(),
+        T, d, ff, G, n_m, bm, _ACT_IDS[act], int(gated), stream)
+    build.check(err, "fused_moe_ffn")
+    build.LAUNCHES["fused_moe_ffn"] += 1
+    return out

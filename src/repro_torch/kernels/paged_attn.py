@@ -1,0 +1,125 @@
+"""K3 / K4: two-pass paged attention — wrappers over the CUDA kernels and
+their plain PyTorch versions (counterparts of
+`repro.kernels.paged_attn.paged_attn_scores_max` / `paged_attn_accumulate`).
+
+Operands: q (B, KV, g*Q, hd) per-kv-head query groups, g-major (row r is
+query r % Q of group head r // Q); k_pool / v_pool (n_pages, ps, KV, hd);
+table (B, n_lp) int32 physical page per logical page (0 = the scratch
+page, masked); mask (B, Q, n_lp, ps) bool.  Pass 1 returns each row's max
+masked score (-inf where nothing is valid); pass 2 takes the caller's
+safe max and returns fp32 (num, den) with p = exp(s - m_safe) rounded to
+the pool dtype before the PV product and den summing the unrounded p.
+
+The plain versions gather the pages (`pool[table]`) and contract in fp32,
+the same math as the gathered path (`layers._paged_scores_combine`).  The
+wrappers take them for CPU tensors and launch csrc/paged_attn.cu for CUDA
+tensors, raising on anything the kernels do not take.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import build
+
+HD_MAX = 128   # csrc/paged_attn.cu limits
+PS_MAX = 32
+
+
+def _check_shapes(q, k_pool, table, mask):
+    B, KV, GQ, hd = q.shape
+    n_pages, ps, KV2, hd2 = k_pool.shape
+    if (KV, hd) != (KV2, hd2):
+        raise ValueError(f"q {tuple(q.shape)} vs pool {tuple(k_pool.shape)}")
+    n_lp = table.shape[1]
+    n_q = mask.shape[1]
+    g = GQ // n_q
+    if g * n_q != GQ or tuple(mask.shape) != (B, n_q, n_lp, ps):
+        raise ValueError(f"q {tuple(q.shape)}, mask {tuple(mask.shape)}, "
+                         f"table {tuple(table.shape)}")
+    return B, KV, GQ, hd, ps, n_lp, n_q, g
+
+
+def _scores(q, k_pool, table, mask):
+    """Masked fp32 scores (B, KV, GQ, S) and the broadcast mask."""
+    B, KV, GQ, hd, ps, n_lp, n_q, g = _check_shapes(q, k_pool, table, mask)
+    S = n_lp * ps
+    kg = k_pool[table.long()].reshape(B, S, KV, hd)
+    s = torch.einsum("bkrd,bskd->bkrs", q.float(), kg.float()) * hd ** -0.5
+    mskg = mask.reshape(B, 1, 1, n_q, S).expand(B, KV, g, n_q, S) \
+               .reshape(B, KV, GQ, S)
+    return torch.where(mskg, s, float("-inf")), mskg
+
+
+def paged_attn_scores_max_ref(q, k_pool, table, mask):
+    """Plain version of K3."""
+    s, _ = _scores(q, k_pool, table, mask)
+    return s.amax(dim=-1)
+
+
+def paged_attn_accumulate_ref(q, k_pool, v_pool, table, mask, m_safe):
+    """Plain version of K4."""
+    B, KV, GQ, hd, ps, n_lp, _, _ = _check_shapes(q, k_pool, table, mask)
+    s, mskg = _scores(q, k_pool, table, mask)
+    p = torch.where(mskg, torch.exp(s - m_safe[..., None]), 0.0)
+    vg = v_pool[table.long()].reshape(B, n_lp * ps, KV, hd)
+    num = torch.einsum("bkrs,bskd->bkrd", p.to(v_pool.dtype).float(),
+                       vg.float())
+    return num, p.sum(dim=-1)
+
+
+def _cuda_operands(q, pools, table, mask):
+    """Validate and prepare the operands both kernels share."""
+    B, KV, GQ, hd, ps, n_lp, n_q, _ = _check_shapes(q, pools[0], table,
+                                                    mask)
+    if q.device.type != "cuda":
+        raise ValueError(f"paged attention: unsupported device {q.device}")
+    for t in (q,) + tuple(pools):
+        if t.dtype != torch.bfloat16 or not t.is_contiguous():
+            raise ValueError("paged attention kernels take contiguous bf16 "
+                             f"q and pools, got {t.dtype}")
+    if hd > HD_MAX or ps > PS_MAX:
+        raise ValueError(f"paged attention kernels take head_dim <= "
+                         f"{HD_MAX} and page_size <= {PS_MAX}; got {hd}, "
+                         f"{ps}")
+    table = table.to(torch.int32).contiguous()
+    mask = mask.to(torch.bool).contiguous()
+    dims = (B, KV, GQ, hd, ps, n_lp, n_q, hd ** -0.5)
+    return table, mask, dims, torch.cuda.current_stream(q.device).cuda_stream
+
+
+def paged_attn_scores_max(q, k_pool, table, mask):
+    """K3.  CPU tensors: the plain version.  CUDA tensors: the kernel."""
+    if q.device.type == "cpu":
+        return paged_attn_scores_max_ref(q, k_pool, table, mask)
+    table, mask, dims, stream = _cuda_operands(q, (k_pool,), table, mask)
+    B, KV, GQ = dims[:3]
+    m = torch.empty((B, KV, GQ), dtype=torch.float32, device=q.device)
+    err = build.entry("paged_attn_scores_max")(
+        q.data_ptr(), k_pool.data_ptr(), table.data_ptr(), mask.data_ptr(),
+        m.data_ptr(), *dims, stream)
+    build.check(err, "paged_attn_scores_max")
+    build.LAUNCHES["paged_attn_scores_max"] += 1
+    return m
+
+
+def paged_attn_accumulate(q, k_pool, v_pool, table, mask, m_safe):
+    """K4.  CPU tensors: the plain version.  CUDA tensors: the kernel."""
+    if q.device.type == "cpu":
+        return paged_attn_accumulate_ref(q, k_pool, v_pool, table, mask,
+                                         m_safe)
+    table, mask, dims, stream = _cuda_operands(q, (k_pool, v_pool), table,
+                                               mask)
+    B, KV, GQ, hd = dims[:4]
+    if v_pool.shape != k_pool.shape or m_safe.shape != (B, KV, GQ):
+        raise ValueError(f"v_pool {tuple(v_pool.shape)}, m_safe "
+                         f"{tuple(m_safe.shape)}")
+    m_safe = m_safe.to(torch.float32).contiguous()
+    num = torch.empty((B, KV, GQ, hd), dtype=torch.float32, device=q.device)
+    den = torch.empty((B, KV, GQ), dtype=torch.float32, device=q.device)
+    err = build.entry("paged_attn_accumulate")(
+        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), table.data_ptr(),
+        mask.data_ptr(), m_safe.data_ptr(), num.data_ptr(), den.data_ptr(),
+        *dims, stream)
+    build.check(err, "paged_attn_accumulate")
+    build.LAUNCHES["paged_attn_accumulate"] += 1
+    return num, den

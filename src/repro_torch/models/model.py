@@ -1,0 +1,199 @@
+"""Model assembly for paged serving at tp=1 (counterpart of
+`repro.models.model`): parameter init, paged KV pools, and the two fixed
+shape serving steps — one paged decode tick over every slot and one
+chunked-prefill chunk for one request.
+
+Parameters keep the reference's nested-dict keys with a leading layer
+dim on every `blocks` leaf; a Python loop over layers replaces
+`lax.scan`.  The KV pools carry the same leading layer dim and are
+updated in place.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Optional
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core import moe as moe_lib
+from repro_torch.models import embedding as emb
+from repro_torch.models import layers as L
+
+
+@dataclasses.dataclass(frozen=True)
+class RunFlags:
+    """Serving knobs.  moe_dispatch: "auto" | "fused" | "ragged" ("auto"
+    is the K1 kernel path).  paged_attn: "auto" | "fused" | "gathered"
+    ("auto" is the K3/K4 kernel path).  On CPU tensors the kernel paths
+    run their plain versions."""
+    moe_dispatch: str = "auto"
+    paged_attn: str = "auto"
+
+
+DEFAULT_FLAGS = RunFlags()
+
+
+def _ffn_kind(cfg: ModelConfig, layer: int) -> str:
+    if cfg.moe is not None and layer >= cfg.moe.first_dense_layers:
+        return "moe"
+    return "mlp"
+
+
+def init_block(cfg: ModelConfig, init: L.Init, ffn: str) -> Dict[str, Any]:
+    params: Dict[str, Any] = {"norm1": L.init_norm(cfg, init),
+                              "attn": L.init_attention(cfg, init),
+                              "norm2": L.init_norm(cfg, init)}
+    if ffn == "moe":
+        params["moe"] = moe_lib.init_moe(cfg, init)
+    else:
+        params["mlp"] = L.init_mlp(cfg, init)
+    return params
+
+
+def init_model(cfg: ModelConfig, *, device="cuda",
+               generator: Optional[torch.Generator] = None) -> Dict[str, Any]:
+    """Random parameters with the reference's shapes and scales
+    (`layers.dense_init`: normal * 0.02, output projections * 0.02 /
+    sqrt(n_layers), norms at 1), drawn on `device` from `generator`.
+    Leaves the reference casts to the compute dtype at use are stored in
+    that dtype; the router, the norms and the LM head stay fp32.  On the
+    meta device only shapes are built."""
+    check_paged_support(cfg)
+    device = torch.device(device)
+    init = L.Init(device=device, generator=generator)
+    params: Dict[str, Any] = {"embed": emb.init_embedding(cfg, init),
+                              "final_norm": L.init_norm(cfg, init)}
+    stacked = dataclasses.replace(init, lead=(cfg.n_layers,))
+    params["blocks"] = init_block(cfg, stacked,
+                                  _ffn_kind(cfg, cfg.n_layers - 1))
+    return params
+
+
+def layer_params(blocks, i: int):
+    """Layer i's parameters: views into the stacked leaves."""
+    if isinstance(blocks, dict):
+        return {k: layer_params(v, i) for k, v in blocks.items()}
+    return blocks[i]
+
+
+# ---- paged decode / chunked prefill (online serving) -----------------------
+
+
+def check_paged_support(cfg: ModelConfig):
+    kinds = {cfg.block_kind(i) for i in range(cfg.n_layers)}
+    if kinds != {"attn"} or cfg.is_encoder_decoder:
+        raise ValueError(
+            f"paged online serving supports decoder-only all-'attn' "
+            f"architectures; {cfg.arch_id} has blocks {sorted(kinds)}"
+            f"{' (encoder-decoder)' if cfg.is_encoder_decoder else ''}")
+
+
+def init_paged_caches(cfg: ModelConfig, n_pages: int, page_size: int,
+                      device) -> Dict[str, Dict[str, torch.Tensor]]:
+    """Per-layer paged KV pools with a leading layer dim (page 0 is the
+    engine's scratch page)."""
+    check_paged_support(cfg)
+    one = L.init_paged_kv_pool(cfg, n_pages, page_size, device)
+    return {"self": {k: torch.zeros((cfg.n_layers,) + tuple(v.shape),
+                                    dtype=v.dtype, device=v.device)
+                     for k, v in one.items()}}
+
+
+def _layer_pool(pools, i: int):
+    return {"self": {k: v[i] for k, v in pools["self"].items()}}
+
+
+def _block_ffn(cfg, params, x, ffn: str, flags: RunFlags):
+    h = L.apply_norm(cfg, params["norm2"], x)
+    if ffn == "moe":
+        partial, _ = moe_lib.moe_ffn(cfg, params["moe"], h,
+                                     dispatch=flags.moe_dispatch)
+    else:
+        partial = L.apply_mlp(cfg, params["mlp"], h)
+    return x + partial
+
+
+def block_decode_paged(cfg, params, x, pool, pos, table, active, *,
+                       page_size: int, ffn: str,
+                       flags: RunFlags = DEFAULT_FLAGS, valid=None):
+    """One layer of the paged decode tick: x (B, d)."""
+    h = L.apply_norm(cfg, params["norm1"], x)
+    partial, _ = L.paged_decode_attention(
+        cfg, params["attn"], h, pool["self"], pos, table, active,
+        page_size=page_size, paged_attn=flags.paged_attn, valid=valid)
+    return _block_ffn(cfg, params, x + partial, ffn, flags), pool
+
+
+def _paged_decode_logits(cfg: ModelConfig, params, pools, token, pos, table,
+                         active, *, page_size: int,
+                         flags: RunFlags = DEFAULT_FLAGS):
+    """One token per slot -> (logits (B, Vp) fp32, pools)."""
+    x = emb.embed_tokens(cfg, params["embed"], token)         # (B, d)
+    ffn = _ffn_kind(cfg, cfg.n_layers - 1)
+    valid = L.paged_valid_mask(table, pos[:, None], page_size=page_size)
+    for i in range(cfg.n_layers):
+        x, _ = block_decode_paged(
+            cfg, layer_params(params["blocks"], i), x, _layer_pool(pools, i),
+            pos, table, active, page_size=page_size, ffn=ffn, flags=flags,
+            valid=valid)
+    x = L.apply_norm(cfg, params["final_norm"], x)
+    return emb.lm_logits(cfg, params["embed"], x), pools
+
+
+def paged_decode_step(cfg: ModelConfig, params, pools, token, pos, table,
+                      active, *, page_size: int,
+                      flags: RunFlags = DEFAULT_FLAGS):
+    """One greedy decode tick over the slot batch.  token (B,) input token
+    per slot; pos (B,) position being written; table (B, n_lp); active
+    (B,) bool.  Inactive slots compute harmlessly (their writes land in
+    the scratch page).  Returns (next (B,), pools)."""
+    logits, pools = _paged_decode_logits(cfg, params, pools, token, pos,
+                                         table, active, page_size=page_size,
+                                         flags=flags)
+    return emb.sharded_argmax(logits).to(torch.int32), pools
+
+
+def block_prefill_paged(cfg, params, x, pool, base, n_valid, table_row, *,
+                        page_size: int, ffn: str,
+                        flags: RunFlags = DEFAULT_FLAGS, valid=None):
+    """One layer of chunked prefill for a single request: x (C, d)."""
+    h = L.apply_norm(cfg, params["norm1"], x)
+    partial, _ = L.paged_prefill_attention(
+        cfg, params["attn"], h, pool["self"], base, n_valid, table_row,
+        page_size=page_size, paged_attn=flags.paged_attn, valid=valid)
+    return _block_ffn(cfg, params, x + partial, ffn, flags), pool
+
+
+def _paged_prefill_logits(cfg: ModelConfig, params, pools, tokens, base,
+                          n_valid, table_row, *, page_size: int,
+                          flags: RunFlags = DEFAULT_FLAGS):
+    """Prefill one chunk; returns (logits (1, Vp) fp32 at the last valid
+    chunk position, pools)."""
+    C = tokens.shape[0]
+    x = emb.embed_tokens(cfg, params["embed"], tokens)        # (C, d)
+    ffn = _ffn_kind(cfg, cfg.n_layers - 1)
+    posq = base + torch.arange(C, device=tokens.device)
+    valid = L.paged_valid_mask(table_row[None], posq[None],
+                               page_size=page_size)
+    for i in range(cfg.n_layers):
+        x, _ = block_prefill_paged(
+            cfg, layer_params(params["blocks"], i), x, _layer_pool(pools, i),
+            base, n_valid, table_row, page_size=page_size, ffn=ffn,
+            flags=flags, valid=valid)
+    x = L.apply_norm(cfg, params["final_norm"], x)
+    last = min(max(int(n_valid) - 1, 0), C - 1)
+    return emb.lm_logits(cfg, params["embed"], x[last:last + 1]), pools
+
+
+def paged_prefill_chunk(cfg: ModelConfig, params, pools, tokens, base,
+                        n_valid, table_row, *, page_size: int,
+                        flags: RunFlags = DEFAULT_FLAGS):
+    """Prefill one chunk of one request's prompt into its pages.  tokens
+    (C,) (tail past n_valid is padding); base (int) tokens already
+    written; table_row (n_lp,).  Returns (next token, a 0-d int32 tensor
+    meaningful on the request's final chunk, and the pools)."""
+    logits, pools = _paged_prefill_logits(cfg, params, pools, tokens, base,
+                                          n_valid, table_row,
+                                          page_size=page_size, flags=flags)
+    return emb.sharded_argmax(logits)[0].to(torch.int32), pools
