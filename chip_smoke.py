@@ -7,26 +7,45 @@ NVIDIA H100.
 Phases, each failing loudly (non-zero exit, no result line):
   1. the card: name and power limit (nvidia-smi), torch / CUDA versions;
   2. build every kernel from src/repro_torch/kernels/csrc with nvcc for
-     sm_90a, timed;
-  3. per-kernel checks at Ling-Lite shapes: K1 fused MoE FFN (T=8 decode,
-     T=64 prefill, routing from a random router), K3/K4 paged attention
-     (decode B=8 Q=1 with 2 inactive slots and unallocated pages on the
-     scratch page; prefill B=1 Q=64) against their plain PyTorch versions
-     on identical inputs, with error, tolerance, median CUDA-event times
-     and the roofline bound (3.35 TB/s, 989 TFLOP/s bf16);
-  4. serving: full-width Ling-Lite (28 layers, bf16 weights from
+     sm_90a (one nvcc per source, in parallel), timed;
+  3. per-kernel checks at Ling-Lite shapes against their plain PyTorch
+     versions on identical inputs, with error, tolerance, median
+     CUDA-event times, the roofline bound (3.35 TB/s; 989 TFLOP/s bf16)
+     and, where one PyTorch call computes the same function, its time:
+     K1 fused MoE FFN (T=8 decode, T=64 prefill, T=2048 training, routing
+     from a random router), K3/K4 paged attention (decode B=8 Q=1 with 2
+     inactive slots and unallocated pages on the scratch page; prefill
+     B=1 Q=64), K2 grouped matmul at the MoE backward's shapes (12288
+     routed rows over 64 experts: the up product 2048 -> 1408 from bf16
+     rows, the down product 1408 -> 2048 from fp32 rows, the transposed
+     product 1408 -> 2048 from fp32 rows) and the grouped weight
+     gradient (64 x 2048 x 1408 from bf16 x fp32 rows, 64 x 1408 x 2048
+     from fp32 x fp32 rows);
+  4. gradients: one full-width MoE layer at T=256, `FusedFFN`'s grads of
+     x, w1, w2, w3 and the gates on the kernels against autograd through
+     a plain fp32 composition, before and after the cast to bf16;
+  5. serving: full-width Ling-Lite (28 layers, bf16 weights from
      torch.Generator(device="cuda").manual_seed(0)) behind an
      OnlineEngine (8 slots, page 16, prefill chunk 64, context 512),
      16 Poisson requests with prompts of 64-256 tokens and 32 new tokens
      each; every kernel wrapper must have launched once per layer per
      prefill chunk and per decode tick;
-  5. end to end: one request teacher-forced (a 64-token prefill chunk +
+  6. end to end: one request teacher-forced (a 64-token prefill chunk +
      8 decode steps) through the kernels and through the plain modes
      (moe_dispatch="ragged", paged_attn="gathered"), logits compared;
-  6. the `kernels` JSON line, the card line, and the result line.
+  7. training: the serving model freed, Ling-Lite at full width cut to 4
+     layers, fp32 masters from torch.Generator(device="cuda")
+     .manual_seed(0), 4 optimizer steps of the port's Trainer (seq 1024,
+     microbatch 2, accum 2, remat, fused MoE, spike guard, WSD schedule,
+     router warmup active) with every step's dispatch under
+     torch.cuda.set_sync_debug_mode("error"); finite losses, a reported
+     commit, the launch counts per step (K1 2*L*accum, K2 6*L*accum,
+     the weight gradient 3*L*accum) and peak memory under 80 GB;
+  8. the `kernels` JSON line, the card line, and the result line.
 """
 from __future__ import annotations
 
+import gc
 import json
 import subprocess
 import sys
@@ -35,6 +54,8 @@ from pathlib import Path
 
 HBM_BYTES_S = 3.35e12          # H100 SXM HBM3
 BF16_FLOPS = 989e12            # H100 SXM dense bf16 tensor-core peak
+SERVE_KERNELS = ("fused_moe_ffn", "paged_attn_scores_max",
+                 "paged_attn_accumulate")
 
 
 def fail(msg: str):
@@ -76,15 +97,24 @@ def bound(nbytes: float, flops: float):
                                        else "operations")
 
 
+def bf16_ulp(t):
+    """One bf16 ulp at each element of t (2^(e-8) for |t| in
+    [2^(e-1), 2^e))."""
+    import torch
+    return torch.ldexp(torch.ones_like(t), torch.frexp(t).exponent - 8)
+
+
 def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
 
-def report(name, shape, err, tol, scale, ms, plain_ms, b_ms, b_by):
+def report(name, shape, err, tol, scale, ms, plain_ms, b_ms, b_by,
+           library_ms=None):
+    lib = "none" if library_ms is None else f"{library_ms:.4f}ms"
     print(f"[kernels] {name} {shape}: max_abs_err={err:.3e} "
           f"max_rel_err={err / max(scale, 1e-30):.3e} (tolerance "
           f"{tol:.3e}) kernel={ms:.4f}ms plain={plain_ms:.4f}ms "
-          f"bound={b_ms * 1e3:.2f}us ({b_by}-bound, share "
+          f"library={lib} bound={b_ms * 1e3:.2f}us ({b_by}-bound, share "
           f"{b_ms / ms:.1%})")
 
 
@@ -93,20 +123,46 @@ def report(name, shape, err, tol, scale, ms, plain_ms, b_ms, b_by):
 # ---------------------------------------------------------------------------
 
 
+def moe_case(cfg, T: int, gen):
+    """One MoE layer's bf16 weights (fp32 router) and the routing of T
+    random bf16 tokens by its random router: (params, x, tok, gates,
+    group_sizes)."""
+    import torch
+    from repro_torch.core import moe, router
+    from repro_torch.models import layers as L
+    p = moe.init_moe(cfg, L.Init(device=torch.device("cuda"),
+                                 generator=gen))
+    x = torch.randn((T, cfg.d_model), generator=gen, device="cuda") \
+        .to(torch.bfloat16)
+    top_w, top_i = router.route(cfg, p["router"], x)
+    tok, gates, group_sizes, _ = moe.sort_slots(cfg, top_w, top_i)
+    return p, x, tok, gates, group_sizes
+
+
+def library_time(candidates):
+    """Time the first of `candidates` ((label, fn) pairs: one PyTorch call
+    each, a yardstick the port never calls) that runs here; (None,
+    reason) when none does."""
+    import torch
+    reasons = []
+    for label, fn in candidates:
+        try:
+            fn()
+            torch.cuda.synchronize()
+        except (RuntimeError, TypeError, AttributeError) as e:
+            reasons.append(f"{label}: {str(e).splitlines()[0][:120]}")
+            continue
+        return cuda_ms(fn), label
+    return None, "; ".join(reasons)
+
+
 def check_k1(cfg, T: int, gen):
     """K1 at Ling-Lite widths with a random router's routing."""
     import torch
-    from repro_torch.core import moe
     from repro_torch.kernels import grouped_matmul as gm
     from repro_torch.kernels import ops
-    from repro_torch.models import layers as L
     m = cfg.moe
-    dev = "cuda"
-    init = L.Init(device=torch.device(dev), generator=gen)
-    p = moe.init_moe(cfg, init)
-    x = torch.randn((T, cfg.d_model), generator=gen, device=dev) \
-        .to(torch.bfloat16)
-    tok, gates, group_sizes, _ = moe.dispatch_slots(cfg, p["router"], x)
+    p, x, tok, gates, group_sizes = moe_case(cfg, T, gen)
     cap = tok.shape[0]
     bm = min(128, max(8, cap))
     row_idx, g, tile_group = ops._fused_layout(tok, gates, group_sizes, T,
@@ -240,8 +296,175 @@ def check_pa(cfg, label, case):
             row(err4, tol4, ms4, pl4, b4, by4))
 
 
+def check_k2(cfg, gen):
+    """K2 at the MoE backward's shapes (T=2048 tokens routed by a random
+    router: 12288 rows over 64 experts, bm=128) and the grouped weight
+    gradient, each in every operand form the backward launches, against
+    their plain versions."""
+    import torch
+    from repro_torch.kernels import grouped_matmul as gm
+    from repro_torch.kernels import ops
+    p, x, tok, gates, gs = moe_case(cfg, 2048, gen)
+    cap, G, bm = tok.shape[0], gs.shape[0], 128
+    d, ff = cfg.d_model, cfg.moe.expert_d_ff
+    lay = ops.align_layout(gs, cap, bm)
+    xs = x[tok]                                   # (cap, d) bf16 rows
+    h = torch.randn((cap, ff), generator=gen, device="cuda")    # fp32
+    da = torch.randn((cap, ff), generator=gen, device="cuda")   # fp32
+    d_out = torch.randn((cap, d), generator=gen, device="cuda")  # fp32
+    offs = torch.cumsum(gs, 0).to(torch.int32)
+    n_live = int((lay.tile_group < G).sum())
+    n_routed = int((gs > 0).sum())
+    rows = {}
+    # xs W1 (bf16 rows), h W2 (fp32 rows), da1 W1^T (fp32 rows, trans_b)
+    for label, lhs, w, trans in (("up d->ff", xs, p["we1"], False),
+                                 ("down ff->d", h, p["we2"], False),
+                                 ("down^T ff->d", da, p["we1"], True)):
+        lhs_pad = ops._take_rows(lhs, lay.row_map)
+        K = lhs.shape[1]
+        N = w.shape[1] if trans else w.shape[2]
+        run = lambda: gm.grouped_matmul_aligned(
+            lhs_pad, w, lay.tile_group, bm=bm, trans_b=trans)
+        plain = lambda: gm.grouped_matmul_aligned_ref(
+            lhs_pad, w, lay.tile_group, bm=bm, trans_b=trans)
+        out, ref = run(), plain()
+        torch.cuda.synchronize()
+        err = (out - ref).abs().max().item()
+        # fp32 products of operands exact in fp32 (bf16 upcast): the two
+        # differ only in fp32 summation order over K
+        tol = 1e-4 * ref.abs().max().item()
+        b_ms, b_by = bound(n_live * bm * K * lhs.element_size()
+                           + n_routed * K * N * 2 + out.numel() * 4
+                           + nbytes(lay.tile_group), 2 * cap * K * N)
+        ms, plain_ms = cuda_ms(run), cuda_ms(plain, iters=5, warmup=1)
+        a16 = lhs.to(torch.bfloat16)
+        b16 = w.transpose(1, 2) if trans else w
+        b16_cm = w if trans else w.transpose(1, 2).contiguous() \
+            .transpose(1, 2)
+        lib_ms, lib = library_time([
+            ("torch._grouped_mm bf16", lambda: torch._grouped_mm(
+                a16, b16, offs=offs)),
+            ("torch._grouped_mm bf16, column-major rhs",
+             lambda: torch._grouped_mm(a16, b16_cm, offs=offs))])
+        shape = (f"{label} M={cap} M_pad={lhs_pad.shape[0]} K={K} N={N} "
+                 f"G={G} live_tiles={n_live} lhs={lhs.dtype} "
+                 f"trans_b={trans} library=({lib})")
+        report("grouped_matmul_aligned", shape, err, tol,
+               ref.abs().max().item(), ms, plain_ms, b_ms, b_by, lib_ms)
+        if not err <= tol:
+            fail(f"grouped_matmul_aligned {label}: {err} > {tol}")
+        rows[label] = dict(max_abs_err=err, tolerance=tol, ms=ms,
+                           plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                           library_ms=lib_ms, shape=shape)
+        del lhs_pad, out, ref, a16, b16, b16_cm
+
+    wrows = {}
+    # dW1 = xs^T da1 (bf16 x fp32), dW2 = h^T d_out (fp32 x fp32)
+    for label, lhs, rhs in (("train", xs, da),
+                            ("train fp32 x fp32", h, d_out)):
+        run = lambda: gm.grouped_matmul_wgrad(lhs, rhs, gs)
+        plain = lambda: gm.grouped_matmul_wgrad_ref(lhs, rhs, gs)
+        out, ref = run(), plain()
+        torch.cuda.synchronize()
+        err = (out - ref).abs().max().item()
+        tol = 1e-4 * ref.abs().max().item()      # fp32 order over rows
+        K, N = lhs.shape[1], rhs.shape[1]
+        b_ms, b_by = bound(nbytes(lhs, rhs, gs) + out.numel() * 4,
+                           2 * cap * K * N)
+        ms, plain_ms = cuda_ms(run), cuda_ms(plain, iters=5, warmup=1)
+        lt16, r16 = lhs.t().to(torch.bfloat16), rhs.to(torch.bfloat16)
+        lt16_rm = lt16.contiguous()
+        lib_ms, lib = library_time([
+            ("torch._grouped_mm bf16", lambda: torch._grouped_mm(
+                lt16, r16, offs=offs)),
+            ("torch._grouped_mm bf16, row-major lhs^T",
+             lambda: torch._grouped_mm(lt16_rm, r16, offs=offs))])
+        shape = (f"{label} M={cap} G={G} K={K} N={N} lhs={lhs.dtype} "
+                 f"rhs={rhs.dtype} library=({lib})")
+        report("grouped_matmul_wgrad", shape, err, tol,
+               ref.abs().max().item(), ms, plain_ms, b_ms, b_by, lib_ms)
+        if not err <= tol:
+            fail(f"grouped_matmul_wgrad {label}: {err} > {tol}")
+        wrows[label] = dict(max_abs_err=err, tolerance=tol, ms=ms,
+                            plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                            library_ms=lib_ms, shape=shape)
+        del out, ref, lt16, r16, lt16_rm
+    return rows, wrows
+
+
 # ---------------------------------------------------------------------------
-# phases 4-5: serving and the end-to-end check
+# phase 4: FusedFFN gradients on the kernels
+# ---------------------------------------------------------------------------
+
+
+def check_grads(cfg, gen, T: int = 256):
+    """`FusedFFN`'s grads on the kernels against autograd through a plain
+    fp32 composition (per-expert fp32 matmuls), before the cast to the
+    inputs' dtype (fp32 leaves in the composition) and after it (bf16
+    leaves, whose .float() casts round the grads as the reference's
+    astype transposes do)."""
+    import torch
+    from repro_torch.core import moe
+    from repro_torch.models import layers as L
+    p, x, tok, gates, gs = moe_case(cfg, T, gen)
+    d, k = cfg.d_model, cfg.moe.top_k
+    g = torch.randn((T, d), generator=gen, device="cuda")
+    inputs = (x, p["we1"], p["we2"], p["we3"], gates)
+    sizes = gs.tolist()
+
+    def plain(x_, w1, w2, w3, gate):
+        xs = x_[tok].float()
+        outs, start = [], 0
+        for e, n in enumerate(sizes):
+            if n:
+                r = xs[start:start + n]
+                h = L._act("swiglu", r @ w1[e].float()) * (r @ w3[e].float())
+                outs.append(h @ w2[e].float())
+            start += n
+        o = torch.cat(outs) * gate.float()[:, None]
+        return torch.zeros((T, d), device="cuda").index_add(0, tok, o)
+
+    def grads(fn, leaves):
+        leaves = [t.detach().clone().requires_grad_() for t in leaves]
+        fn(*leaves).backward(g)
+        return [t.grad for t in leaves]
+
+    kern = grads(lambda *a: moe.FusedFFN.apply("swiglu", a[0], a[1], a[2],
+                                               a[3], tok, a[4], gs), inputs)
+    dxs, dw1, dw2, dw3, dgate = moe.fused_ffn_backward(
+        "swiglu", *inputs[:4], tok, gates, gs, g)
+    dx = torch.zeros((T, d), device="cuda").index_add_(0, tok, dxs)
+    pre = [dx, dw1, dw2, dw3, dgate]
+    ref32 = grads(plain, [t.float() for t in inputs])
+    ref16 = grads(plain, inputs)
+    torch.cuda.synchronize()
+    names = ("x", "w1", "w2", "w3", "gate")
+    worst = {}
+    for name, a, b, c, r in zip(names, pre, ref32, kern, ref16):
+        m32, m16 = b.abs().max().item(), r.float().abs().max().item()
+        e32 = (a - b).abs().max().item()
+        e16 = ((c.float() - r.float()).abs()
+               - bf16_ulp(r.float())).max().item()
+        # before the cast: fp32 summation order, 1e-4 of the largest grad.
+        # After it: one bf16 ulp of each element on top (an fp32
+        # difference near a rounding boundary rounds one ulp the other
+        # way); x's grad also sums its k gathered rows in bf16, in
+        # another order (atomics against a sorted accumulate), so it gets
+        # 2^-8 of its largest value per summand.
+        tol16 = 1e-4 * m16 + (k * 2.0 ** -8 * m16 if name == "x" else 0.0)
+        print(f"[grads] {name}: fp32 max_abs_err={e32:.3e} (tolerance "
+              f"{1e-4 * m32:.3e}); {c.dtype} excess over one ulp="
+              f"{e16:.3e} (tolerance {tol16:.3e})")
+        if not (c.dtype == inputs[names.index(name)].dtype
+                and e32 <= 1e-4 * m32 and e16 <= tol16):
+            fail(f"FusedFFN grad of {name}: fp32 err {e32} (max {m32}), "
+                 f"{c.dtype} excess {e16} > {tol16}")
+        worst[name] = e32
+    return worst
+
+
+# ---------------------------------------------------------------------------
+# phases 5-6: serving and the end-to-end check
 # ---------------------------------------------------------------------------
 
 
@@ -282,10 +505,94 @@ def serve(cfg, params):
     if rep["tokens_out"] != n_req * max_new:
         fail(f"served {rep['tokens_out']} tokens, expected {n_req * max_new}")
     for name, n in launches.items():
-        if n != per_call:
-            fail(f"{name} launched {n} times, expected {per_call} "
+        want = per_call if name in SERVE_KERNELS else 0
+        if n != want:
+            fail(f"{name} launched {n} times in serving, expected {want} "
                  f"(= {cfg.n_layers} layers x {calls})")
     return rep, launches
+
+
+# ---------------------------------------------------------------------------
+# phase 7: training
+# ---------------------------------------------------------------------------
+
+
+def train(card):
+    """4 optimizer steps of the port's Trainer on Ling-Lite at full width,
+    depth cut to 4 layers: 16 B/param of training state (fp32 master,
+    grad, two moments) is ~45 GB at 4 layers against ~269 GB at 28."""
+    import dataclasses
+    import torch
+    from repro_torch import api
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.pipeline import DataPipeline, PipelineConfig
+    from repro_torch.kernels import build
+    from repro_torch.optim import adamw
+    from repro_torch.training.trainer import TrainConfig, Trainer
+    cfg = dataclasses.replace(get_config("ling-lite"), n_layers=4)
+    B, S, accum, steps = 2, 1024, 2, 4
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    runner = api.Runner(cfg, device="cuda")
+    pipe = DataPipeline(PipelineConfig(vocab_size=cfg.vocab_size,
+                                       seq_len=S, batch_size=B, seed=0))
+    trainer = Trainer(runner, pipe, TrainConfig(
+        n_steps=steps, accum_steps=accum, log_every=1, seed=0,
+        debug_guards=True))
+    torch.cuda.synchronize()
+    n_par = sum(t.numel() for t in adamw.leaves(trainer.params))
+    print(f"[train] ling-lite d={cfg.d_model} layers={cfg.n_layers} (of 28) "
+          f"experts={cfg.moe.n_experts} top{cfg.moe.top_k} vocab="
+          f"{cfg.vocab_size}: {n_par / 1e9:.3f}B params, fp32 masters, init "
+          f"{time.perf_counter() - t0:.1f}s; seq={S} microbatch={B} "
+          f"accum={accum} remat=True router_warmup_steps="
+          f"{cfg.moe.router_warmup_steps}")
+    build.reset_launches()
+    times = []
+    try:
+        for k in range(1, steps + 1):
+            t0 = time.perf_counter()
+            trainer.train(k)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+    finally:
+        trainer.close()
+    launches = dict(build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    hist = trainer.history
+    step_s = sum(times[-2:]) / 2               # the median of two
+    dev = trainer.timer.stats["device/step"].durations
+    dev_ms = sum(list(dev)[-2:]) / 2e3
+    for r in hist:
+        print(f"[train] step={r['step']} loss={r['loss']:.4f} "
+              f"ce={r['loss/ce']:.4f} aux={r['loss/aux']:.4f} "
+              f"grad_norm={r['grad_norm']:.3f} lr={r['lr']:.2e} "
+              f"skipped={r['skipped']} max_expert_frac="
+              f"{r['router/max_expert_frac']:.3f}")
+    per_step = {n: v / steps for n, v in launches.items()}
+    want = {"fused_moe_ffn": 2 * cfg.n_layers * accum,
+            "grouped_matmul_aligned": 6 * cfg.n_layers * accum,
+            "grouped_matmul_wgrad": 3 * cfg.n_layers * accum,
+            "paged_attn_scores_max": 0, "paged_attn_accumulate": 0}
+    tok_s = B * S * accum / step_s
+    print(f"[train] step times {[round(t, 3) for t in times]}s; median of "
+          f"the last 2 {step_s:.3f}s (device time {dev_ms:.1f}ms); "
+          f"{tok_s:.0f} tokens/s; peak max_memory_allocated "
+          f"{peak / 2**30:.2f}GiB ({peak / 1e9:.2f}GB); launches per step "
+          f"{per_step} expected {want}; commit_frac "
+          f"{trainer.timer.gauges.get('commit_frac')} guard_n "
+          f"{int(trainer.guard_state['n'])} [{card}]")
+    if len(hist) != steps or not all(
+            torch.isfinite(torch.tensor(r["loss"])) for r in hist):
+        fail(f"training: losses {[r['loss'] for r in hist]}")
+    if int(trainer.guard_state["n"]) != steps or \
+            "commit_frac" not in trainer.timer.gauges:
+        fail("training: the spike guard's commit was not reported per step")
+    if per_step != want:
+        fail(f"training launches per step {per_step} != {want}")
+    if not peak < 80e9:
+        fail(f"training peak memory {peak / 1e9:.2f} GB >= 80 GB")
+    return launches
 
 
 def end_to_end(cfg, params, gen):
@@ -378,7 +685,8 @@ def main():
     # -- 3. per-kernel checks ----------------------------------------------
     cfg = get_config("ling-lite")
     gen = torch.Generator(device="cuda").manual_seed(1234)
-    k1 = {"decode": check_k1(cfg, 8, gen), "prefill": check_k1(cfg, 64, gen)}
+    k1 = {"decode": check_k1(cfg, 8, gen), "prefill": check_k1(cfg, 64, gen),
+          "train": check_k1(cfg, 2048, gen)}
     torch.cuda.empty_cache()
     n_pages = 8 * 32 + 1
     dec = paged_case(cfg, B=8, Q=1, ctx=[100, 300, 0, 171, 256, 0, 129, 233],
@@ -387,13 +695,22 @@ def main():
                      gen=gen)
     k3d, k4d = check_pa(cfg, "decode", dec)
     k3p, k4p = check_pa(cfg, "prefill", pre)
+    del dec, pre
+    k2, wgrad = check_k2(cfg, gen)
     results = {"fused_moe_ffn": k1,
                "paged_attn_scores_max": {"decode": k3d, "prefill": k3p},
-               "paged_attn_accumulate": {"decode": k4d, "prefill": k4p}}
-    del dec, pre
+               "paged_attn_accumulate": {"decode": k4d, "prefill": k4p},
+               "grouped_matmul_aligned": k2,
+               "grouped_matmul_wgrad": wgrad}
+    gc.collect()
     torch.cuda.empty_cache()
 
-    # -- 4. serving ---------------------------------------------------------
+    # -- 4. gradients --------------------------------------------------------
+    check_grads(cfg, gen)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 5. serving ---------------------------------------------------------
     from repro_torch import api
     t0 = time.perf_counter()
     params = api.Runner(cfg, device="cuda").init_params(0)
@@ -403,32 +720,52 @@ def main():
           f"experts={cfg.moe.n_experts} top{cfg.moe.top_k}: {n_par / 1e9:.2f}B "
           f"params, {sum(t.numel() * t.element_size() for t in _leaves(params)) / 2**30:.1f}GiB, "
           f"init {time.perf_counter() - t0:.1f}s (depth not cut)")
-    _, launches = serve(cfg, params)
+    _, serve_launches = serve(cfg, params)
 
-    # -- 5. end to end ------------------------------------------------------
+    # -- 6. end to end ------------------------------------------------------
     end_to_end(cfg, params, gen)
 
-    # -- 6. results ---------------------------------------------------------
-    sources = {"fused_moe_ffn": ("src/repro_torch/kernels/csrc/fused_moe_ffn.cu",
-                                 "src/repro/kernels/grouped_matmul.py:264"),
-               "paged_attn_scores_max": ("src/repro_torch/kernels/csrc/paged_attn.cu",
-                                         "src/repro/kernels/paged_attn.py:182"),
-               "paged_attn_accumulate": ("src/repro_torch/kernels/csrc/paged_attn.cu",
-                                         "src/repro/kernels/paged_attn.py:229")}
+    # -- 7. training --------------------------------------------------------
+    del params          # 31 GiB of bf16 serving weights
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_launches = train(card)
+
+    # -- 8. results ---------------------------------------------------------
+    # (source, TPU kernel it replaces, the row's shape, the path whose
+    # launch count the row reports)
+    meta = {"fused_moe_ffn": ("src/repro_torch/kernels/csrc/fused_moe_ffn.cu",
+                              "src/repro/kernels/grouped_matmul.py:264",
+                              "train", "train"),
+            "grouped_matmul_aligned": (
+                "src/repro_torch/kernels/csrc/grouped_matmul.cu",
+                "src/repro/kernels/grouped_matmul.py:124", "up d->ff",
+                "train"),
+            "grouped_matmul_wgrad": (
+                "src/repro_torch/kernels/csrc/grouped_matmul.cu",
+                "src/repro/core/moe.py:179", "train", "train"),
+            "paged_attn_scores_max": ("src/repro_torch/kernels/csrc/paged_attn.cu",
+                                      "src/repro/kernels/paged_attn.py:182",
+                                      "decode", "serve"),
+            "paged_attn_accumulate": ("src/repro_torch/kernels/csrc/paged_attn.cu",
+                                      "src/repro/kernels/paged_attn.py:229",
+                                      "decode", "serve")}
+    launches = {"serve": serve_launches, "train": train_launches}
     rows = []
     for name, shapes in results.items():
-        d = shapes["decode"]
-        rows.append({"name": name, "route": "cuda",
-                     "source": sources[name][0],
-                     "replaces": sources[name][1],
-                     "launches": launches[name],
+        src_path, replaces, main_shape, path = meta[name]
+        d = shapes[main_shape]
+        rows.append({"name": name, "route": "cuda", "source": src_path,
+                     "replaces": replaces,
+                     "launches": launches[path][name],
+                     "launches_by_path": {p: launches[p][name]
+                                          for p in launches},
                      "max_abs_err": max(s["max_abs_err"]
                                         for s in shapes.values()),
                      "tolerance": d["tolerance"],
                      "ms": d["ms"], "plain_ms": d["plain_ms"],
                      "bound_ms": d["bound_ms"], "bound_by": d["bound_by"],
-                     "bound_us": d["bound_ms"] * 1e3,
-                     "library_ms": None,
+                     "library_ms": d["library_ms"],
                      "shapes": shapes})
     print(json.dumps({"kernels": rows}))
     print(card)

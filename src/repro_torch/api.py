@@ -1,5 +1,5 @@
-"""High-level runner for the port (counterpart of `repro.api.Runner`,
-serving half at tp=1): parameter init, paged KV pools, and the paged
+"""High-level runner for the port (counterpart of `repro.api.Runner`) at
+tp=1: parameter init, the train step, paged KV pools, and the paged
 serving steps as plain callables.
 
 Entry points run on the card: `device` defaults to "cuda", and asking
@@ -13,13 +13,15 @@ the reference.
 from __future__ import annotations
 
 import dataclasses
-from typing import Union
+from typing import Optional, Union
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import spikes as spikes_lib
 from repro_torch.models import layers as L
 from repro_torch.models import model as M
+from repro_torch.optim import adamw
 
 
 def resolve_device(device: Union[str, torch.device]) -> torch.device:
@@ -42,10 +44,84 @@ class Runner:
         torch.backends.cuda.matmul.allow_tf32 = False
 
     def init_params(self, seed: int = 0):
-        """Random parameters on the runner's device from
+        """Random serving parameters on the runner's device from
         `torch.Generator(device).manual_seed(seed)`."""
         gen = torch.Generator(device=self.device).manual_seed(seed)
         return M.init_model(self.cfg, device=self.device, generator=gen)
+
+    def init_train_params(self, seed: int = 0):
+        """Random training parameters: every leaf an fp32 master (the
+        reference's `param_dtype`), cast to the compute dtype at use."""
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+        return M.init_model(self.cfg, device=self.device, generator=gen,
+                            masters=True)
+
+    # -- train step ----------------------------------------------------------
+    def make_train_step(self, opt_cfg: adamw.AdamWConfig = adamw.AdamWConfig(),
+                        *,
+                        spike_guard: Optional[spikes_lib.SpikeConfig] = None):
+        """The train step ``(params, opt_state, guard_state, batch, step,
+        seed, lr) -> (params, opt_state, guard_state, metrics)``.
+
+        params are fp32 masters (`init_train_params`); batch leaves are
+        (B, S) token ids for one microbatch, or (accum, B, S) for accum
+        microbatches, so one step serves every stage of the batch-size
+        warmup.  The step accumulates fp32 grads over the microbatches
+        (mean), clips by the global norm, runs the spike guard when
+        `spike_guard` is given (``metrics["commit"]`` is then 1.0 or 0.0)
+        and applies AdamW in place with the commit gate; params,
+        opt_state and guard_state are updated in place and returned.
+        Microbatch k's router-warmup noise is seeded from
+        ``noise_seed(seed, step, k)``.  Metrics stay on the device;
+        nothing in the step reads a device value on the host."""
+        cfg, flags = self.cfg, self.flags
+
+        def step_fn(params, opt_state, guard_state, batch, step: int,
+                    seed: int, lr: float):
+            leaves = adamw.leaves(params)
+            for p in leaves:
+                p.requires_grad_(True)
+                p.grad = None
+            accum = (batch["tokens"].shape[0] if batch["tokens"].ndim == 3
+                     else 1)
+            micro = ([batch] if accum == 1 else
+                     [{k: v[i] for k, v in batch.items()}
+                      for i in range(accum)])
+            losses, mets = [], []
+            for k, mb in enumerate(micro):
+                loss, m = M.loss_fn(cfg, params, mb, step=step,
+                                    seed=M.noise_seed(seed, step, k),
+                                    flags=flags)
+                loss.backward()      # sums into p.grad, in fp32
+                losses.append(loss.detach())
+                mets.append({n: v.detach() for n, v in m.items()})
+            grads = [p.grad for p in leaves]
+            if accum > 1:
+                for g in grads:
+                    g.div_(accum)
+            loss = torch.mean(torch.stack(losses))
+            metrics = {n: torch.mean(torch.stack([m[n] for m in mets]))
+                       for n in mets[0]}
+            gnorm = adamw.global_grad_norm(grads)
+            scale = torch.clamp(opt_cfg.clip_norm
+                                / torch.clamp(gnorm, min=1e-12), max=1.0)
+            commit = None
+            if spike_guard is not None:
+                commit, new_guard = spikes_lib.guard_commit(
+                    spike_guard, guard_state, loss, gnorm=gnorm)
+                guard_state.update(new_guard)
+            adamw.apply_updates(params, grads, opt_state, lr, opt_cfg,
+                                grad_scale=scale, commit=commit)
+            for p in leaves:
+                p.grad = None
+            metrics = dict(metrics, grad_norm=gnorm, loss=loss)
+            if commit is not None:
+                metrics["commit"] = commit.float()
+            return params, opt_state, guard_state, metrics
+        return step_fn
+
+    # the reference's name; PyTorch runs eagerly, so nothing is compiled
+    jit_train_step = make_train_step
 
     def init_paged_pools(self, n_pages: int, page_size: int):
         """Zeroed paged KV pools; page 0 is the scratch page.  Also where

@@ -1,11 +1,20 @@
-"""Expert router (paper §3.2.2), inference path (counterpart of
-`repro.core.router`): fp32 softmax gating with top-k selection and no
-renormalization.  The aux losses and the stochastic routing warmup belong
-to training and arrive with the training slice."""
+"""Expert router (paper §3.2.2; counterpart of `repro.core.router`) at
+tp=1: fp32 softmax gating with top-k selection and no renormalization,
+Eq. (1); for training also the Switch balance loss, the router z-loss
+(§3.4.1 coefficients) and the Stochastic Routing Warmup, Eq. (3).
+
+The warmup is split in two: `stochastic_warmup_logits` is the pure mix of
+the learned logits with synthesized ones, given the noise `eps`, and
+`warmup_noise` draws `eps` from an explicit `torch.Generator`.  The
+reference draws it from a threefry key, so a seeded run of the port
+routes differently from the reference while the warmup is active, and
+identically once alpha reaches 1.
+"""
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional
 
+import numpy as np
 import torch
 
 
@@ -14,9 +23,55 @@ def init_router(cfg, init) -> Dict[str, torch.Tensor]:
                               getattr(torch, cfg.param_dtype))}
 
 
-def route(cfg, params, x: torch.Tensor
-          ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x (T, d) -> (top_w (T, k) fp32, top_i (T, k)), Eq. (1)."""
+def warmup_noise(shape, generator: torch.Generator,
+                 device) -> torch.Tensor:
+    """eps ~ N(0, 1) fp32 for `stochastic_warmup_logits`."""
+    return torch.randn(shape, generator=generator, dtype=torch.float32,
+                       device=device)
+
+
+def stochastic_warmup_logits(logits: torch.Tensor, step: int,
+                             warmup_steps: int,
+                             eps: torch.Tensor) -> torch.Tensor:
+    """Eq. (3): s_hat = alpha*s + (1-alpha)*(mu_s + sigma_s * eps), with
+    mu_s / sigma_s scalar statistics of the logits (no gradient) and
+    alpha = min(step / W, 1) in fp32."""
+    mu = torch.mean(logits)
+    var = torch.mean((logits - mu) ** 2)
+    mu = mu.detach()
+    sigma = torch.sqrt(var + 1e-6).detach()
+    alpha = float(min(np.float32(step) / np.float32(max(warmup_steps, 1)),
+                      np.float32(1.0)))
+    return alpha * logits + (1.0 - alpha) * (mu + sigma * eps)
+
+
+def route(cfg, params, x: torch.Tensor, *, train: bool = False,
+          step: Optional[int] = None, eps: Optional[torch.Tensor] = None):
+    """x (T, d) -> (top_w (T, k) fp32, top_i (T, k)), Eq. (1).
+
+    With `train` it returns (top_w, top_i, aux, metrics): aux is the
+    weighted balance + z loss (a 0-d fp32 tensor) and metrics the four
+    `router/*` values, all on x's device.  The warmup mix applies when
+    `eps` (T, E) is given and the config has warmup steps, as the
+    reference applies it when given an rng."""
+    m = cfg.moe
     logits = x.float() @ params["wr"].float()             # (T, E)
+    if train and eps is not None and m.router_warmup_steps > 0:
+        logits = stochastic_warmup_logits(logits, step,
+                                          m.router_warmup_steps, eps)
     probs = torch.softmax(logits, dim=-1)
-    return torch.topk(probs, cfg.moe.top_k, dim=-1)
+    top_w, top_i = torch.topk(probs, m.top_k, dim=-1)
+    if not train:
+        return top_w, top_i
+    E = m.n_experts
+    hits = torch.zeros_like(probs).scatter_(1, top_i, 1.0)   # (T, E)
+    f = torch.mean(hits, dim=0) / m.top_k                 # fraction routed
+    p_mean = torch.mean(probs, dim=0)
+    balance = E * torch.sum(f * p_mean)
+    z = torch.mean(torch.logsumexp(logits, dim=-1) ** 2)
+    aux = m.balance_loss_coef * balance + m.z_loss_coef * z
+    metrics = {"router/balance_loss": balance,
+               "router/z_loss": z,
+               "router/max_expert_frac": torch.max(f),
+               "router/min_expert_frac": torch.min(f)}
+    return top_w, top_i, aux, metrics

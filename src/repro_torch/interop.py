@@ -4,10 +4,12 @@ The JAX package's `Runner.init_params(seed)` pytree (nested dicts, a
 leading layer dim on every `blocks` leaf) maps key for key onto the
 port's parameter dict, so conversion is a key walk plus a dtype choice.
 The dtype of each leaf is the one the port's own `init_model` gives it:
-the compute dtype for leaves the reference casts at use (attention,
-expert, shared-expert and embedding weights), fp32 for the router, the
-norm scales and the LM head.  numpy has no bf16, so the reference's fp32
-master weights are handed over as fp32 (exact) and cast once here.
+with `masters` (training) every leaf in `cfg.param_dtype`, as the
+reference stores it; for serving the compute dtype for leaves the
+reference casts at use (attention, expert, shared-expert and embedding
+weights), fp32 for the router, the norm scales and the LM head.  numpy
+has no bf16, so the reference's fp32 master weights are handed over as
+fp32 (exact) and cast once here.
 """
 from __future__ import annotations
 
@@ -19,11 +21,12 @@ import torch
 from repro_torch.models import model as M
 
 
-def params_from_numpy(tree: Dict[str, Any], cfg, *,
-                      device="cuda") -> Dict[str, Any]:
-    """Reference params (numpy leaves) -> the port's params on `device`.
-    Raises if the key sets or shapes differ from the port's layout."""
-    layout = M.init_model(cfg, device="meta")
+def params_from_numpy(tree: Dict[str, Any], cfg, *, device="cuda",
+                      masters: bool = False) -> Dict[str, Any]:
+    """Reference params (numpy leaves) -> the port's params on `device`,
+    in training storage when `masters`, else in serving storage.  Raises
+    if the key sets or shapes differ from the port's layout."""
+    layout = M.init_model(cfg, device="meta", masters=masters)
 
     def convert(ref, spec, path):
         if isinstance(spec, dict):

@@ -36,6 +36,8 @@ SIGNATURES = {
     "fused_moe_ffn": ("fused_moe_ffn", [_P] * 13 + [_I] * 8 + [_P]),
     "paged_attn_scores_max": ("paged_attn", [_P] * 5 + [_I] * 7 + [_F, _P]),
     "paged_attn_accumulate": ("paged_attn", [_P] * 8 + [_I] * 7 + [_F, _P]),
+    "grouped_matmul_aligned": ("grouped_matmul", [_P] * 4 + [_I] * 7 + [_P]),
+    "grouped_matmul_wgrad": ("grouped_matmul", [_P] * 5 + [_I] * 6 + [_P]),
 }
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in SIGNATURES}

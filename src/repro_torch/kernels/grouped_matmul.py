@@ -1,16 +1,23 @@
-"""K1: the fused MoE FFN — wrapper over the CUDA kernel and its plain
-PyTorch version (counterpart of `repro.kernels.grouped_matmul.fused_moe_ffn`).
+"""The grouped-matmul kernels — wrappers over the CUDA kernels and their
+plain PyTorch versions (counterpart of `repro.kernels.grouped_matmul`):
 
-Operands follow the reference's expert-aligned layout
+  K1 `fused_moe_ffn`           csrc/fused_moe_ffn.cu, the MoE forward;
+  K2 `grouped_matmul_aligned`  csrc/grouped_matmul.cu, the row-ragged
+                               products of the MoE backward;
+  `grouped_matmul_wgrad`       csrc/grouped_matmul.cu, their weight
+                               gradient (no TPU kernel: the reference
+                               leaves the transpose of ragged_dot to XLA).
+
+K1's operands follow the reference's expert-aligned layout
 (`kernels.ops._fused_layout`): x (T, d) unsorted activations; w1/w3
 (G, d, ff) and w2 (G, ff, d); row_idx (n_m, bm) int32 token per padded
 row; gates (n_m, bm) fp32 router weight per row, 0 for padding;
 tile_group (n_m,) int32 expert per row tile, G for all-padding tiles.
 The result is (T, d) fp32: sum over rows of gate * FFN_e(x[row_idx]).
 
-`fused_moe_ffn` takes the plain version for CPU tensors and launches the
-kernel (csrc/fused_moe_ffn.cu) for CUDA tensors, raising on anything the
-kernel does not take.  Never a fallback.
+Every wrapper takes the plain version for CPU tensors and launches its
+kernel for CUDA tensors, raising on anything the kernel does not take.
+Never a fallback.
 """
 from __future__ import annotations
 
@@ -119,4 +126,123 @@ def fused_moe_ffn(x, w1, w2, w3, row_idx, gates, tile_group, *,
         T, d, ff, G, n_m, bm, _ACT_IDS[act], int(gated), stream)
     build.check(err, "fused_moe_ffn")
     build.LAUNCHES["fused_moe_ffn"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K2: grouped matmul over group-aligned rows, and its weight gradient
+# ---------------------------------------------------------------------------
+
+
+def grouped_matmul_aligned_ref(lhs, rhs, tile_group, *, bm: int,
+                               trans_b: bool = False) -> torch.Tensor:
+    """Plain version of K2: lhs (M_pad, K) group-aligned; rhs (G, K, N), or
+    (G, N, K) used transposed when `trans_b`; tile_group (M_pad / bm,)
+    int32, G for overflow tiles.  Returns (M_pad, N) fp32: each bm-row
+    tile times its group's rhs in fp32, overflow tiles 0."""
+    M_pad, K = lhs.shape
+    G = rhs.shape[0]
+    N = rhs.shape[1] if trans_b else rhs.shape[2]
+    tiles = lhs.float().reshape(M_pad // bm, bm, K)
+    out = torch.zeros((M_pad // bm, bm, N), dtype=torch.float32,
+                      device=lhs.device)
+    tg = tile_group.long()
+    for g in range(G):
+        sel = torch.nonzero(tg == g).squeeze(1)
+        if sel.numel():
+            w = rhs[g].float()
+            out[sel] = tiles[sel] @ (w.T if trans_b else w)
+    return out.reshape(M_pad, N)
+
+
+def _check_cuda(name: str, **tensors):
+    for arg, (t, dtypes) in tensors.items():
+        if t.dtype not in dtypes or not t.is_contiguous():
+            raise ValueError(f"{name}: {arg} must be contiguous "
+                             f"{'/'.join(str(d) for d in dtypes)}, got "
+                             f"{t.dtype}")
+
+
+def grouped_matmul_aligned(lhs, rhs, tile_group, *, bm: int,
+                           trans_b: bool = False) -> torch.Tensor:
+    """K2.  CPU tensors: the plain version.  CUDA tensors: the kernel
+    (lhs fp32 or bf16, rhs bf16; K and N multiples of 4)."""
+    if lhs.device.type == "cpu":
+        return grouped_matmul_aligned_ref(lhs, rhs, tile_group, bm=bm,
+                                          trans_b=trans_b)
+    if lhs.device.type != "cuda":
+        raise ValueError(f"grouped_matmul_aligned: unsupported device "
+                         f"{lhs.device}")
+    M_pad, K = lhs.shape
+    G = rhs.shape[0]
+    N = rhs.shape[1] if trans_b else rhs.shape[2]
+    K_rhs = rhs.shape[2] if trans_b else rhs.shape[1]
+    _check_cuda("grouped_matmul_aligned",
+                lhs=(lhs, (torch.float32, torch.bfloat16)),
+                rhs=(rhs, (torch.bfloat16,)))
+    tile_group = tile_group.to(torch.int32).contiguous()
+    if (K_rhs != K or M_pad % bm or tile_group.shape != (M_pad // bm,)
+            or K % 4 or N % 4):
+        raise ValueError(f"grouped_matmul_aligned: lhs {tuple(lhs.shape)}, "
+                         f"rhs {tuple(rhs.shape)} (trans_b={trans_b}), bm "
+                         f"{bm}, tile_group {tuple(tile_group.shape)}: "
+                         f"shapes must agree and K, N be multiples of 4")
+    out = torch.empty((M_pad, N), dtype=torch.float32, device=lhs.device)
+    stream = torch.cuda.current_stream(lhs.device).cuda_stream
+    err = build.entry("grouped_matmul_aligned")(
+        lhs.data_ptr(), rhs.data_ptr(), tile_group.data_ptr(),
+        out.data_ptr(), M_pad, K, N, G, bm,
+        int(lhs.dtype == torch.bfloat16), int(trans_b), stream)
+    build.check(err, "grouped_matmul_aligned")
+    build.LAUNCHES["grouped_matmul_aligned"] += 1
+    return out
+
+
+def grouped_matmul_wgrad_ref(lhs, rhs, group_sizes) -> torch.Tensor:
+    """Plain version of the weight-gradient kernel: lhs (M, K) and rhs
+    (M, N) row-sorted by group; returns (G, K, N) fp32 with out[g] =
+    lhs_rows_g^T rhs_rows_g over group g's rows; rows past the last group
+    contribute nothing."""
+    M, K = lhs.shape
+    N = rhs.shape[1]
+    G = group_sizes.shape[0]
+    out = torch.zeros((G, K, N), dtype=torch.float32, device=lhs.device)
+    start = 0
+    for g, n in enumerate(group_sizes.tolist()):
+        end = min(start + n, M)
+        if end > start:
+            out[g] = lhs[start:end].float().T @ rhs[start:end].float()
+        start = end
+    return out
+
+
+def grouped_matmul_wgrad(lhs, rhs, group_sizes) -> torch.Tensor:
+    """The grouped weight gradient.  CPU tensors: the plain version.  CUDA
+    tensors: the kernel (lhs and rhs fp32 or bf16; K and N multiples of
+    4), with the group offsets cumulated on the device."""
+    if lhs.device.type == "cpu":
+        return grouped_matmul_wgrad_ref(lhs, rhs, group_sizes)
+    if lhs.device.type != "cuda":
+        raise ValueError(f"grouped_matmul_wgrad: unsupported device "
+                         f"{lhs.device}")
+    M, K = lhs.shape
+    N = rhs.shape[1]
+    G = group_sizes.shape[0]
+    both = (torch.float32, torch.bfloat16)
+    _check_cuda("grouped_matmul_wgrad", lhs=(lhs, both), rhs=(rhs, both))
+    if rhs.shape[0] != M or K % 4 or N % 4:
+        raise ValueError(f"grouped_matmul_wgrad: lhs {tuple(lhs.shape)}, "
+                         f"rhs {tuple(rhs.shape)}: rows must agree and K, N "
+                         f"be multiples of 4")
+    sizes = group_sizes.to(torch.int32).contiguous()
+    offsets = (torch.cumsum(group_sizes.long(), 0) - group_sizes.long()) \
+        .to(torch.int32)
+    out = torch.empty((G, K, N), dtype=torch.float32, device=lhs.device)
+    stream = torch.cuda.current_stream(lhs.device).cuda_stream
+    err = build.entry("grouped_matmul_wgrad")(
+        lhs.data_ptr(), rhs.data_ptr(), offsets.data_ptr(), sizes.data_ptr(),
+        out.data_ptr(), M, K, N, G, int(lhs.dtype == torch.bfloat16),
+        int(rhs.dtype == torch.bfloat16), stream)
+    build.check(err, "grouped_matmul_wgrad")
+    build.LAUNCHES["grouped_matmul_wgrad"] += 1
     return out

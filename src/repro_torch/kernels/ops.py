@@ -7,10 +7,88 @@ tensors.
 """
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from repro_torch.kernels import grouped_matmul as _gm
 from repro_torch.kernels import paged_attn as _pa
+
+
+class AlignedLayout(NamedTuple):
+    """Where `_align_groups` puts each row, index arrays only: tile_group
+    (M_pad / bm,) int32 group per bm-row tile, G for overflow tiles;
+    row_map (M_pad,) source row per padded row, -1 for padding; dest (M,)
+    padded row per source row, -1 for rows past sum(group_sizes)."""
+    bm: int
+    tile_group: torch.Tensor
+    row_map: torch.Tensor
+    dest: torch.Tensor
+
+
+def align_layout(group_sizes, M: int, bm: int) -> AlignedLayout:
+    """The row layout of `_align_groups` for M group-sorted rows: every
+    group starts at a multiple of bm.  M_pad = M + G * (bm - 1), rounded
+    up to bm, is fixed by the shapes, so nothing is read on the host."""
+    G = group_sizes.shape[0]
+    gs = group_sizes.long()
+    padded = ((gs + bm - 1) // bm) * bm
+    bounds = torch.cumsum(padded, 0)                     # aligned group ends
+    out_starts = bounds - padded
+    ends = torch.cumsum(gs, 0)
+    in_starts = ends - gs
+    M_pad = ((M + G * (bm - 1) + bm - 1) // bm) * bm
+    rows = torch.arange(M_pad, device=gs.device)
+    gid = torch.searchsorted(bounds, rows, right=True)
+    gid_c = gid.clamp(0, G - 1)
+    off = rows - out_starts[gid_c]
+    valid = (gid < G) & (off < gs[gid_c])
+    row_map = torch.where(valid, in_starts[gid_c] + off, -1)
+    tile_group = torch.where(valid[::bm], gid_c[::bm], G).to(torch.int32)
+    src = torch.arange(M, device=gs.device)
+    sg = torch.searchsorted(ends, src, right=True)       # group of each row
+    sg_c = sg.clamp(0, G - 1)
+    dest = torch.where(sg < G, out_starts[sg_c] + src - in_starts[sg_c], -1)
+    return AlignedLayout(bm, tile_group, row_map, dest)
+
+
+def _take_rows(t, idx):
+    """t[idx] with rows where idx < 0 set to 0, in t's dtype."""
+    return torch.where((idx >= 0)[:, None], t[idx.clamp_min(0)], 0)
+
+
+def _align_groups(lhs, group_sizes, bm: int):
+    """Re-layout ragged rows so each group starts at a multiple of bm.
+    Returns (lhs_aligned (M_pad, K), tile_group (M_pad/bm,), row_map
+    (M_pad,) source row per padded row or -1) — the reference's
+    `_align_groups`, op for op."""
+    lay = align_layout(group_sizes, lhs.shape[0], bm)
+    return _take_rows(lhs, lay.row_map), lay.tile_group, lay.row_map
+
+
+def grouped_matmul(lhs, rhs, group_sizes, *, bm: int = 128,
+                   layout: AlignedLayout | None = None,
+                   trans_b: bool = False) -> torch.Tensor:
+    """Drop-in for jax.lax.ragged_dot on K2: lhs (M, K) group-sorted rows,
+    rhs (G, K, N) (or (G, N, K) used transposed when `trans_b`),
+    group_sizes (G,).  Rows past sum(group_sizes) give 0.  Returns (M, N)
+    fp32.  Callers that multiply one row grouping by several rhs pass the
+    `align_layout` once as `layout`."""
+    if layout is None:
+        layout = align_layout(group_sizes, lhs.shape[0],
+                              min(bm, max(8, lhs.shape[0])))
+    out = _gm.grouped_matmul_aligned(
+        _take_rows(lhs, layout.row_map), rhs, layout.tile_group,
+        bm=layout.bm, trans_b=trans_b)
+    return _take_rows(out, layout.dest)
+
+
+def grouped_matmul_wgrad(lhs, rhs, group_sizes) -> torch.Tensor:
+    """The weight gradient of `grouped_matmul`: lhs (M, K) and rhs (M, N)
+    group-sorted rows -> (G, K, N) fp32, out[g] = lhs_g^T rhs_g (what
+    jax.vjp of ragged_dot gives for its rhs)."""
+    return _gm.grouped_matmul_wgrad(lhs.contiguous(), rhs.contiguous(),
+                                    group_sizes)
 
 
 def _fused_layout(tok, gate, group_sizes, n_tokens: int, bm: int):
@@ -23,25 +101,13 @@ def _fused_layout(tok, gate, group_sizes, n_tokens: int, bm: int):
     0 for padding; tile_group (n_m,) int32 expert per tile, G for
     all-padding tiles) — the reference's `_fused_layout`, op for op."""
     cap = tok.shape[0]
-    G = group_sizes.shape[0]
-    group_sizes = group_sizes.long()
-    padded = ((group_sizes + bm - 1) // bm) * bm
-    bounds = torch.cumsum(padded, 0)                     # aligned group ends
-    out_starts = bounds - padded
-    in_starts = torch.cumsum(group_sizes, 0) - group_sizes
-    M_pad = cap + G * (bm - 1)
-    M_pad = ((M_pad + bm - 1) // bm) * bm
-    rows = torch.arange(M_pad, device=tok.device)
-    gid = torch.searchsorted(bounds, rows, right=True)
-    gid_c = gid.clamp(0, G - 1)
-    off = rows - out_starts[gid_c]
-    valid = (gid < G) & (off < group_sizes[gid_c])
-    src = (in_starts[gid_c] + off).clamp(0, cap - 1)
+    lay = align_layout(group_sizes, cap, bm)
+    valid = lay.row_map >= 0
+    src = lay.row_map.clamp(0, cap - 1)
     row_idx = torch.where(valid, tok[src].long(), 0)
     row_idx = row_idx.clamp(0, n_tokens - 1).to(torch.int32)
     gates = torch.where(valid, gate[src].float(), 0.0)
-    tile_group = torch.where(valid[::bm], gid_c[::bm], G).to(torch.int32)
-    return row_idx.reshape(-1, bm), gates.reshape(-1, bm), tile_group
+    return row_idx.reshape(-1, bm), gates.reshape(-1, bm), lay.tile_group
 
 
 def moe_fused_ffn(x, w1, w2, w3, tok, gate, group_sizes, *,

@@ -15,7 +15,7 @@ def padded_vocab(cfg) -> int:
 def init_embedding(cfg, init: L.Init):
     vp = padded_vocab(cfg)
     params = {"table": init.normal((vp, cfg.d_model),
-                                   L.dtype_of(cfg.compute_dtype))}
+                                   init.weight_dtype(cfg))}
     if not cfg.tie_embeddings:
         params["lm_head"] = init.normal((vp, cfg.d_model),
                                         L.dtype_of(cfg.param_dtype))

@@ -7,9 +7,11 @@ bf16, bf16 times fp32 gives fp32 (`apply_rope`), and products the
 reference takes with `preferred_element_type=float32` upcast their
 operands to fp32 first.
 
-Weights the reference casts to `compute_dtype` at use arrive already in
-that dtype (interop.py / `init_model`); the `.to(cdt)` calls below are
-then no-ops kept for callers holding fp32 weights.
+Weights the reference casts to `compute_dtype` at use are stored in that
+dtype for serving and in `param_dtype` (fp32 masters) for training
+(`Init.masters`, interop.py / `init_model`); the `.to(cdt)` calls below
+cast masters at use, as the reference's `gather_fsdp(..., dtype=cdt)`
+does, and are no-ops on serving storage.
 """
 from __future__ import annotations
 
@@ -17,6 +19,7 @@ import dataclasses
 from typing import Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import grouped_matmul as _gm
 from repro_torch.kernels import ops as kops
@@ -39,10 +42,17 @@ class Init:
     """Random-parameter factory: normal(0, scale) leaves drawn from one
     explicit `torch.Generator` on `device`, each shape prefixed by `lead`
     (the stacked layer dim).  On the meta device it only allocates
-    shapes."""
+    shapes.  `masters` picks the storage of the leaves the reference casts
+    to the compute dtype at use: `param_dtype` (training's fp32 masters)
+    or the compute dtype (serving)."""
     device: torch.device
     generator: Optional[torch.Generator] = None
     lead: Tuple[int, ...] = ()
+    masters: bool = False
+
+    def weight_dtype(self, cfg) -> torch.dtype:
+        return dtype_of(cfg.param_dtype if self.masters
+                        else cfg.compute_dtype)
 
     def normal(self, shape, dtype, scale: float = 0.02) -> torch.Tensor:
         t = torch.empty(self.lead + tuple(shape), dtype=dtype,
@@ -81,8 +91,10 @@ def rope_angles(positions: torch.Tensor, head_dim: int, theta: float):
     half = head_dim // 2
     exps = -torch.arange(0, half, dtype=torch.float32,
                          device=positions.device) / half
-    freqs = torch.pow(torch.tensor(theta, dtype=torch.float32,
-                                   device=positions.device), exps)
+    # torch.full, not torch.tensor: a 0-d fill on the device, no copy
+    # from the host (which would wait for the device)
+    freqs = torch.pow(torch.full((), theta, dtype=torch.float32,
+                                 device=positions.device), exps)
     ang = positions.float()[..., None] * freqs
     return torch.cos(ang), torch.sin(ang)
 
@@ -107,11 +119,11 @@ def init_mlp(cfg, init: Init, d_ff: Optional[int] = None,
              scale_out: float = 0.02) -> Params:
     d = cfg.d_model
     ff = d_ff if d_ff is not None else cfg.d_ff
-    cdt = dtype_of(cfg.compute_dtype)
-    params = {"w1": init.normal((d, ff), cdt),
-              "w2": init.normal((ff, d), cdt, scale_out)}
+    wdt = init.weight_dtype(cfg)
+    params = {"w1": init.normal((d, ff), wdt),
+              "w2": init.normal((ff, d), wdt, scale_out)}
     if cfg.mlp_act in GATED_ACTS:
-        params["w3"] = init.normal((d, ff), cdt)
+        params["w3"] = init.normal((d, ff), wdt)
     return params
 
 
@@ -154,14 +166,57 @@ class AttnDims:
 def init_attention(cfg, init: Init) -> Params:
     ad = AttnDims.build(cfg)
     d, hd = cfg.d_model, ad.head_dim
-    cdt = dtype_of(cfg.compute_dtype)
+    wdt = init.weight_dtype(cfg)
     out_scale = 0.02 / max(cfg.n_layers, 1) ** 0.5
     return {
-        "wq": init.normal((d, ad.heads_padded * hd), cdt),
-        "wk": init.normal((d, ad.n_kv * hd), cdt),
-        "wv": init.normal((d, ad.n_kv * hd), cdt),
-        "wo": init.normal((ad.heads_padded * hd, d), cdt, out_scale),
+        "wq": init.normal((d, ad.heads_padded * hd), wdt),
+        "wk": init.normal((d, ad.n_kv * hd), wdt),
+        "wv": init.normal((d, ad.n_kv * hd), wdt),
+        "wo": init.normal((ad.heads_padded * hd, d), wdt, out_scale),
     }
+
+
+# ---------------------------------------------------------------------------
+# Training attention
+# ---------------------------------------------------------------------------
+
+
+def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                   causal: bool = True) -> torch.Tensor:
+    """q, k, v (B, S, H, hd), kv already expanded to H heads -> (B, S, H,
+    hd) in q's dtype.  The reference's `attention_core` is a blockwise
+    flash attention in pure JAX (not a Pallas kernel) with fp32 scores,
+    fp32 probabilities and an fp32 PV product; here the same math is
+    PyTorch's `scaled_dot_product_attention` on fp32 upcasts of the
+    operands, so the two differ by fp32 summation order."""
+    out = F.scaled_dot_product_attention(
+        q.float().transpose(1, 2), k.float().transpose(1, 2),
+        v.float().transpose(1, 2), is_causal=causal)
+    return out.transpose(1, 2).to(q.dtype)
+
+
+def apply_attention(cfg, params: Params, x: torch.Tensor, *,
+                    causal: bool = True) -> torch.Tensor:
+    """Training attention: x (B, S, d) -> (B, S, d) in the compute dtype.
+    QKV projections, RoPE at positions 0..S-1, causal GQA attention (query
+    head h reads kv head h // (H / KV)), output projection."""
+    ad = AttnDims.build(cfg)
+    cdt = dtype_of(cfg.compute_dtype)
+    B, S, _ = x.shape
+    hd = ad.head_dim
+    q = (x @ params["wq"].to(cdt)).reshape(B, S, ad.local_heads, hd)
+    k = (x @ params["wk"].to(cdt)).reshape(B, S, ad.n_kv, hd)
+    v = (x @ params["wv"].to(cdt)).reshape(B, S, ad.n_kv, hd)
+    if cfg.use_rope:
+        cos, sin = rope_angles(torch.arange(S, device=x.device), hd,
+                               cfg.rope_theta)
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
+    kv_idx = torch.arange(ad.local_heads, device=x.device) \
+        // max(ad.n_heads // ad.n_kv, 1)
+    kv_idx = kv_idx.clamp_max(ad.n_kv - 1)
+    out = attention_core(q, k[:, :, kv_idx], v[:, :, kv_idx], causal=causal)
+    return out.reshape(B, S, ad.local_heads * hd) @ params["wo"].to(cdt)
 
 
 # ---------------------------------------------------------------------------

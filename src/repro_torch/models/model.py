@@ -1,7 +1,7 @@
-"""Model assembly for paged serving at tp=1 (counterpart of
-`repro.models.model`): parameter init, paged KV pools, and the two fixed
-shape serving steps — one paged decode tick over every slot and one
-chunked-prefill chunk for one request.
+"""Model assembly at tp=1 (counterpart of `repro.models.model`):
+parameter init; the training forward and loss (`forward`, `loss_fn`);
+paged KV pools and the two fixed shape serving steps — one paged decode
+tick over every slot and one chunked-prefill chunk for one request.
 
 Parameters keep the reference's nested-dict keys with a leading layer
 dim on every `blocks` leaf; a Python loop over layers replaces
@@ -11,11 +11,15 @@ updated in place.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Dict, Optional
 
+import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import router as router_lib
 from repro_torch.core import moe as moe_lib
 from repro_torch.models import embedding as emb
 from repro_torch.models import layers as L
@@ -23,12 +27,19 @@ from repro_torch.models import layers as L
 
 @dataclasses.dataclass(frozen=True)
 class RunFlags:
-    """Serving knobs.  moe_dispatch: "auto" | "fused" | "ragged" ("auto"
-    is the K1 kernel path).  paged_attn: "auto" | "fused" | "gathered"
-    ("auto" is the K3/K4 kernel path).  On CPU tensors the kernel paths
-    run their plain versions."""
+    """Run knobs, with the reference's defaults.  moe_dispatch: "auto" |
+    "fused" | "ragged" ("auto" is the K1/K2 kernel path).  paged_attn:
+    "auto" | "fused" | "gathered" ("auto" is the K3/K4 kernel path).  On
+    CPU tensors the kernel paths run their plain versions.  Training:
+    `remat` recomputes each block and each loss chunk in the backward
+    (torch.utils.checkpoint); `loss_chunk` is the token chunk of the
+    cross entropy, so no (T, V) fp32 logits are held whole.  The
+    reference's `attn_block` has no counterpart: the port's SDPA
+    attention picks its own tiles."""
     moe_dispatch: str = "auto"
     paged_attn: str = "auto"
+    remat: bool = True
+    loss_chunk: int = 2048
 
 
 DEFAULT_FLAGS = RunFlags()
@@ -52,16 +63,19 @@ def init_block(cfg: ModelConfig, init: L.Init, ffn: str) -> Dict[str, Any]:
 
 
 def init_model(cfg: ModelConfig, *, device="cuda",
-               generator: Optional[torch.Generator] = None) -> Dict[str, Any]:
+               generator: Optional[torch.Generator] = None,
+               masters: bool = False) -> Dict[str, Any]:
     """Random parameters with the reference's shapes and scales
     (`layers.dense_init`: normal * 0.02, output projections * 0.02 /
     sqrt(n_layers), norms at 1), drawn on `device` from `generator`.
-    Leaves the reference casts to the compute dtype at use are stored in
-    that dtype; the router, the norms and the LM head stay fp32.  On the
-    meta device only shapes are built."""
+    With `masters` (training) every leaf is stored in `cfg.param_dtype`,
+    as the reference keeps it; otherwise (serving) the leaves the
+    reference casts to the compute dtype at use are stored in that dtype,
+    and the router, the norms and the LM head stay fp32.  On the meta
+    device only shapes are built."""
     check_paged_support(cfg)
     device = torch.device(device)
-    init = L.Init(device=device, generator=generator)
+    init = L.Init(device=device, generator=generator, masters=masters)
     params: Dict[str, Any] = {"embed": emb.init_embedding(cfg, init),
                               "final_norm": L.init_norm(cfg, init)}
     stacked = dataclasses.replace(init, lead=(cfg.n_layers,))
@@ -75,6 +89,125 @@ def layer_params(blocks, i: int):
     if isinstance(blocks, dict):
         return {k: layer_params(v, i) for k, v in blocks.items()}
     return blocks[i]
+
+
+# ---- forward and loss (training) -------------------------------------------
+
+
+def choose_block(s: int, target: int = 1024) -> int:
+    """Largest divisor of s that is <= target (chunks must tile s)."""
+    if s <= target:
+        return s
+    return max(b for b in range(1, target + 1) if s % b == 0)
+
+
+def noise_seed(seed: int, step: int, microbatch: int) -> int:
+    """The seed of one microbatch's router-warmup noise, a pure function
+    of (seed, step, microbatch)."""
+    return int(np.random.SeedSequence([seed, step, microbatch])
+               .generate_state(1)[0])
+
+
+def block_forward(cfg: ModelConfig, params, x, eps, *, B: int, S: int,
+                  ffn: str, step=None, flags: RunFlags = DEFAULT_FLAGS):
+    """One training block: x (T, d) -> (x, aux, metrics).  eps (T, E)
+    is the layer's router-warmup noise, or None."""
+    d = cfg.d_model
+    h = L.apply_norm(cfg, params["norm1"], x)
+    x = x + L.apply_attention(cfg, params["attn"],
+                              h.reshape(B, S, d)).reshape(B * S, d)
+    h = L.apply_norm(cfg, params["norm2"], x)
+    if ffn == "moe":
+        partial, aux, metrics = moe_lib.moe_ffn(
+            cfg, params["moe"], h, dispatch=flags.moe_dispatch, train=True,
+            step=step, eps=eps)
+    else:
+        partial = L.apply_mlp(cfg, params["mlp"], h)
+        aux, metrics = torch.zeros((), device=x.device), {}
+    return x + partial, aux, metrics
+
+
+def _run_blocks(cfg: ModelConfig, params, x, *, B: int, S: int, step,
+                seed, flags: RunFlags):
+    """The layer loop.  With `flags.remat` every block runs under
+    torch.utils.checkpoint and is recomputed in the backward.  Each
+    layer's warmup noise is drawn here, outside the checkpointed block,
+    from one generator seeded with `seed`: a draw inside the block would
+    be drawn anew in the recompute and route differently from the
+    forward.  Returns (x, aux summed over layers, metrics averaged over
+    layers)."""
+    ffn = _ffn_kind(cfg, cfg.n_layers - 1)
+    gen = None
+    if seed is not None and ffn == "moe" and cfg.moe.router_warmup_steps > 0:
+        gen = torch.Generator(device=x.device).manual_seed(seed)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    metrics_all = []
+    for i in range(cfg.n_layers):
+        eps = (router_lib.warmup_noise((x.shape[0], cfg.moe.n_experts), gen,
+                                       x.device) if gen is not None else None)
+        fn = functools.partial(block_forward, cfg, B=B, S=S, ffn=ffn,
+                               step=step, flags=flags)
+        lp = layer_params(params["blocks"], i)
+        if flags.remat:
+            x, a, mets = checkpoint(fn, lp, x, eps, use_reentrant=False,
+                                    preserve_rng_state=False)
+        else:
+            x, a, mets = fn(lp, x, eps)
+        aux = aux + a
+        metrics_all.append(mets)
+    metrics = {k: torch.mean(torch.stack([m[k] for m in metrics_all]))
+               for k in metrics_all[0]}
+    return x, aux, metrics
+
+
+def forward(cfg: ModelConfig, params, batch, *, step=None, seed=None,
+            flags: RunFlags = DEFAULT_FLAGS):
+    """Training forward: batch["tokens"] (B, S) -> (x_final (T, d), aux,
+    metrics).  `seed` seeds the router-warmup noise (`noise_seed`); None
+    draws none."""
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    x = emb.embed_tokens(cfg, params["embed"], tokens.reshape(-1))
+    x, aux, metrics = _run_blocks(cfg, params, x, B=B, S=S, step=step,
+                                  seed=seed, flags=flags)
+    return L.apply_norm(cfg, params["final_norm"], x), aux, metrics
+
+
+def _chunk_xent(cfg: ModelConfig, embed, xc, lc):
+    """Summed cross entropy of one token chunk over valid labels (>= 0);
+    the logits of vocab padding rows are -1e30."""
+    logits = emb.lm_logits(cfg, embed, xc)                # (C, Vp) fp32
+    vp = logits.shape[-1]
+    gid = torch.arange(vp, device=xc.device)
+    logits = torch.where(gid[None, :] < cfg.vocab_size, logits, -1e30)
+    m = torch.max(logits, dim=-1).values.detach()
+    lse = m + torch.log(torch.sum(torch.exp(logits - m[:, None]), dim=-1))
+    in_range = (lc >= 0) & (lc < vp)
+    picked = torch.gather(logits, 1, lc.clamp(0, vp - 1)[:, None])[:, 0]
+    correct = torch.where(in_range, picked, 0.0)
+    return torch.sum(torch.where(lc >= 0, lse - correct, 0.0))
+
+
+def loss_fn(cfg: ModelConfig, params, batch, *, step=None, seed=None,
+            flags: RunFlags = DEFAULT_FLAGS):
+    """Training loss: chunked NormHead cross entropy + MoE aux losses.
+    Each chunk of `flags.loss_chunk` tokens is checkpointed under
+    `flags.remat`, so its (chunk, V) fp32 logits live only inside it.
+    Returns (loss, metrics)."""
+    x, aux, block_metrics = forward(cfg, params, batch, step=step,
+                                    seed=seed, flags=flags)
+    labels = batch["labels"].reshape(-1)
+    T = x.shape[0]
+    chunk = choose_block(T, flags.loss_chunk)
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(0, T, chunk):
+        args = (cfg, params["embed"], x[i:i + chunk], labels[i:i + chunk])
+        total = total + (checkpoint(_chunk_xent, *args, use_reentrant=False,
+                                    preserve_rng_state=False)
+                         if flags.remat else _chunk_xent(*args))
+    n_valid = torch.sum((labels >= 0).float())
+    ce = total / torch.clamp(n_valid, min=1.0)
+    return ce + aux, {"loss/ce": ce, "loss/aux": aux, **block_metrics}
 
 
 # ---- paged decode / chunked prefill (online serving) -----------------------

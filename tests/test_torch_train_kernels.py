@@ -1,0 +1,262 @@
+"""The MoE backward's kernels: plain versions of K2 (grouped matmul over
+group-aligned rows) and of the grouped weight gradient against the JAX
+package (its K2 Pallas kernel in interpret mode, and jax.vjp of
+jax.lax.ragged_dot), the aligned layout against the reference's, and
+`FusedFFN`'s gradients against jax.vjp of the reference's `fused_ffn`.
+On a CUDA card only: the CUDA kernels against their plain versions.
+
+Tolerances: every product here is an fp32 product of operands that are
+exact in fp32 (bf16 weights upcast), so the two packages differ only in
+fp32 summation order: 1e-5 of the largest value.  After the reference's
+cast of a gradient to bf16, an element whose fp32 values differ in the
+last bits can round one bf16 ulp the other way, so cast gradients are
+held to one bf16 ulp of each element on top.
+
+The card-only tests import no JAX."""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import moe as TMOE
+from repro_torch.kernels import build
+from repro_torch.kernels import grouped_matmul as gm
+from repro_torch.kernels import ops as tops
+
+
+def _reference():
+    """(jax, jax.numpy, repro.kernels.ops, repro.core.moe), imported here
+    so the card-only tests need no JAX."""
+    import jax
+    import jax.numpy as jnp
+    from repro.core import moe as jmoe
+    from repro.kernels import ops as jops
+    return jax, jnp, jops, jmoe
+
+
+def _bf16_round(a):
+    """fp32 numpy values rounded to bf16 (and back), like torch."""
+    return torch.tensor(a).to(torch.bfloat16).float().numpy()
+
+
+# group sizes: ragged, an empty group, and (last case) rows past the sum
+GROUPS = {"ragged": [5, 0, 9, 3], "tail": [4, 7, 0, 6], "one": [20, 0, 0, 0]}
+M_ROWS = {"ragged": 17, "tail": 23, "one": 20}
+
+
+def _gmm_case(name, K=64, N=96, seed=0):
+    rs = np.random.RandomState(seed + len(name))
+    gs = np.array(GROUPS[name], np.int32)
+    M = M_ROWS[name]
+    lhs = rs.randn(M, K).astype(np.float32)
+    rhs = _bf16_round(0.2 * rs.randn(len(gs), K, N).astype(np.float32))
+    return lhs, rhs, gs
+
+
+@pytest.mark.parametrize("name", sorted(GROUPS))
+@pytest.mark.parametrize("bm", [8, 16])
+def test_align_groups_matches_reference_exactly(name, bm):
+    _, jnp, jops, _ = _reference()
+    lhs, _, gs = _gmm_case(name)
+    ref = jops._align_groups(jnp.asarray(lhs), jnp.asarray(gs), bm)
+    out = tops._align_groups(torch.tensor(lhs), torch.tensor(gs), bm)
+    for r, o in zip(ref, out):
+        np.testing.assert_array_equal(o.numpy(), np.asarray(r))
+
+
+@pytest.mark.parametrize("name", sorted(GROUPS))
+@pytest.mark.parametrize("trans_b", [False, True])
+def test_k2_plain_matches_pallas(name, trans_b):
+    """`ops.grouped_matmul` on K2's plain version against the reference's
+    `ops.grouped_matmul` (K2 in interpret mode, bm=8 so groups span
+    several tiles and tiles hold padding).  The port takes rhs in bf16
+    (read transposed from (G, N, K) storage when trans_b); the reference
+    gets the same values in fp32."""
+    _, jnp, jops, _ = _reference()
+    lhs, rhs, gs = _gmm_case(name)
+    ref = np.asarray(jops.grouped_matmul(
+        jnp.asarray(lhs), jnp.asarray(rhs), jnp.asarray(gs), bm=8,
+        interpret=True))
+    t_rhs = torch.tensor(rhs).to(torch.bfloat16)
+    if trans_b:
+        t_rhs = t_rhs.transpose(1, 2).contiguous()
+    out = tops.grouped_matmul(torch.tensor(lhs), t_rhs, torch.tensor(gs),
+                              bm=8, trans_b=trans_b)
+    assert out.dtype == torch.float32 and out.shape == ref.shape
+    # rows past sum(group_sizes) are exactly 0 in both
+    np.testing.assert_array_equal(out.numpy()[gs.sum():], 0.0)
+    np.testing.assert_allclose(out.numpy(), ref, rtol=0,
+                               atol=1e-5 * np.abs(ref).max())
+
+
+@pytest.mark.parametrize("name", sorted(GROUPS))
+def test_wgrad_plain_matches_vjp_of_ragged_dot(name):
+    jax, jnp, _, _ = _reference()
+    lhs, rhs, gs = _gmm_case(name)
+    rs = np.random.RandomState(5)
+    cot = rs.randn(lhs.shape[0], rhs.shape[2]).astype(np.float32)
+    _, pull = jax.vjp(lambda w: jax.lax.ragged_dot(
+        jnp.asarray(lhs), w, jnp.asarray(gs)), jnp.asarray(rhs))
+    ref = np.asarray(pull(jnp.asarray(cot))[0])
+    out = tops.grouped_matmul_wgrad(torch.tensor(lhs), torch.tensor(cot),
+                                    torch.tensor(gs))
+    assert out.shape == ref.shape == (len(gs),) + (lhs.shape[1],
+                                                  cot.shape[1])
+    np.testing.assert_array_equal(out.numpy()[gs == 0], 0.0)
+    np.testing.assert_allclose(out.numpy(), ref, rtol=0,
+                               atol=1e-5 * np.abs(ref).max())
+
+
+def _ffn_case(seed, T=12, G=4, k=2, d=64, ff=96, act="swiglu"):
+    rs = np.random.RandomState(seed)
+    x = rs.randn(T, d).astype(np.float32)
+    w1 = (0.1 * rs.randn(G, d, ff)).astype(np.float32)
+    w2 = (0.1 * rs.randn(G, ff, d)).astype(np.float32)
+    w3 = ((0.1 * rs.randn(G, d, ff)).astype(np.float32)
+          if act in gm.GATED_ACTS else None)
+    experts = np.stack([rs.choice([0, 1, 3], k, replace=False)
+                        for _ in range(T)]).reshape(-1)    # expert 2 empty
+    order = np.argsort(experts, kind="stable")
+    tok = (order // k).astype(np.int32)
+    gate = rs.uniform(0.05, 1.0, T * k).astype(np.float32)
+    gs = np.bincount(experts[order], minlength=G).astype(np.int32)
+    g = rs.randn(T, d).astype(np.float32)
+    return x, w1, w2, w3, tok, gate, gs, g
+
+
+@pytest.mark.parametrize("dt,act", [("float32", "swiglu"),
+                                    ("bfloat16", "swiglu"),
+                                    ("float32", "squared_relu")])
+def test_fused_ffn_grads_match_reference_vjp(dt, act):
+    """`FusedFFN` (K1 forward, K2/wgrad backward, plain versions on CPU)
+    against jax.vjp of the reference's `fused_ffn` custom vjp: value,
+    and the grads of x, w1, w2, w3 and gate in the inputs' dtype."""
+    jax, jnp, _, jmoe = _reference()
+    x, w1, w2, w3, tok, gate, gs, g = _ffn_case(7, act=act)
+    jdt, tdt = jnp.dtype(dt), getattr(torch, dt)
+    gated = w3 is not None
+    jargs = [jnp.asarray(a, jdt) for a in (x, w1, w2)] + \
+        [jnp.asarray(w3, jdt) if gated else None]
+    jtok, jgs = jnp.asarray(tok), jnp.asarray(gs)
+    jgate = jnp.asarray(gate, jdt)
+    out_r, pull = jax.vjp(
+        lambda x_, w1_, w2_, gate_, *w3_: jmoe.fused_ffn(
+            act, x_, w1_, w2_, w3_[0] if w3_ else None, jtok, gate_, jgs),
+        jargs[0], jargs[1], jargs[2], jgate,
+        *([jargs[3]] if gated else []))
+    refs = pull(jnp.asarray(g))
+    ref = dict(zip(["x", "w1", "w2", "gate", "w3"],
+                   [np.asarray(jnp.asarray(r, jnp.float32)) for r in refs]))
+
+    leaves = {n: torch.tensor(a).to(tdt).requires_grad_()
+              for n, a in (("x", x), ("w1", w1), ("w2", w2), ("gate", gate))
+              + ((("w3", w3),) if gated else ())}
+    out = TMOE.FusedFFN.apply(act, leaves["x"], leaves["w1"], leaves["w2"],
+                              leaves.get("w3"), torch.tensor(tok).long(),
+                              leaves["gate"], torch.tensor(gs))
+    out.backward(torch.tensor(g))
+    out_r = np.asarray(out_r)
+    np.testing.assert_allclose(out.detach().numpy(), out_r, rtol=0,
+                               atol=1e-5 * np.abs(out_r).max())
+    for n, t in leaves.items():
+        assert t.grad.dtype == tdt, n
+        r = ref[n]
+        atol = 1e-5 * np.abs(r).max()
+        if dt == "bfloat16":                   # one bf16 ulp of r
+            atol = atol + np.ldexp(1.0, np.frexp(r)[1] - 8)
+        err = np.abs(t.grad.float().numpy() - r)
+        assert (err <= atol).all(), (n, float((err - atol).max()))
+
+
+def test_cpu_wrappers_take_the_plain_version_and_count_nothing():
+    build.reset_launches()
+    lhs, rhs, gs = _gmm_case("ragged")
+    out = tops.grouped_matmul(torch.tensor(lhs), torch.tensor(rhs),
+                              torch.tensor(gs))
+    w = tops.grouped_matmul_wgrad(torch.tensor(lhs), out, torch.tensor(gs))
+    assert out.device.type == "cpu" and w.device.type == "cpu"
+    assert build.LAUNCHES == {name: 0 for name in build.SIGNATURES}
+
+
+def test_k2_wrappers_refuse_devices_without_a_kernel():
+    lhs = torch.empty((16, 64), device="meta")
+    rhs = torch.empty((2, 64, 64), dtype=torch.bfloat16, device="meta")
+    tg = torch.empty((2,), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        gm.grouped_matmul_aligned(lhs, rhs, tg, bm=8)
+    with pytest.raises(ValueError, match="unsupported device"):
+        gm.grouped_matmul_wgrad(lhs, lhs, tg)
+
+
+# ---------------------------------------------------------------------------
+# on the card: CUDA kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+
+def _need_cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lhs_dt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("trans_b", [False, True])
+@pytest.mark.parametrize("bm", [8, 128, 200])
+def test_k2_cuda_kernel_matches_plain(lhs_dt, trans_b, bm):
+    """bm=8 (smaller than the kernel's 128-row block), 128, and 200 (a
+    tile spans two blocks); N=132 leaves a partial column block."""
+    _need_cuda()
+    rs = np.random.RandomState(bm)
+    gs = torch.tensor([70, 0, 301, 5, 140], device="cuda")
+    M, K, N = 530, 136, 132                       # 14 rows past the sum
+    lhs = torch.tensor(rs.randn(M, K).astype(np.float32), device="cuda") \
+        .to(getattr(torch, lhs_dt))
+    rhs = torch.tensor(rs.randn(5, N, K) if trans_b else rs.randn(5, K, N),
+                       dtype=torch.float32, device="cuda").to(torch.bfloat16)
+    lay = tops.align_layout(gs, M, bm)
+    lhs_pad = tops._take_rows(lhs, lay.row_map)
+    before = build.LAUNCHES["grouped_matmul_aligned"]
+    out = gm.grouped_matmul_aligned(lhs_pad, rhs, lay.tile_group, bm=bm,
+                                    trans_b=trans_b)
+    assert build.LAUNCHES["grouped_matmul_aligned"] == before + 1
+    ref = gm.grouped_matmul_aligned_ref(lhs_pad, rhs, lay.tile_group, bm=bm,
+                                        trans_b=trans_b)
+    torch.cuda.synchronize()
+    assert (out - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dts", [("float32", "float32"),
+                                 ("bfloat16", "float32"),
+                                 ("float32", "bfloat16")])
+def test_wgrad_cuda_kernel_matches_plain(dts):
+    _need_cuda()
+    rs = np.random.RandomState(3)
+    gs = torch.tensor([70, 0, 301, 5, 140], device="cuda")
+    M, K, N = 530, 136, 132
+    mk = lambda *s, dt: torch.tensor(rs.randn(*s).astype(np.float32),
+                                     device="cuda").to(getattr(torch, dt))
+    lhs, rhs = mk(M, K, dt=dts[0]), mk(M, N, dt=dts[1])
+    before = build.LAUNCHES["grouped_matmul_wgrad"]
+    out = gm.grouped_matmul_wgrad(lhs, rhs, gs)
+    assert build.LAUNCHES["grouped_matmul_wgrad"] == before + 1
+    ref = gm.grouped_matmul_wgrad_ref(lhs, rhs, gs)
+    torch.cuda.synchronize()
+    assert torch.equal(out[1], torch.zeros_like(out[1]))
+    assert (out - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
+
+
+@pytest.mark.cuda
+def test_fused_ffn_backward_on_the_card_matches_plain():
+    """`fused_ffn_backward` on the kernels against the same function on
+    the CPU (every wrapper's plain version), fp32 before any cast."""
+    _need_cuda()
+    x, w1, w2, w3, tok, gate, gs, g = _ffn_case(11, T=40, d=128, ff=192)
+    args = [torch.tensor(x).to(torch.bfloat16)] + [
+        torch.tensor(w).to(torch.bfloat16) for w in (w1, w2, w3)] + [
+        torch.tensor(tok).long(), torch.tensor(gate).to(torch.bfloat16),
+        torch.tensor(gs), torch.tensor(g)]
+    ref = TMOE.fused_ffn_backward("swiglu", *args)
+    out = TMOE.fused_ffn_backward("swiglu", *[a.cuda() for a in args])
+    torch.cuda.synchronize()
+    for o, r in zip(out, ref):
+        assert (o.cpu() - r).abs().max().item() <= 1e-5 * r.abs().max().item()
