@@ -20,7 +20,11 @@ Phases, each failing loudly (non-zero exit, no result line):
      rows, the down product 1408 -> 2048 from fp32 rows, the transposed
      product 1408 -> 2048 from fp32 rows) and the grouped weight
      gradient (64 x 2048 x 1408 from bf16 x fp32 rows, 64 x 1408 x 2048
-     from fp32 x fp32 rows);
+     from fp32 x fp32 rows); K5 fused NormHead logits at Ling-Lite's fp32
+     head (x bf16, T=8 and T=1) and rwkv6-3b's (T=8, and T=64 for the
+     8-row passes); K6 the WKV6 recurrence at rwkv6-3b's prefill (B=8,
+     T=512, 40 heads of 64, bf16 r/k/v, non-zero state), at decode (T=1,
+     state updated in place) and at T=100 in fp32;
   4. gradients: one full-width MoE layer at T=256, `FusedFFN`'s grads of
      x, w1, w2, w3 and the gates on the kernels against autograd through
      a plain fp32 composition, before and after the cast to bf16;
@@ -28,12 +32,21 @@ Phases, each failing loudly (non-zero exit, no result line):
      torch.Generator(device="cuda").manual_seed(0)) behind an
      OnlineEngine (8 slots, page 16, prefill chunk 64, context 512),
      16 Poisson requests with prompts of 64-256 tokens and 32 new tokens
-     each; every kernel wrapper must have launched once per layer per
-     prefill chunk and per decode tick;
+     each; K1, K3 and K4 must have launched once per layer and K5 once
+     per prefill chunk and per decode tick;
   6. end to end: one request teacher-forced (a 64-token prefill chunk +
      8 decode steps) through the kernels and through the plain modes
-     (moe_dispatch="ragged", paged_attn="gathered"), logits compared;
-  7. training: the serving model freed, Ling-Lite at full width cut to 4
+     (moe_dispatch="ragged", paged_attn="gathered"), logits compared, K5
+     launched once per chunk and per step;
+  7. rwkv6 serving: Ling-Lite freed, full-width rwkv6-3b (32 layers, bf16
+     weights from torch.Generator(device="cuda").manual_seed(0)):
+     `make_prefill` on 8 prompts of 512 tokens (numpy seed 0), then 32
+     greedy `decode_step` ticks (K6 32 launches and K5 one per prefill
+     and per tick); a 64-token prefill of one prompt against 64
+     token-by-token ticks (same greedy token, logits within 2^-5 of the
+     largest); the offline Flood engine through `launch.serve`'s
+     `build_model_engine` (16 requests, 32 new tokens, micro-batch 8);
+  8. training: the serving models freed, Ling-Lite at full width cut to 4
      layers, fp32 masters from torch.Generator(device="cuda")
      .manual_seed(0), 4 optimizer steps of the port's Trainer (seq 1024,
      microbatch 2, accum 2, remat, fused MoE, spike guard, WSD schedule,
@@ -41,7 +54,7 @@ Phases, each failing loudly (non-zero exit, no result line):
      torch.cuda.set_sync_debug_mode("error"); finite losses, a reported
      commit, the launch counts per step (K1 2*L*accum, K2 6*L*accum,
      the weight gradient 3*L*accum) and peak memory under 80 GB;
-  8. the `kernels` JSON line, the card line, and the result line.
+  9. the `kernels` JSON line, the card line, and the result line.
 """
 from __future__ import annotations
 
@@ -55,7 +68,7 @@ from pathlib import Path
 HBM_BYTES_S = 3.35e12          # H100 SXM HBM3
 BF16_FLOPS = 989e12            # H100 SXM dense bf16 tensor-core peak
 SERVE_KERNELS = ("fused_moe_ffn", "paged_attn_scores_max",
-                 "paged_attn_accumulate")
+                 "paged_attn_accumulate")      # once per layer and step
 
 
 def fail(msg: str):
@@ -392,6 +405,77 @@ def check_k2(cfg, gen):
     return rows, wrows
 
 
+def check_k5(label, T: int, V: int, d: int, gen):
+    """K5 on a random fp32 head (V, d) and bf16 x (T, d) against its plain
+    version (normalize the rows in fp32, then one fp32 product)."""
+    import torch
+    from repro_torch.kernels import normhead as nh
+    w = 0.02 * torch.randn((V, d), generator=gen, device="cuda")
+    x = torch.randn((T, d), generator=gen, device="cuda").to(torch.bfloat16)
+    out, ref = nh.normhead_matmul(x, w), nh.normhead_matmul_ref(x, w)
+    torch.cuda.synchronize()
+    err = (out - ref).abs().max().item()
+    # fp32 sums in another order, and the division after the product
+    # where the plain version divides W first: fp32 rounding only
+    tol = 1e-4 * ref.abs().max().item()
+    b_ms, b_by = bound(nbytes(x, w, out), 2 * T * V * d + 2 * V * d)
+    ms = cuda_ms(lambda: nh.normhead_matmul(x, w))
+    plain_ms = cuda_ms(lambda: nh.normhead_matmul_ref(x, w))
+    shape = f"{label} x=({T}, {d}) bf16 W=({V}, {d}) fp32"
+    report("normhead_matmul", shape, err, tol, ref.abs().max().item(), ms,
+           plain_ms, b_ms, b_by)
+    if not err <= tol:
+        fail(f"normhead_matmul {label} T={T}: {err} > {tol}")
+    return dict(max_abs_err=err, tolerance=tol, ms=ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, library_ms=None, shape=shape)
+
+
+def check_k6(label, B: int, T: int, H: int, dtype, gen):
+    """K6 against its plain version (the sequential recurrence in fp32)
+    from a non-zero state: r, k, v ~ N(0, 1) in `dtype`, w = exp(-exp(.))
+    in (0, 1), u ~ 0.5 N(0, 1); the state is written in place."""
+    import torch
+    from repro_torch.kernels import wkv6 as wk
+    hd = 64
+    rnd = lambda *sh: torch.randn(sh, generator=gen, device="cuda")
+    r, k, v = (rnd(B, T, H, hd).to(dtype) for _ in range(3))
+    w = torch.exp(-torch.exp(rnd(B, T, H, hd) - 1.0))
+    u = 0.5 * rnd(H, hd)
+    s0 = 0.1 * rnd(B, H, hd, hd)
+    state = s0.clone()
+    y, sT = wk.wkv6(r, k, v, w, u, state, out_state=state)
+    y_ref, s_ref = wk.wkv6_ref(r, k, v, w, u, s0)
+    torch.cuda.synchronize()
+    if sT.data_ptr() != state.data_ptr():
+        fail(f"wkv6 {label}: the state was not written in place")
+    err_s = (sT - s_ref).abs().max().item()
+    err_y = ((y.float() - y_ref.float()).abs()
+             - (bf16_ulp(y_ref.float()) if dtype == torch.bfloat16
+                else 0.0)).max().item()
+    # fp32 sums in another order: 1e-4 of the largest output; a bf16 y is
+    # the fp32 sum rounded once, as the reference's y.astype(cdt), so one
+    # ulp of each element (a sum near a rounding boundary can round the
+    # other way) is allowed on top
+    tol_s = 1e-4 * s_ref.abs().max().item()
+    tol_y = 1e-4 * y_ref.float().abs().max().item()
+    st = s0.clone()
+    ms = cuda_ms(lambda: wk.wkv6(r, k, v, w, u, st, out_state=st))
+    plain_ms = cuda_ms(lambda: wk.wkv6_ref(r, k, v, w, u, s0), iters=5,
+                       warmup=1)
+    b_ms, b_by = bound(nbytes(r, k, v, w, u, s0, y) + sT.numel() * 4,
+                       5 * hd * hd * B * H * T)
+    shape = (f"{label} B={B} T={T} H={H} hd={hd} r/k/v={dtype} "
+             f"(y max_abs_err beyond one ulp {err_y:.3e}, tolerance "
+             f"{tol_y:.3e}; state {err_s:.3e}, tolerance {tol_s:.3e})")
+    report("wkv6", shape, max(err_s, err_y), max(tol_s, tol_y),
+           s_ref.abs().max().item(), ms, plain_ms, b_ms, b_by)
+    if not (err_s <= tol_s and err_y <= tol_y):
+        fail(f"wkv6 {label}: state {err_s} > {tol_s} or y {err_y} > {tol_y}")
+    return dict(max_abs_err=max(err_s, err_y), tolerance=max(tol_s, tol_y),
+                ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=None, shape=shape)
+
+
 # ---------------------------------------------------------------------------
 # phase 4: FusedFFN gradients on the kernels
 # ---------------------------------------------------------------------------
@@ -492,11 +576,13 @@ def serve(cfg, params):
     torch.cuda.synchronize()
     launches = dict(build.LAUNCHES)
     calls = eng.step_calls
-    per_call = cfg.n_layers * (calls["prefill"] + calls["decode"])
+    steps = calls["prefill"] + calls["decode"]
+    per_call = cfg.n_layers * steps
     print(f"[serve] prompts={rep['prompt_len']}")
     print(f"[serve] requests={n_req} tokens_out={rep['tokens_out']} "
           f"prefill_chunks={calls['prefill']} decode_ticks={calls['decode']}"
-          f" launches={launches} expected_each={per_call}")
+          f" launches={launches} expected {per_call} of K1/K3/K4 and "
+          f"{steps} of normhead_matmul")
     print(f"[serve] tok/s={rep['tok_s']:.1f} ttft p50/p99="
           f"{rep['ttft_p50_ms']:.1f}/{rep['ttft_p99_ms']:.1f}ms itl p50/p99="
           f"{rep['itl_p50_ms']:.2f}/{rep['itl_p99_ms']:.2f}ms "
@@ -505,15 +591,131 @@ def serve(cfg, params):
     if rep["tokens_out"] != n_req * max_new:
         fail(f"served {rep['tokens_out']} tokens, expected {n_req * max_new}")
     for name, n in launches.items():
-        want = per_call if name in SERVE_KERNELS else 0
+        want = (per_call if name in SERVE_KERNELS else
+                steps if name == "normhead_matmul" else 0)
         if n != want:
             fail(f"{name} launched {n} times in serving, expected {want} "
-                 f"(= {cfg.n_layers} layers x {calls})")
+                 f"({cfg.n_layers} layers, {calls})")
     return rep, launches
 
 
 # ---------------------------------------------------------------------------
-# phase 7: training
+# phase 7: rwkv6 serving
+# ---------------------------------------------------------------------------
+
+
+def rwkv_serve(card):
+    """Full-width rwkv6-3b: prefill + greedy decode through the Runner,
+    the prefill/decode consistency on the card, and the offline Flood
+    engine.  Returns the launches of the prefill + ticks run."""
+    import numpy as np
+    import torch
+    from repro_torch import api
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import build
+    from repro_torch.launch.serve import build_model_engine
+    from repro_torch.models import model as M
+    from repro_torch.serving.flood import FloodEngine, GenRequest
+    from repro_torch.serving.segment_cache import SegmentCache
+    cfg = get_config("rwkv6-3b")
+    B, S, ticks = 8, 512, 32
+    t0 = time.perf_counter()
+    runner = api.Runner(cfg, device="cuda")
+    params = runner.init_params(0)
+    torch.cuda.synchronize()
+    leaves = list(_leaves(params))
+    print(f"[rwkv] rwkv6-3b {cfg.n_layers} layers d={cfg.d_model} heads="
+          f"{cfg.d_model // cfg.rwkv_head_dim}x{cfg.rwkv_head_dim} d_ff="
+          f"{cfg.d_ff} vocab={cfg.vocab_size}: "
+          f"{sum(t.numel() for t in leaves) / 1e9:.3f}B params, "
+          f"{nbytes(*leaves) / 2**30:.2f}GiB, init "
+          f"{time.perf_counter() - t0:.1f}s (depth not cut)")
+    prefill, decode = runner.make_prefill(), runner.make_decode_step()
+    prompts = torch.from_numpy(np.random.RandomState(0).randint(
+        0, cfg.vocab_size, (B, S))).cuda()
+    # warm-up: cuBLAS handles and the allocator at these shapes
+    tok, caches = prefill(params, {"tokens": prompts})
+    decode(params, caches, tok, S)
+    del caches
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launches()
+    t0 = time.perf_counter()
+    tok, caches = prefill(params, {"tokens": prompts})
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    after_prefill = dict(build.LAUNCHES)
+    out = [tok]
+    for pos in range(S, S + ticks):
+        tok, caches = decode(params, caches, tok, pos)
+        out.append(tok)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    launches = dict(build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    toks = torch.stack(out).cpu()
+    prefill_ms, tick_ms = 1e3 * (t1 - t0), 1e3 * (t2 - t1) / ticks
+    print(f"[rwkv] prefill B={B} S={S}: {prefill_ms:.2f}ms "
+          f"({B * S / (t1 - t0):.0f} prompt tokens/s); {ticks} decode ticks:"
+          f" {tick_ms:.2f}ms per tick ({B * ticks / (t2 - t1):.1f} tokens/s);"
+          f" peak max_memory_allocated {peak / 2**30:.2f}GiB; launches "
+          f"after the prefill {after_prefill}, after the ticks {launches} "
+          f"[{card}]")
+    want_prefill = {n: 0 for n in launches}
+    want_prefill.update(wkv6=cfg.n_layers, normhead_matmul=1)
+    want_all = dict(want_prefill, wkv6=cfg.n_layers * (1 + ticks),
+                    normhead_matmul=1 + ticks)
+    if after_prefill != want_prefill or launches != want_all:
+        fail(f"rwkv6 serving launches {after_prefill} / {launches}, "
+             f"expected {want_prefill} / {want_all}")
+    if not bool(((toks >= 0) & (toks < cfg.vocab_size)).all()):
+        fail("rwkv6 serving: tokens out of the vocabulary")
+    del caches
+
+    # consistency on the card: one 64-token prefill vs 64 decode ticks
+    n = 64
+    p1 = prompts[:1, :n]
+    with torch.no_grad():
+        la, _ = M.prefill_logits(cfg, params, {"tokens": p1})
+        c1 = runner.init_caches(1)
+        for pos in range(n):
+            lb, c1 = M.decode_logits(cfg, params, c1, p1[:, pos])
+    torch.cuda.synchronize()
+    err = (la - lb).abs().max().item()
+    # bf16 activations: the prefill's products over 64 rows and the
+    # ticks' over one row round differently; 2^-5 of the largest logit
+    tol = 2.0 ** -5 * la.abs().max().item()
+    same = int(la.argmax(-1).item()) == int(lb.argmax(-1).item())
+    print(f"[rwkv] prefill {n} tokens vs {n} decode ticks: logits "
+          f"max_abs_err={err:.4e} (tolerance {tol:.4e}) same greedy token="
+          f"{same}")
+    if not (same and err <= tol and torch.isfinite(la).all()):
+        fail(f"rwkv6 prefill vs decode: {err} > {tol} or token differs")
+
+    # the offline Flood engine, through launch.serve's build_model_engine
+    rs = np.random.RandomState(0)
+    reqs = [GenRequest(rid=i, prompt=rs.randint(0, cfg.vocab_size, 8)
+                       .astype(np.int32), max_new=32) for i in range(16)]
+    embed_fn, stage_fns, head_fn = build_model_engine(runner, params, 2, 8)
+    eng = FloodEngine(stage_fns, head_fn, embed_fn,
+                      cache=SegmentCache(max_tokens=1 << 16,
+                                         initial_segment=32,
+                                         extend_chunk=32), microbatch=8)
+    eng.submit(reqs)
+    stats = eng.run()
+    torch.cuda.synchronize()
+    print(f"[rwkv] Flood engine: 16 requests x 32 new tokens, micro-batch "
+          f"8, 2 stages: tokens={stats.tokens_out} wall={stats.wall_s:.2f}s "
+          f"tok/s={stats.tokens_per_s:.1f} ticks={stats.ticks}")
+    if stats.tokens_out != 16 * 32 or not all(len(r.out) == 32
+                                              for r in reqs):
+        fail(f"Flood engine emitted {stats.tokens_out} tokens, expected "
+             f"{16 * 32}")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 8: training
 # ---------------------------------------------------------------------------
 
 
@@ -573,7 +775,8 @@ def train(card):
     want = {"fused_moe_ffn": 2 * cfg.n_layers * accum,
             "grouped_matmul_aligned": 6 * cfg.n_layers * accum,
             "grouped_matmul_wgrad": 3 * cfg.n_layers * accum,
-            "paged_attn_scores_max": 0, "paged_attn_accumulate": 0}
+            "paged_attn_scores_max": 0, "paged_attn_accumulate": 0,
+            "normhead_matmul": 0, "wkv6": 0}
     tok_s = B * S * accum / step_s
     print(f"[train] step times {[round(t, 3) for t in times]}s; median of "
           f"the last 2 {step_s:.3f}s (device time {dev_ms:.1f}ms); "
@@ -629,7 +832,14 @@ def end_to_end(cfg, params, gen):
                 out.append(lg[0])
         return torch.stack(out)
 
+    from repro_torch.kernels import build
+    build.reset_launches()
     fused = run(M.RunFlags())
+    torch.cuda.synchronize()
+    n_k5 = build.LAUNCHES["normhead_matmul"]
+    if n_k5 != 1 + steps:
+        fail(f"end to end: normhead_matmul launched {n_k5} times, expected "
+             f"{1 + steps} (one per chunk and per step)")
     plain = run(M.RunFlags(moe_dispatch="ragged", paged_attn="gathered"))
     err = (fused - plain).abs().max().item()
     # "ragged" rounds the expert hidden and its scatter-add to bf16 where
@@ -639,7 +849,7 @@ def end_to_end(cfg, params, gen):
     agree = (fused.argmax(-1) == plain.argmax(-1)).float().mean().item()
     print(f"[e2e] 1 prefill chunk + {steps} decode steps: logits "
           f"max_abs_err={err:.4e} (tolerance {tol:.4e}) greedy agreement="
-          f"{agree:.3f}")
+          f"{agree:.3f}; normhead_matmul launches {n_k5}")
     if not err <= tol:
         fail(f"end-to-end logits: {err} > {tol}")
     return err, agree
@@ -697,11 +907,24 @@ def main():
     k3p, k4p = check_pa(cfg, "prefill", pre)
     del dec, pre
     k2, wgrad = check_k2(cfg, gen)
+    rcfg = get_config("rwkv6-3b")
+    vl, vr = cfg.vocab_size, rcfg.vocab_size
+    k5 = {"ling head T=8": check_k5("ling head", 8, vl, cfg.d_model, gen),
+          "ling head T=1": check_k5("ling head", 1, vl, cfg.d_model, gen),
+          "rwkv6 head T=8": check_k5("rwkv6 head", 8, vr, rcfg.d_model,
+                                     gen),
+          "rwkv6 head T=64": check_k5("rwkv6 head", 64, vr, rcfg.d_model,
+                                      gen)}
+    nh = rcfg.d_model // rcfg.rwkv_head_dim
+    k6 = {"prefill": check_k6("prefill", 8, 512, nh, torch.bfloat16, gen),
+          "decode": check_k6("decode", 8, 1, nh, torch.bfloat16, gen),
+          "T=100": check_k6("T=100", 8, 100, nh, torch.float32, gen)}
     results = {"fused_moe_ffn": k1,
+               "grouped_matmul_aligned": k2,
+               "grouped_matmul_wgrad": wgrad,
                "paged_attn_scores_max": {"decode": k3d, "prefill": k3p},
                "paged_attn_accumulate": {"decode": k4d, "prefill": k4p},
-               "grouped_matmul_aligned": k2,
-               "grouped_matmul_wgrad": wgrad}
+               "normhead_matmul": k5, "wkv6": k6}
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -725,13 +948,18 @@ def main():
     # -- 6. end to end ------------------------------------------------------
     end_to_end(cfg, params, gen)
 
-    # -- 7. training --------------------------------------------------------
+    # -- 7. rwkv6 serving ---------------------------------------------------
     del params          # 31 GiB of bf16 serving weights
     gc.collect()
     torch.cuda.empty_cache()
+    rwkv_launches = rwkv_serve(card)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 8. training --------------------------------------------------------
     train_launches = train(card)
 
-    # -- 8. results ---------------------------------------------------------
+    # -- 9. results ---------------------------------------------------------
     # (source, TPU kernel it replaces, the row's shape, the path whose
     # launch count the row reports)
     meta = {"fused_moe_ffn": ("src/repro_torch/kernels/csrc/fused_moe_ffn.cu",
@@ -749,8 +977,15 @@ def main():
                                       "decode", "serve"),
             "paged_attn_accumulate": ("src/repro_torch/kernels/csrc/paged_attn.cu",
                                       "src/repro/kernels/paged_attn.py:229",
-                                      "decode", "serve")}
-    launches = {"serve": serve_launches, "train": train_launches}
+                                      "decode", "serve"),
+            "normhead_matmul": ("src/repro_torch/kernels/csrc/normhead.cu",
+                                "src/repro/kernels/normhead.py:54",
+                                "rwkv6 head T=8", "rwkv_serve"),
+            "wkv6": ("src/repro_torch/kernels/csrc/wkv6.cu",
+                     "src/repro/kernels/wkv6.py:62", "prefill",
+                     "rwkv_serve")}
+    launches = {"serve": serve_launches, "rwkv_serve": rwkv_launches,
+                "train": train_launches}
     rows = []
     for name, shapes in results.items():
         src_path, replaces, main_shape, path = meta[name]

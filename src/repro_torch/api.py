@@ -1,14 +1,16 @@
 """High-level runner for the port (counterpart of `repro.api.Runner`) at
-tp=1: parameter init, the train step, paged KV pools, and the paged
-serving steps as plain callables.
+tp=1: parameter init, the train step, the greedy prefill and dense decode
+step with their caches (rwkv models), paged KV pools, and the paged
+serving steps (all-attn models) as plain callables.
 
 Entry points run on the card: `device` defaults to "cuda", and asking
 for it without one raises.  Pass device="cpu" for the plain PyTorch path
 (every kernel wrapper then takes its plain version).  The runner turns
 TF32 off for CUDA matmuls (`torch.backends.cuda.matmul.allow_tf32 =
 False`, PyTorch's default): the fp32 products the port leaves to
-`torch.matmul` — the router and the NormHead — stay full fp32, as in
-the reference.
+`torch.matmul` — the router and the training loss's NormHead — stay
+full fp32, as in the reference.  The serving steps' NormHead runs on
+K5.
 """
 from __future__ import annotations
 
@@ -40,7 +42,7 @@ class Runner:
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
-        M.check_paged_support(self.cfg)
+        M.check_ported_blocks(self.cfg)
         torch.backends.cuda.matmul.allow_tf32 = False
 
     def init_params(self, seed: int = 0):
@@ -123,6 +125,34 @@ class Runner:
     # the reference's name; PyTorch runs eagerly, so nothing is compiled
     jit_train_step = make_train_step
 
+    # -- prefill and dense decode (rwkv models) -------------------------------
+    def init_caches(self, batch: int):
+        """Zeroed dense decode caches for `batch` sequences (leading layer
+        dim; see `models.model.init_caches`)."""
+        return M.init_caches(self.cfg, batch, self.device)
+
+    def make_prefill(self):
+        """Greedy prefill: ``(params, batch) -> (next (B,) int32,
+        caches)`` with batch["tokens"] (B, S); caches hold what the
+        prompt leaves behind, in `init_caches`' layout."""
+        cfg, flags = self.cfg, self.flags
+
+        @torch.no_grad()
+        def fn(params, batch):
+            return M.prefill(cfg, params, batch, flags)
+        return fn
+
+    def make_decode_step(self):
+        """Greedy dense decode step: ``(params, caches, token (B,), pos)
+        -> (next (B,) int32, caches)``; caches update in place."""
+        cfg = self.cfg
+
+        @torch.no_grad()
+        def fn(params, caches, token, pos):
+            return M.decode_step(cfg, params, caches, token, pos)
+        return fn
+
+    # -- paged serving (all-attn models) --------------------------------------
     def init_paged_pools(self, n_pages: int, page_size: int):
         """Zeroed paged KV pools; page 0 is the scratch page.  Also where
         `flags.paged_attn` is validated, before any step runs."""

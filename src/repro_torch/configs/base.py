@@ -102,7 +102,7 @@ ARCH_IDS = [
     "ling-lite",
     "ling-plus",
 ]
-PORTED = ("ling-lite",)
+PORTED = ("ling-lite", "rwkv6-3b")
 
 _MODULE_FOR = {a: a.replace("-", "_").replace(".", "_") for a in ARCH_IDS}
 

@@ -10,9 +10,9 @@ on a non-zero code.  Nothing here runs at import time, and nothing falls
 back: a missing `nvcc` or a failed build raises.
 
 `LAUNCHES` counts one per kernel-wrapper call that launched its CUDA
-kernel (the wrappers in grouped_matmul.py and paged_attn.py increment
-it); calls that took the plain PyTorch version on CPU tensors do not
-count.
+kernel (the wrappers in grouped_matmul.py, paged_attn.py, normhead.py
+and wkv6.py increment it); calls that took the plain PyTorch version on
+CPU tensors do not count.
 """
 from __future__ import annotations
 
@@ -38,6 +38,8 @@ SIGNATURES = {
     "paged_attn_accumulate": ("paged_attn", [_P] * 8 + [_I] * 7 + [_F, _P]),
     "grouped_matmul_aligned": ("grouped_matmul", [_P] * 4 + [_I] * 7 + [_P]),
     "grouped_matmul_wgrad": ("grouped_matmul", [_P] * 5 + [_I] * 6 + [_P]),
+    "normhead_matmul": ("normhead", [_P] * 3 + [_I] * 5 + [_F, _P]),
+    "wkv6": ("wkv6", [_P] * 8 + [_I] * 5 + [_P]),
 }
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in SIGNATURES}

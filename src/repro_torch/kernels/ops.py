@@ -1,9 +1,9 @@
 """Public kernel entry points (counterpart of `repro.kernels.ops`).
 
 Layout and grouping stay plain torch index ops on the tensor's device;
-the kernel wrappers they call (grouped_matmul.py, paged_attn.py) take
-the plain versions for CPU tensors and launch the CUDA kernels for CUDA
-tensors.
+the kernel wrappers they call (grouped_matmul.py, paged_attn.py,
+normhead.py, wkv6.py) take the plain versions for CPU tensors and launch
+the CUDA kernels for CUDA tensors.
 """
 from __future__ import annotations
 
@@ -12,7 +12,9 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.kernels import grouped_matmul as _gm
+from repro_torch.kernels import normhead as _nh
 from repro_torch.kernels import paged_attn as _pa
+from repro_torch.kernels import wkv6 as _wkv
 
 
 class AlignedLayout(NamedTuple):
@@ -174,3 +176,20 @@ def paged_attention_accumulate(q, k_pool, v_pool, table, mask, m_safe):
         mask.reshape(B, Qn, n_lp, ps),
         _pa_group_q(m_safe[..., None], KV)[..., 0])
     return _pa_ungroup(num, Qn, Hp), _pa_ungroup(den, Qn, Hp)
+
+
+def normhead_logits(x, w):
+    """Fused NormHead (K5): x (T, d) @ normalize_rows(w (V, d)).T ->
+    (T, V) fp32.  Inference only (raises where autograd would track x or
+    w)."""
+    return _nh.normhead_matmul(x, w)
+
+
+def wkv6(r, k, v, w, u, state, *, out_state=None):
+    """RWKV6 recurrence (K6).  r, k, v, w (B, T, H, hd); u (H, hd); state
+    (B, H, hd, hd) fp32.  Returns (y (B, T, H, hd) in r's dtype, state').
+    The kernel reads the (B, T, H, hd) layout in place and tiles T itself
+    (the reference's `chunk`, a tiling that does not change the result,
+    has no counterpart).  `out_state` receives state' (it may be `state`:
+    an in-place update)."""
+    return _wkv.wkv6(r, k, v, w, u, state, out_state=out_state)

@@ -1,7 +1,16 @@
-"""Online serving launcher for the port (counterpart of
-`python -m repro.launch.serve --online`).
+"""Serving launcher for the port (counterpart of `python -m
+repro.launch.serve`): offline (Flood) and online continuous-batching
+modes.
 
-    # on the card (default device): full Ling-Lite, random weights
+    # offline, on the card (default device): full rwkv6-3b, random weights
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-3b \
+        --requests 16 --max-new 32 --microbatch 8
+
+    # offline, plain PyTorch path on the CPU at smoke size
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-3b \
+        --smoke --device cpu --requests 4 --max-new 8
+
+    # online, on the card: full Ling-Lite, random weights
     PYTHONPATH=src python -m repro_torch.launch.serve --online \
         --slots 8 --prefill-chunk 64 --seq 512 --prompt-len 128 \
         --max-new 32 --requests 16 --rates 64
@@ -10,20 +19,101 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --online --smoke \
         --device cpu --rates 4,16 --requests 8 --max-new 8
 
-Builds a Runner with random weights (`Runner.init_params(0)`), an
-`OnlineEngine` over a paged KV pool, eats the first-call costs (kernel
-build, allocator warm-up) with a small warm-up load, then reports one
-Poisson load per `--rates` entry: tok/s, TTFT and inter-token latency
-percentiles.
+Offline builds a Runner with random weights (`Runner.init_params(0)`)
+and drives the FloodEngine (segment KV cache, S+1 in-flight
+micro-batches) on the greedy dense decode step (rwkv models);
+`--baseline` runs the synchronous global-batch engine instead.  Online
+builds an `OnlineEngine` over a paged KV pool (all-attn models), eats
+the first-call costs (kernel build, allocator warm-up) with a small
+warm-up load, then reports one Poisson load per `--rates` entry: tok/s,
+TTFT and inter-token latency percentiles.
 """
 from __future__ import annotations
 
 import argparse
 
+import numpy as np
+import torch
+
 from repro_torch import api
 from repro_torch.configs.base import get_config, get_smoke_config
+from repro_torch.serving.flood import (FloodEngine, GenRequest,
+                                       baseline_step_engine)
 from repro_torch.serving.online import (OnlineConfig, OnlineEngine,
                                         run_poisson_load)
+from repro_torch.serving.segment_cache import SegmentCache
+
+
+def build_model_engine(runner, params, n_stages: int, batch: int,
+                       temperature: float = 0.0):
+    """Real-model Flood engine on the greedy dense decode step (the
+    reference's `build_model_engine`, which draws its parameters inside;
+    this one takes them, and needs no cache length: rwkv state does not
+    grow).  Returns (embed_fn, stage_fns, head_fn).
+
+    Reproduces the reference as written: the stages pass activations
+    through and the head runs the whole model's decode step; each request
+    feeds its last output token, or its last prompt token before it has
+    one; and one cache and one position counter are shared by every
+    in-flight micro-batch.  At temperature 0 the reference's sampled step
+    is the argmax, which greedy reproduces."""
+    if temperature > 0:
+        raise NotImplementedError(
+            "sampled offline serving (temperature > 0) needs the threefry "
+            "key schedule, not yet ported to repro_torch (ROADMAP queue 1 "
+            "item 5)")
+    decode = runner.make_decode_step()
+    state = {"caches": runner.init_caches(batch), "pos": 0}
+
+    def embed_fn(reqs):
+        toks = np.zeros((batch,), np.int32)
+        for i, r in enumerate(reqs[:batch]):
+            toks[i] = (r.out[-1] if r.out else r.prompt[-1])
+        return {"tokens": torch.from_numpy(toks).to(runner.device),
+                "reqs": len(reqs)}
+
+    def stage_fn(_i):
+        def fn(x):
+            return x  # layer stages fused into head_fn for the real model
+        return fn
+
+    def head_fn(x, reqs):
+        nxt, state["caches"] = decode(params, state["caches"], x["tokens"],
+                                      state["pos"])
+        state["pos"] += 1
+        return nxt.cpu().numpy()[:len(reqs)]
+
+    return embed_fn, [stage_fn(i) for i in range(n_stages)], head_fn
+
+
+def run_offline(cfg, args):
+    """The Flood engine (or `--baseline`) over `--requests` random prompts
+    of `--prompt-len` tokens (numpy seed 0).  Returns the PipelineStats."""
+    runner = api.Runner(cfg, device=args.device)
+    params = runner.init_params(0)
+    rs = np.random.RandomState(0)
+    reqs = [GenRequest(rid=i,
+                       prompt=rs.randint(0, cfg.vocab_size,
+                                         args.prompt_len).astype(np.int32),
+                       max_new=args.max_new)
+            for i in range(args.requests)]
+    embed_fn, stage_fns, head_fn = build_model_engine(
+        runner, params, args.stages, args.microbatch,
+        temperature=args.temperature)
+    if args.baseline:
+        stats = baseline_step_engine(head_fn, embed_fn, reqs)
+    else:
+        eng = FloodEngine(stage_fns, head_fn, embed_fn,
+                          cache=SegmentCache(max_tokens=1 << 16,
+                                             initial_segment=32,
+                                             extend_chunk=32),
+                          microbatch=args.microbatch)
+        eng.submit(reqs)
+        stats = eng.run()
+        print("cache stats:", eng.cache.stats)
+    print(f"tokens={stats.tokens_out} wall={stats.wall_s:.2f}s "
+          f"tok/s={stats.tokens_per_s:.1f}")
+    return stats
 
 
 def run_online(cfg, args) -> list:
@@ -60,7 +150,17 @@ def main(argv=None):
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--online", action="store_true",
                     help="continuous-batching engine + Poisson load "
-                         "generator (the only mode ported so far)")
+                         "generator (all-attn models); without it the "
+                         "offline Flood engine (rwkv models)")
+    ap.add_argument("--microbatch", type=int, default=4,
+                    help="offline: requests per micro-batch")
+    ap.add_argument("--stages", type=int, default=2,
+                    help="offline: pipeline stages")
+    ap.add_argument("--baseline", action="store_true",
+                    help="offline: the synchronous global-batch engine")
+    ap.add_argument("--temperature", type=float, default=0.0,
+                    help="offline: sampling temperature (only 0, greedy, "
+                         "is ported)")
     ap.add_argument("--slots", type=int, default=4,
                     help="decode slots")
     ap.add_argument("--page-size", type=int, default=16,
@@ -81,11 +181,10 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda",
                     help="cuda (the kernels) or cpu (plain PyTorch)")
     args = ap.parse_args(argv)
-    if not args.online:
-        raise SystemExit("only --online serving is ported to repro_torch; "
-                         "the offline Flood engine arrives later")
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
-    run_online(cfg, args)
+    if args.online:
+        return run_online(cfg, args)
+    return run_offline(cfg, args)
 
 
 if __name__ == "__main__":

@@ -1,10 +1,15 @@
 """Embedding, LM head and greedy argmax at tp=1 (counterpart of
-`repro.models.embedding`).  Vocab is padded to a multiple of 128."""
+`repro.models.embedding`).  Vocab is padded to a multiple of 128.
+
+Two forms of the head: `lm_logits`, the plain fp32 NormHead with
+autograd (the training loss), and `serve_logits`, the same function on
+K5 (`kernels.ops.normhead_logits`) for every serving step."""
 from __future__ import annotations
 
 import torch
 
 from repro_torch.core import normhead
+from repro_torch.kernels import ops as kops
 from repro_torch.models import layers as L
 
 
@@ -36,6 +41,15 @@ def lm_logits(cfg, params, x: torch.Tensor) -> torch.Tensor:
     """x (T, d) -> logits (T, Vp) fp32 (NormHead per cfg)."""
     w = params["table"] if cfg.tie_embeddings else params["lm_head"]
     return normhead.normhead_logits(cfg, w, x)
+
+
+def serve_logits(cfg, params, x: torch.Tensor) -> torch.Tensor:
+    """Inference logits x (T, d) -> (T, Vp) fp32: the NormHead on K5, or
+    the plain fp32 product when cfg.norm_head is False."""
+    w = params["table"] if cfg.tie_embeddings else params["lm_head"]
+    if not cfg.norm_head:
+        return normhead.normhead_logits(cfg, w, x)
+    return kops.normhead_logits(x, w)
 
 
 def sharded_argmax(logits: torch.Tensor) -> torch.Tensor:

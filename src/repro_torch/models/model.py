@@ -1,12 +1,18 @@
 """Model assembly at tp=1 (counterpart of `repro.models.model`):
-parameter init; the training forward and loss (`forward`, `loss_fn`);
-paged KV pools and the two fixed shape serving steps — one paged decode
-tick over every slot and one chunked-prefill chunk for one request.
+parameter init; the forward (training, and the prefill with caches) and
+the loss (`forward`, `loss_fn`); dense decode caches and the greedy
+`prefill` / `decode_step` (rwkv blocks); paged KV pools and the two fixed
+shape serving steps of attention models — one paged decode tick over
+every slot and one chunked-prefill chunk for one request.
+
+Two block kinds are ported: "attn" (training, and paged serving of
+all-attn models) and "rwkv" (prefill and dense decode).  Other kinds and
+mixed patterns raise NotImplementedError naming their ROADMAP item.
 
 Parameters keep the reference's nested-dict keys with a leading layer
 dim on every `blocks` leaf; a Python loop over layers replaces
-`lax.scan`.  The KV pools carry the same leading layer dim and are
-updated in place.
+`lax.scan`.  The dense caches and the KV pools carry the same leading
+layer dim and are updated in place.
 """
 from __future__ import annotations
 
@@ -16,6 +22,7 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
@@ -23,6 +30,7 @@ from repro_torch.core import router as router_lib
 from repro_torch.core import moe as moe_lib
 from repro_torch.models import embedding as emb
 from repro_torch.models import layers as L
+from repro_torch.models import rwkv6 as rwkv_lib
 
 
 @dataclasses.dataclass(frozen=True)
@@ -51,11 +59,37 @@ def _ffn_kind(cfg: ModelConfig, layer: int) -> str:
     return "mlp"
 
 
-def init_block(cfg: ModelConfig, init: L.Init, ffn: str) -> Dict[str, Any]:
-    params: Dict[str, Any] = {"norm1": L.init_norm(cfg, init),
-                              "attn": L.init_attention(cfg, init),
-                              "norm2": L.init_norm(cfg, init)}
-    if ffn == "moe":
+# ROADMAP queue 1 items that port what is still missing here
+DENSE_ATTN_DECODE = ("dense decode of 'attn' blocks (a KV cache from the "
+                     "forward, init_caches, decode_step) is not yet ported "
+                     "to repro_torch (ROADMAP queue 1 item 8)")
+RWKV_TRAINING = ("rwkv6 training (the chunked wkv6 formulation and a K6 "
+                 "backward) is not yet ported to repro_torch (ROADMAP "
+                 "queue 1 item 11)")
+
+
+def check_ported_blocks(cfg: ModelConfig):
+    """The port builds uniform "attn" or "rwkv" decoders; other block
+    kinds, mixed patterns and encoder-decoders raise."""
+    kinds = sorted({cfg.block_kind(i) for i in range(cfg.n_layers)})
+    if cfg.is_encoder_decoder or kinds not in (["attn"], ["rwkv"]):
+        raise NotImplementedError(
+            f"{cfg.arch_id}: blocks {kinds}"
+            f"{' (encoder-decoder)' if cfg.is_encoder_decoder else ''} are "
+            f"not yet ported to repro_torch (ROADMAP queue 1 item 10)")
+
+
+def init_block(cfg: ModelConfig, init: L.Init, kind: str,
+               ffn: str) -> Dict[str, Any]:
+    params: Dict[str, Any] = {"norm1": L.init_norm(cfg, init)}
+    if kind == "rwkv":
+        params["tmix"] = rwkv_lib.init_time_mix(cfg, init)
+    else:
+        params["attn"] = L.init_attention(cfg, init)
+    params["norm2"] = L.init_norm(cfg, init)
+    if kind == "rwkv":
+        params["cmix"] = rwkv_lib.init_channel_mix(cfg, init)
+    elif ffn == "moe":
         params["moe"] = moe_lib.init_moe(cfg, init)
     else:
         params["mlp"] = L.init_mlp(cfg, init)
@@ -71,15 +105,16 @@ def init_model(cfg: ModelConfig, *, device="cuda",
     With `masters` (training) every leaf is stored in `cfg.param_dtype`,
     as the reference keeps it; otherwise (serving) the leaves the
     reference casts to the compute dtype at use are stored in that dtype,
-    and the router, the norms and the LM head stay fp32.  On the meta
-    device only shapes are built."""
-    check_paged_support(cfg)
+    and the router, the norms and the LM head stay fp32 (rwkv6.py says
+    which rwkv leaves stay fp32).  On the meta device only shapes are
+    built."""
+    check_ported_blocks(cfg)
     device = torch.device(device)
     init = L.Init(device=device, generator=generator, masters=masters)
     params: Dict[str, Any] = {"embed": emb.init_embedding(cfg, init),
                               "final_norm": L.init_norm(cfg, init)}
     stacked = dataclasses.replace(init, lead=(cfg.n_layers,))
-    params["blocks"] = init_block(cfg, stacked,
+    params["blocks"] = init_block(cfg, stacked, cfg.block_pattern[0],
                                   _ffn_kind(cfg, cfg.n_layers - 1))
     return params
 
@@ -108,10 +143,37 @@ def noise_seed(seed: int, step: int, microbatch: int) -> int:
                .generate_state(1)[0])
 
 
+def _rwkv_block(cfg: ModelConfig, params, x, *, B: int, S: int):
+    """One rwkv block at prefill: x (T, d) -> (x, its decode cache).  The
+    time mix and the channel mix shift their (normed) inputs by one token
+    with a zero first row; the cache keeps each one's last input."""
+    d = cfg.d_model
+    h = L.apply_norm(cfg, params["norm1"], x)
+    partial, state = rwkv_lib.time_mix(cfg, params["tmix"],
+                                       h.reshape(B, S, d))
+    x = x + partial.reshape(B * S, d)
+    h = L.apply_norm(cfg, params["norm2"], x)
+    hB = h.reshape(B, S, d)
+    h_prev = F.pad(hB, (0, 0, 1, 0))[:, :-1].reshape(-1, d)
+    partial, gate = rwkv_lib.channel_mix(cfg, params["cmix"], h, h_prev)
+    return x + gate * partial, {"rwkv": state, "cmix_prev": hB[:, -1]}
+
+
 def block_forward(cfg: ModelConfig, params, x, eps, *, B: int, S: int,
-                  ffn: str, step=None, flags: RunFlags = DEFAULT_FLAGS):
-    """One training block: x (T, d) -> (x, aux, metrics).  eps (T, E)
-    is the layer's router-warmup noise, or None."""
+                  kind: str, ffn: str, step=None, train: bool = True,
+                  flags: RunFlags = DEFAULT_FLAGS, want_cache: bool = False):
+    """One block: x (T, d) -> (x, aux, metrics, cache or None).  eps
+    (T, E) is the layer's router-warmup noise, or None.  "attn" blocks run
+    for training; "rwkv" blocks for inference, where `want_cache` returns
+    {"rwkv": {"wkv", "last_x"}, "cmix_prev"}."""
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    if kind == "rwkv":
+        if train:
+            raise NotImplementedError(RWKV_TRAINING)
+        x, cache = _rwkv_block(cfg, params, x, B=B, S=S)
+        return x, zero, {}, (cache if want_cache else None)
+    if want_cache or not train:
+        raise NotImplementedError(DENSE_ATTN_DECODE)
     d = cfg.d_model
     h = L.apply_norm(cfg, params["norm1"], x)
     x = x + L.apply_attention(cfg, params["attn"],
@@ -123,54 +185,69 @@ def block_forward(cfg: ModelConfig, params, x, eps, *, B: int, S: int,
             step=step, eps=eps)
     else:
         partial = L.apply_mlp(cfg, params["mlp"], h)
-        aux, metrics = torch.zeros((), device=x.device), {}
-    return x + partial, aux, metrics
+        aux, metrics = zero, {}
+    return x + partial, aux, metrics, None
+
+
+def _stack(trees):
+    """Per-layer cache trees -> one tree with a leading layer dim."""
+    if isinstance(trees[0], dict):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    return torch.stack(trees)
 
 
 def _run_blocks(cfg: ModelConfig, params, x, *, B: int, S: int, step,
-                seed, flags: RunFlags):
-    """The layer loop.  With `flags.remat` every block runs under
-    torch.utils.checkpoint and is recomputed in the backward.  Each
+                seed, train: bool, flags: RunFlags, want_cache: bool):
+    """The layer loop.  In training with `flags.remat` every block runs
+    under torch.utils.checkpoint and is recomputed in the backward.  Each
     layer's warmup noise is drawn here, outside the checkpointed block,
     from one generator seeded with `seed`: a draw inside the block would
     be drawn anew in the recompute and route differently from the
     forward.  Returns (x, aux summed over layers, metrics averaged over
-    layers)."""
+    layers, caches stacked over layers or None)."""
+    kind = cfg.block_pattern[0]
     ffn = _ffn_kind(cfg, cfg.n_layers - 1)
     gen = None
     if seed is not None and ffn == "moe" and cfg.moe.router_warmup_steps > 0:
         gen = torch.Generator(device=x.device).manual_seed(seed)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    metrics_all = []
+    metrics_all, caches = [], []
     for i in range(cfg.n_layers):
         eps = (router_lib.warmup_noise((x.shape[0], cfg.moe.n_experts), gen,
                                        x.device) if gen is not None else None)
-        fn = functools.partial(block_forward, cfg, B=B, S=S, ffn=ffn,
-                               step=step, flags=flags)
+        fn = functools.partial(block_forward, cfg, B=B, S=S, kind=kind,
+                               ffn=ffn, step=step, train=train, flags=flags,
+                               want_cache=want_cache)
         lp = layer_params(params["blocks"], i)
-        if flags.remat:
-            x, a, mets = checkpoint(fn, lp, x, eps, use_reentrant=False,
-                                    preserve_rng_state=False)
+        if flags.remat and train:
+            x, a, mets, cache = checkpoint(fn, lp, x, eps,
+                                           use_reentrant=False,
+                                           preserve_rng_state=False)
         else:
-            x, a, mets = fn(lp, x, eps)
+            x, a, mets, cache = fn(lp, x, eps)
         aux = aux + a
         metrics_all.append(mets)
+        caches.append(cache)
     metrics = {k: torch.mean(torch.stack([m[k] for m in metrics_all]))
                for k in metrics_all[0]}
-    return x, aux, metrics
+    return x, aux, metrics, (_stack(caches) if want_cache else None)
 
 
 def forward(cfg: ModelConfig, params, batch, *, step=None, seed=None,
-            flags: RunFlags = DEFAULT_FLAGS):
-    """Training forward: batch["tokens"] (B, S) -> (x_final (T, d), aux,
-    metrics).  `seed` seeds the router-warmup noise (`noise_seed`); None
-    draws none."""
+            train: bool = True, flags: RunFlags = DEFAULT_FLAGS,
+            want_cache: bool = False):
+    """batch["tokens"] (B, S) -> (x_final (T, d), aux, metrics, caches).
+    `seed` seeds the router-warmup noise (`noise_seed`); None draws none.
+    With `want_cache` (inference, rwkv blocks) caches is the stacked
+    decode cache the prompt leaves behind (`init_caches`' layout), else
+    None."""
     tokens = batch["tokens"]
     B, S = tokens.shape
     x = emb.embed_tokens(cfg, params["embed"], tokens.reshape(-1))
-    x, aux, metrics = _run_blocks(cfg, params, x, B=B, S=S, step=step,
-                                  seed=seed, flags=flags)
-    return L.apply_norm(cfg, params["final_norm"], x), aux, metrics
+    x, aux, metrics, caches = _run_blocks(
+        cfg, params, x, B=B, S=S, step=step, seed=seed, train=train,
+        flags=flags, want_cache=want_cache)
+    return L.apply_norm(cfg, params["final_norm"], x), aux, metrics, caches
 
 
 def _chunk_xent(cfg: ModelConfig, embed, xc, lc):
@@ -194,8 +271,8 @@ def loss_fn(cfg: ModelConfig, params, batch, *, step=None, seed=None,
     Each chunk of `flags.loss_chunk` tokens is checkpointed under
     `flags.remat`, so its (chunk, V) fp32 logits live only inside it.
     Returns (loss, metrics)."""
-    x, aux, block_metrics = forward(cfg, params, batch, step=step,
-                                    seed=seed, flags=flags)
+    x, aux, block_metrics, _ = forward(cfg, params, batch, step=step,
+                                       seed=seed, flags=flags)
     labels = batch["labels"].reshape(-1)
     T = x.shape[0]
     chunk = choose_block(T, flags.loss_chunk)
@@ -208,6 +285,85 @@ def loss_fn(cfg: ModelConfig, params, batch, *, step=None, seed=None,
     n_valid = torch.sum((labels >= 0).float())
     ce = total / torch.clamp(n_valid, min=1.0)
     return ce + aux, {"loss/ce": ce, "loss/aux": aux, **block_metrics}
+
+
+# ---- prefill and dense decode (rwkv blocks) --------------------------------
+
+
+def init_block_cache(cfg: ModelConfig, kind: str, batch: int,
+                     device) -> Dict[str, Any]:
+    """One layer's zeroed decode cache: the wkv state and the last normed
+    inputs of the time mix and the channel mix."""
+    if kind != "rwkv":
+        raise NotImplementedError(DENSE_ATTN_DECODE)
+    return {"rwkv": rwkv_lib.init_decode_state(cfg, batch, device),
+            "cmix_prev": torch.zeros((batch, cfg.d_model),
+                                     dtype=L.dtype_of(cfg.compute_dtype),
+                                     device=device)}
+
+
+def init_caches(cfg: ModelConfig, batch: int, device):
+    """Zeroed dense decode caches with a leading layer dim (rwkv state
+    does not grow with the context, so there is no cache length)."""
+    check_ported_blocks(cfg)
+    one = init_block_cache(cfg, cfg.block_pattern[0], batch, device)
+    return _stack([one] * cfg.n_layers)
+
+
+def block_decode(cfg: ModelConfig, params, x, cache, *, kind: str):
+    """One layer of the decode tick: x (B, d); `cache` the layer's views
+    into the stacked caches, updated in place.  Returns (x, cache)."""
+    if kind != "rwkv":
+        raise NotImplementedError(DENSE_ATTN_DECODE)
+    h = L.apply_norm(cfg, params["norm1"], x)
+    partial, _ = rwkv_lib.time_mix_decode(cfg, params["tmix"], h,
+                                          cache["rwkv"])
+    x = x + partial
+    h = L.apply_norm(cfg, params["norm2"], x)
+    partial, gate = rwkv_lib.channel_mix(cfg, params["cmix"], h,
+                                         cache["cmix_prev"])
+    cache["cmix_prev"].copy_(h)
+    return x + gate * partial, cache
+
+
+def prefill_logits(cfg: ModelConfig, params, batch,
+                   flags: RunFlags = DEFAULT_FLAGS):
+    """The prompt batch ["tokens"] (B, S) -> (logits (B, Vp) fp32 at each
+    sequence's last token, caches)."""
+    x, _, _, caches = forward(cfg, params, batch, train=False, flags=flags,
+                              want_cache=True)
+    B, S = batch["tokens"].shape
+    last = x.reshape(B, S, -1)[:, -1]
+    return emb.serve_logits(cfg, params["embed"], last), caches
+
+
+def prefill(cfg: ModelConfig, params, batch,
+            flags: RunFlags = DEFAULT_FLAGS):
+    """Greedy prefill: (first generated token (B,) int32, caches)."""
+    logits, caches = prefill_logits(cfg, params, batch, flags)
+    return emb.sharded_argmax(logits).to(torch.int32), caches
+
+
+def decode_logits(cfg: ModelConfig, params, caches, token):
+    """One token per sequence -> (logits (B, Vp) fp32, caches); the
+    caches update in place."""
+    x = emb.embed_tokens(cfg, params["embed"], token)          # (B, d)
+    kind = cfg.block_pattern[0]
+    for i in range(cfg.n_layers):
+        x, _ = block_decode(cfg, layer_params(params["blocks"], i), x,
+                            layer_params(caches, i), kind=kind)
+    x = L.apply_norm(cfg, params["final_norm"], x)
+    return emb.serve_logits(cfg, params["embed"], x), caches
+
+
+def decode_step(cfg: ModelConfig, params, caches, token, pos):
+    """One greedy decode step: token (B,) -> (next (B,) int32, caches).
+    `pos`, the position being written, is the reference's argument; rwkv
+    blocks carry their position in the state and do not read it (nor do
+    they read any RunFlags knob)."""
+    del pos
+    logits, caches = decode_logits(cfg, params, caches, token)
+    return emb.sharded_argmax(logits).to(torch.int32), caches
 
 
 # ---- paged decode / chunked prefill (online serving) -----------------------
@@ -271,7 +427,7 @@ def _paged_decode_logits(cfg: ModelConfig, params, pools, token, pos, table,
             pos, table, active, page_size=page_size, ffn=ffn, flags=flags,
             valid=valid)
     x = L.apply_norm(cfg, params["final_norm"], x)
-    return emb.lm_logits(cfg, params["embed"], x), pools
+    return emb.serve_logits(cfg, params["embed"], x), pools
 
 
 def paged_decode_step(cfg: ModelConfig, params, pools, token, pos, table,
@@ -316,7 +472,7 @@ def _paged_prefill_logits(cfg: ModelConfig, params, pools, tokens, base,
             flags=flags, valid=valid)
     x = L.apply_norm(cfg, params["final_norm"], x)
     last = min(max(int(n_valid) - 1, 0), C - 1)
-    return emb.lm_logits(cfg, params["embed"], x[last:last + 1]), pools
+    return emb.serve_logits(cfg, params["embed"], x[last:last + 1]), pools
 
 
 def paged_prefill_chunk(cfg: ModelConfig, params, pools, tokens, base,

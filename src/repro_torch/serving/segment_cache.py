@@ -1,9 +1,15 @@
-"""Page-table allocator with a radix prefix cache — the online engine's
-memory manager (the port's own copy of `PageAllocator` and `RadixNode`
-from `repro.serving.segment_cache`; host-side numpy only).
+"""The serving engines' memory managers (the port's own copy of
+`repro.serving.segment_cache`; host-side numpy only).
 
-The device KV lives in pools of fixed-size pages indexed by per-slot page
-tables.  This allocator owns the physical pages: admission,
+`SegmentCache` (paper §2.4, C12) is the offline Flood engine's: the KV
+cache is one contiguous range of token rows carved into segments; on
+overflow a request's segment is extended if the next range is free, else
+another segment is appended, else the request waits.  A shared prompt
+prefix is a refcounted segment-list prefix.
+
+`PageAllocator` and `RadixNode` are the online engine's: its device KV
+lives in pools of fixed-size pages indexed by per-slot page tables, and
+the allocator owns the physical pages: admission,
 `ensure_capacity` growth, refcounted prefix-page sharing, and
 preempt-and-requeue support when the pool runs dry.  On top sits the
 radix prefix cache: a trie keyed by page-aligned token blocks, so a
@@ -16,11 +22,271 @@ cached pages only when an allocation would otherwise fail.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, List, Optional, Tuple
+from collections import deque
+from typing import Callable, Deque, Dict, List, Optional, Tuple
 
 import numpy as np
 
 
+@dataclasses.dataclass
+class Segment:
+    start: int
+    length: int
+    refcount: int = 1
+
+    @property
+    def end(self) -> int:
+        return self.start + self.length
+
+
+@dataclasses.dataclass
+class Request:
+    rid: int
+    prompt_len: int
+    max_new: int
+    segments: List[Segment] = dataclasses.field(default_factory=list)
+    used: int = 0                      # tokens written so far
+    prefix_key: Optional[str] = None   # shared-prefix cache key
+
+    @property
+    def capacity(self) -> int:
+        return sum(s.length for s in self.segments)
+
+    def slot(self, token_idx: int) -> int:
+        """Global cache row for this request's token_idx."""
+        off = token_idx
+        for s in self.segments:
+            if off < s.length:
+                return s.start + off
+            off -= s.length
+        raise IndexError(token_idx)
+
+
+class SegmentCache:
+    def __init__(self, max_tokens: int, initial_segment: int = 256,
+                 extend_chunk: int = 256):
+        self.max_tokens = max_tokens
+        self.initial = initial_segment
+        self.chunk = extend_chunk
+        self.free: List[Tuple[int, int]] = [(0, max_tokens)]  # (start, len)
+        self.requests: Dict[int, Request] = {}
+        self.wait_list: Deque[int] = deque()
+        self.prefix_index: Dict[str, List[Segment]] = {}
+        self.stats = {"extends": 0, "appends": 0, "waits": 0,
+                      "prefix_hits": 0}
+
+    # -- free-list helpers --------------------------------------------------
+    def _alloc_range(self, length: int) -> Optional[Tuple[int, int]]:
+        for i, (start, flen) in enumerate(self.free):
+            if flen >= length:
+                if flen == length:
+                    self.free.pop(i)
+                else:
+                    self.free[i] = (start + length, flen - length)
+                return (start, length)
+        return None
+
+    def _release_range(self, start: int, length: int):
+        self.free.append((start, length))
+        self.free.sort()
+        merged: List[Tuple[int, int]] = []
+        for s, l in self.free:
+            if merged and merged[-1][0] + merged[-1][1] == s:
+                merged[-1] = (merged[-1][0], merged[-1][1] + l)
+            else:
+                merged.append((s, l))
+        self.free = merged
+
+    def _range_free_at(self, start: int, length: int) -> bool:
+        for s, l in self.free:
+            if s <= start and start + length <= s + l:
+                return True
+        return False
+
+    # -- admission -----------------------------------------------------------
+    def admit(self, rid: int, prompt_len: int, max_new: int,
+              prefix_key: Optional[str] = None,
+              conservative: bool = True) -> bool:
+        """Allocate an initial segment.  With `conservative` (the paper's
+        strategy for huge user-specified max_output_len), the first segment
+        covers the prompt plus a modest chunk rather than prompt+max_new."""
+        req = Request(rid, prompt_len, max_new, prefix_key=prefix_key)
+        need = prompt_len
+        if prefix_key and prefix_key in self.prefix_index:
+            # prefix cache hit: share the refcounted prefix segments
+            shared = self.prefix_index[prefix_key]
+            for s in shared:
+                s.refcount += 1
+            req.segments.extend(shared)
+            req.used = sum(s.length for s in shared)
+            need = max(prompt_len - req.used, 0)
+            self.stats["prefix_hits"] += 1
+        grow = self.initial if conservative else max_new
+        rng = self._alloc_range(need + grow)
+        if rng is None:
+            self.stats["waits"] += 1
+            self.wait_list.append(rid)
+            return False
+        req.segments.append(Segment(*rng))
+        self.requests[rid] = req
+        return True
+
+    def register_prefix(self, rid: int, key: str, upto_segment: int = 1):
+        req = self.requests[rid]
+        shared = req.segments[:upto_segment]
+        for s in shared:
+            s.refcount += 1
+        self.prefix_index[key] = shared
+
+    # -- token append ----------------------------------------------------------
+    def ensure_capacity(self, rid: int, n_tokens: int) -> bool:
+        """Grow the request to hold n_tokens; extend > append > wait."""
+        req = self.requests[rid]
+        while req.capacity < n_tokens:
+            last = req.segments[-1]
+            # 1. extend in place if the adjacent range is free
+            if last.refcount == 1 and self._range_free_at(last.end,
+                                                          self.chunk):
+                # carve the adjacent chunk out of the free list
+                for i, (s, l) in enumerate(self.free):
+                    if s <= last.end < s + l:
+                        before = last.end - s
+                        after = l - before - self.chunk
+                        repl = []
+                        if before:
+                            repl.append((s, before))
+                        if after:
+                            repl.append((last.end + self.chunk, after))
+                        self.free[i:i + 1] = repl
+                        break
+                last.length += self.chunk
+                self.stats["extends"] += 1
+                continue
+            # 2. append a new segment anywhere
+            rng = self._alloc_range(self.chunk)
+            if rng is not None:
+                req.segments.append(Segment(*rng))
+                self.stats["appends"] += 1
+                continue
+            # 3. wait
+            self.stats["waits"] += 1
+            self.wait_list.append(rid)
+            return False
+        return True
+
+    def write_token(self, rid: int) -> Optional[int]:
+        """Reserve the next cache row; None if the request must wait."""
+        req = self.requests[rid]
+        if not self.ensure_capacity(rid, req.used + 1):
+            return None
+        slot = req.slot(req.used)
+        req.used += 1
+        return slot
+
+    def write_tokens(self, rid: int, n: int) -> Optional[List[int]]:
+        """Multi-token advance (speculative decode commits n accepted
+        tokens at once): reserve the next n rows atomically; None if the
+        request must wait (nothing reserved on failure)."""
+        req = self.requests[rid]
+        if not self.ensure_capacity(rid, req.used + n):
+            return None
+        rows = [req.slot(req.used + i) for i in range(n)]
+        req.used += n
+        return rows
+
+    def rewind(self, rid: int, n: int):
+        """Multi-token rewind (rejected speculative drafts): forget the
+        last n written rows.  Rows written beyond a shared prefix only —
+        a consumer never writes into refcounted shared segments, so the
+        floor is the shared capacity it attached at admission."""
+        req = self.requests[rid]
+        floor = sum(s.length for s in req.segments if s.refcount > 1)
+        req.used = max(req.used - n, floor, req.prompt_len)
+
+    # -- preemption ----------------------------------------------------------
+    def preempt(self, rid: int) -> List[int]:
+        """Evict a live request mid-generation (pool pressure): frees its
+        ranges exactly like `release` (refcount-aware, waiters revived);
+        the caller owns re-admission — `admit` the same rid again later
+        and re-prefill.  Returns the revived waiter rids."""
+        self.stats["preempts"] = self.stats.get("preempts", 0) + 1
+        return self.release(rid)
+
+    # -- release -------------------------------------------------------------
+    def release(self, rid: int) -> List[int]:
+        """Free a finished request; returns rids revived from the wait
+        list."""
+        req = self.requests.pop(rid)
+        for s in req.segments:
+            s.refcount -= 1
+            if s.refcount == 0:
+                self._release_range(s.start, s.length)
+        revived = []
+        still_waiting: Deque[int] = deque()
+        while self.wait_list:
+            w = self.wait_list.popleft()
+            if w in self.requests:
+                revived.append(w)       # parked mid-generation
+            else:
+                still_waiting.append(w)
+        self.wait_list = still_waiting
+        return revived
+
+    # -- invariants (used by property tests) -----------------------------------
+    def live_ranges(self) -> List[Tuple[int, int]]:
+        seen = {}
+        out = []
+        for req in self.requests.values():
+            for s in req.segments:
+                if id(s) not in seen:
+                    seen[id(s)] = True
+                    out.append((s.start, s.length))
+        return sorted(out)
+
+    def check_invariants(self):
+        ranges = self.live_ranges() + sorted(self.free)
+        ranges.sort()
+        pos = 0
+        total = 0
+        for s, l in ranges:
+            assert s >= pos, f"overlap at {s} (pos={pos})"
+            pos = s + l
+            total += l
+        assert pos <= self.max_tokens
+        # free list coalesced
+        for (s1, l1), (s2, _) in zip(self.free, self.free[1:]):
+            assert s1 + l1 < s2, "free list not coalesced"
+
+
+# ---------------------------------------------------------------------------
+# Page-table allocator — the online engine's memory manager
+# ---------------------------------------------------------------------------
+#
+# `SegmentCache` above is Flood's host-side bookkeeping over one contiguous
+# token arena: segments are variable-length ranges and the device cache
+# stays a dense tensor the host indexes into.  The *online* engine
+# (serving/online.py) instead stores KV on device as a pool of fixed-size
+# pages indexed by per-slot page tables, so this allocator is the
+# page-granular refactor of the same responsibilities: admission,
+# `ensure_capacity` growth, prefix-cache sharing (refcounted *pages*
+# instead of refcounted segments), and preempt-and-requeue when the pool
+# runs dry.  Fixed-size pages trade SegmentCache's large contiguous
+# blocks for O(1) allocation and zero external fragmentation — the trade
+# vLLM made, and the right one once the device side gathers pages anyway.
+#
+# On top of the page pool sits the **radix prefix cache**: a trie keyed
+# by page-aligned token blocks, so a node's root-path spells the exact
+# token prefix whose KV its page holds.  Requests attach matching pages
+# at admission with no caller coordination (content addressing replaces
+# the explicit `prefix_key` registry, which survives for legacy callers),
+# full pages are *published* into the trie when a request finishes
+# prefill / releases / is preempted, and a deterministic leaf-first LRU
+# sweep evicts unreferenced cached pages only when an allocation would
+# otherwise fail — caching can never cause an OOM an uncached run would
+# not hit.
+
+
+@dataclasses.dataclass
 @dataclasses.dataclass
 class RadixNode:
     """One cached KV page.  `key` is the page's own token block; the

@@ -91,7 +91,7 @@ def test_full_size_init_shapes_match_reference_specs():
     assert all(t.device.type == "meta" for _, t in _leaves(port))
 
 
-@pytest.mark.parametrize("arch", ["ling-lite"])
+@pytest.mark.parametrize("arch", ["ling-lite", "rwkv6-3b"])
 def test_config_copies_match_reference(arch):
     for get in ("get_config", "get_smoke_config"):
         ours = dataclasses.asdict(getattr(tbase, get)(arch))
@@ -101,7 +101,7 @@ def test_config_copies_match_reference(arch):
 
 def test_unported_arch_raises():
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        tbase.get_config("rwkv6-3b")
+        tbase.get_config("recurrentgemma-2b")
 
 
 def _imports(path: Path):
