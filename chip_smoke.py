@@ -20,11 +20,14 @@ Phases, each failing loudly (non-zero exit, no result line):
      rows, the down product 1408 -> 2048 from fp32 rows, the transposed
      product 1408 -> 2048 from fp32 rows) and the grouped weight
      gradient (64 x 2048 x 1408 from bf16 x fp32 rows, 64 x 1408 x 2048
-     from fp32 x fp32 rows); K5 fused NormHead logits at Ling-Lite's fp32
-     head (x bf16, T=8 and T=1) and rwkv6-3b's (T=8, and T=64 for the
-     8-row passes); K6 the WKV6 recurrence at rwkv6-3b's prefill (B=8,
-     T=512, 40 heads of 64, bf16 r/k/v, non-zero state), at decode (T=1,
-     state updated in place) and at T=100 in fp32;
+     from fp32 x fp32 rows, and the first again with its bf16 output),
+     each with its count of bf16 wgmma passes and, for a form with an
+     fp32 operand, an fp32 `torch._grouped_mm` as its yardstick where
+     this build takes one (else bf16); K5 fused NormHead logits at
+     Ling-Lite's fp32 head (x bf16, T=8 and T=1) and rwkv6-3b's (T=8, and
+     T=64 for the 8-row passes); K6 the WKV6 recurrence at rwkv6-3b's
+     prefill (B=8, T=512, 40 heads of 64, bf16 r/k/v, non-zero state), at
+     decode (T=1, state updated in place) and at T=100 in fp32;
   4. gradients: one full-width MoE layer at T=256, `FusedFFN`'s grads of
      x, w1, w2, w3 and the gates on the kernels against autograd through
      a plain fp32 composition, before and after the cast to bf16;
@@ -162,7 +165,8 @@ def library_time(candidates):
         try:
             fn()
             torch.cuda.synchronize()
-        except (RuntimeError, TypeError, AttributeError) as e:
+        except (RuntimeError, TypeError, AttributeError, ValueError,
+                NotImplementedError) as e:
             reasons.append(f"{label}: {str(e).splitlines()[0][:120]}")
             continue
         return cuda_ms(fn), label
@@ -309,6 +313,24 @@ def check_pa(cfg, label, case):
             row(err4, tol4, ms4, pl4, b4, by4))
 
 
+def _passes(a_dtype, b_dtype) -> int:
+    """bf16 wgmma passes per product: an fp32 operand is cut into three
+    bf16 pieces; fp32 x fp32 keeps the six piece products with i + j <=
+    2."""
+    import torch
+    return (1, 3, 6)[(a_dtype == torch.float32) + (b_dtype == torch.float32)]
+
+
+def _fp32_first(fp32_operand, candidates):
+    """The library yardsticks in order: for a form with an fp32 operand
+    the fp32 call first (if this build of `torch._grouped_mm` takes
+    fp32), then bf16; for an all-bf16 form the bf16 calls only."""
+    import torch
+    if fp32_operand.dtype == torch.float32:
+        return candidates
+    return [c for c in candidates if "fp32" not in c[0]]
+
+
 def check_k2(cfg, gen):
     """K2 at the MoE backward's shapes (T=2048 tokens routed by a random
     router: 12288 rows over 64 experts, bm=128) and the grouped weight
@@ -354,14 +376,18 @@ def check_k2(cfg, gen):
         b16 = w.transpose(1, 2) if trans else w
         b16_cm = w if trans else w.transpose(1, 2).contiguous() \
             .transpose(1, 2)
-        lib_ms, lib = library_time([
+        b32 = b16.float() if lhs.dtype == torch.float32 else None
+        lib_ms, lib = library_time(_fp32_first(lhs, [
+            ("torch._grouped_mm fp32", lambda: torch._grouped_mm(
+                lhs, b32, offs=offs)),
             ("torch._grouped_mm bf16", lambda: torch._grouped_mm(
                 a16, b16, offs=offs)),
             ("torch._grouped_mm bf16, column-major rhs",
-             lambda: torch._grouped_mm(a16, b16_cm, offs=offs))])
+             lambda: torch._grouped_mm(a16, b16_cm, offs=offs))]))
         shape = (f"{label} M={cap} M_pad={lhs_pad.shape[0]} K={K} N={N} "
                  f"G={G} live_tiles={n_live} lhs={lhs.dtype} "
-                 f"trans_b={trans} library=({lib})")
+                 f"trans_b={trans} wgmma_passes="
+                 f"{_passes(lhs.dtype, torch.bfloat16)} library=({lib})")
         report("grouped_matmul_aligned", shape, err, tol,
                ref.abs().max().item(), ms, plain_ms, b_ms, b_by, lib_ms)
         if not err <= tol:
@@ -369,31 +395,46 @@ def check_k2(cfg, gen):
         rows[label] = dict(max_abs_err=err, tolerance=tol, ms=ms,
                            plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                            library_ms=lib_ms, shape=shape)
-        del lhs_pad, out, ref, a16, b16, b16_cm
+        del lhs_pad, out, ref, a16, b16, b16_cm, b32
 
     wrows = {}
-    # dW1 = xs^T da1 (bf16 x fp32), dW2 = h^T d_out (fp32 x fp32)
-    for label, lhs, rhs in (("train", xs, da),
-                            ("train fp32 x fp32", h, d_out)):
-        run = lambda: gm.grouped_matmul_wgrad(lhs, rhs, gs)
-        plain = lambda: gm.grouped_matmul_wgrad_ref(lhs, rhs, gs)
+    # dW1 = xs^T da1 (bf16 x fp32), dW2 = h^T d_out (fp32 x fp32); dW1
+    # again as the training step runs it, rounded to bf16 in the epilogue
+    for label, lhs, rhs, odt in (
+            ("train", xs, da, torch.float32),
+            ("train fp32 x fp32", h, d_out, torch.float32),
+            ("train bf16 output", xs, da, torch.bfloat16)):
+        run = lambda: gm.grouped_matmul_wgrad(lhs, rhs, gs, out_dtype=odt)
+        plain = lambda: gm.grouped_matmul_wgrad_ref(lhs, rhs, gs,
+                                                    out_dtype=odt)
         out, ref = run(), plain()
         torch.cuda.synchronize()
-        err = (out - ref).abs().max().item()
-        tol = 1e-4 * ref.abs().max().item()      # fp32 order over rows
+        # fp32 order over rows: 1e-4 of the largest value; a bf16 output
+        # is each fp32 sum rounded once, so a sum near a rounding boundary
+        # may round one ulp the other way: one ulp of each element on top
+        ref32 = ref.float()
+        err = ((out.float() - ref32).abs()
+               - (bf16_ulp(ref32) if odt == torch.bfloat16 else 0.0)) \
+            .max().item()
+        tol = 1e-4 * ref32.abs().max().item()
         K, N = lhs.shape[1], rhs.shape[1]
-        b_ms, b_by = bound(nbytes(lhs, rhs, gs) + out.numel() * 4,
-                           2 * cap * K * N)
+        b_ms, b_by = bound(nbytes(lhs, rhs, gs, out), 2 * cap * K * N)
         ms, plain_ms = cuda_ms(run), cuda_ms(plain, iters=5, warmup=1)
         lt16, r16 = lhs.t().to(torch.bfloat16), rhs.to(torch.bfloat16)
         lt16_rm = lt16.contiguous()
-        lib_ms, lib = library_time([
-            ("torch._grouped_mm bf16", lambda: torch._grouped_mm(
-                lt16, r16, offs=offs)),
-            ("torch._grouped_mm bf16, row-major lhs^T",
-             lambda: torch._grouped_mm(lt16_rm, r16, offs=offs))])
+        lt32, r32 = lhs.t().float(), rhs.float()
+        cand = [("torch._grouped_mm fp32", lambda: torch._grouped_mm(
+                    lt32, r32, offs=offs)),
+                ("torch._grouped_mm bf16", lambda: torch._grouped_mm(
+                    lt16, r16, offs=offs)),
+                ("torch._grouped_mm bf16, row-major lhs^T",
+                 lambda: torch._grouped_mm(lt16_rm, r16, offs=offs))]
+        lib_ms, lib = library_time(_fp32_first(
+            lhs if lhs.dtype == torch.float32 else rhs, cand))
+        beyond = " (error beyond one ulp)" if odt == torch.bfloat16 else ""
         shape = (f"{label} M={cap} G={G} K={K} N={N} lhs={lhs.dtype} "
-                 f"rhs={rhs.dtype} library=({lib})")
+                 f"rhs={rhs.dtype} out={odt}{beyond} wgmma_passes="
+                 f"{_passes(lhs.dtype, rhs.dtype)} library=({lib})")
         report("grouped_matmul_wgrad", shape, err, tol,
                ref.abs().max().item(), ms, plain_ms, b_ms, b_by, lib_ms)
         if not err <= tol:
@@ -401,7 +442,7 @@ def check_k2(cfg, gen):
         wrows[label] = dict(max_abs_err=err, tolerance=tol, ms=ms,
                             plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                             library_ms=lib_ms, shape=shape)
-        del out, ref, lt16, r16, lt16_rm
+        del out, ref, ref32, lt16, r16, lt16_rm, lt32, r32
     return rows, wrows
 
 

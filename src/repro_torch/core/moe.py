@@ -66,17 +66,20 @@ def grouped_ffn(act, xs, w1, w2, w3, group_sizes):
     return out
 
 
-def fused_ffn_backward(act, x, w1, w2, w3, tok, gate, group_sizes, g):
-    """The reference's `_fused_ffn_bwd` before its dtype casts: the vjp of
-    gather -> FFN -> gated combine recomputed in fp32 from the forward's
-    inputs, for the cotangent g (T, d) of the combined output.
+def fused_ffn_backward(act, x, w1, w2, w3, tok, gate, group_sizes, g,
+                       w_dtype=None):
+    """The reference's `_fused_ffn_bwd`: the vjp of gather -> FFN -> gated
+    combine recomputed in fp32 from the forward's inputs, for the
+    cotangent g (T, d) of the combined output.  The weight gradients come
+    out in `w_dtype` (the reference's `dw.astype(w.dtype)`, rounded once
+    in the kernel's epilogue), fp32 when None; the rest stays fp32.
 
-    Products on K2 (fp32 accumulation, operands converted in registers):
-    a1 = xs W1, a3 = xs W3, out = h W2; dh = d_out W2^T, dxs = da1 W1^T +
+    Products on K2 (bf16 wgmma with fp32 accumulation, an fp32 operand
+    cut exactly into three bf16 pieces, so fp32 products): a1 = xs W1, a3 = xs W3, out = h W2; dh = d_out W2^T, dxs = da1 W1^T +
     da3 W3^T.  Weight gradients on the grouped wgrad kernel: dW1 = xs^T
     da1, dW3 = xs^T da3, dW2 = h^T d_out.  The activation's vjp is
-    elementwise autograd.  Returns fp32 (dxs (cap, d) the grad of each
-    gathered row x[tok], dw1, dw2, dw3 or None, dgate)."""
+    elementwise autograd.  Returns (dxs (cap, d) the grad of each gathered
+    row x[tok], dw1, dw2, dw3 or None, dgate)."""
     cap = tok.shape[0]
     lay = kops.align_layout(group_sizes, cap, min(128, max(8, cap)))
 
@@ -99,20 +102,25 @@ def fused_ffn_backward(act, x, w1, w2, w3, tok, gate, group_sizes, g):
     da = torch.autograd.grad(h, [a1] + ([a3] if a3 is not None else []),
                              dh)
     dxs = mm(da[0], w1, trans_b=True)
-    dw1 = kops.grouped_matmul_wgrad(xs, da[0], group_sizes)
+    wdt = torch.float32 if w_dtype is None else w_dtype
+    dw1 = kops.grouped_matmul_wgrad(xs, da[0], group_sizes, out_dtype=wdt)
     dw3 = None
     if a3 is not None:
         dxs = dxs + mm(da[1], w3, trans_b=True)
-        dw3 = kops.grouped_matmul_wgrad(xs, da[1], group_sizes)
-    dw2 = kops.grouped_matmul_wgrad(h.detach(), d_out, group_sizes)
+        dw3 = kops.grouped_matmul_wgrad(xs, da[1], group_sizes,
+                                        out_dtype=wdt)
+    dw2 = kops.grouped_matmul_wgrad(h.detach(), d_out, group_sizes,
+                                    out_dtype=wdt)
     return dxs, dw1, dw2, dw3, dgate
 
 
 class FusedFFN(torch.autograd.Function):
     """Fused MoE FFN (counterpart of the reference's `fused_ffn`): forward
-    on kernel K1, backward `fused_ffn_backward` with each gradient cast
-    to its input's dtype, as the reference's custom vjp returns them.  The
-    grad of x follows the reference's vjp of `take(x, tok).astype(f32)`:
+    on kernel K1, backward `fused_ffn_backward` with each gradient in its
+    input's dtype, as the reference's custom vjp returns them (the
+    weights' rounded by the weight-gradient kernel's epilogue; w1, w2 and
+    w3 share one dtype).  The grad of x follows the reference's vjp of
+    `take(x, tok).astype(f32)`:
     each gathered row's grad is cast to x's dtype, then the rows are
     scatter-added in that dtype."""
 
@@ -127,11 +135,10 @@ class FusedFFN(torch.autograd.Function):
     def backward(ctx, g):
         x, w1, w2, w3, tok, gate, group_sizes = ctx.saved_tensors
         dxs, dw1, dw2, dw3, dgate = fused_ffn_backward(
-            ctx.act, x, w1, w2, w3, tok, gate, group_sizes, g)
+            ctx.act, x, w1, w2, w3, tok, gate, group_sizes, g,
+            w_dtype=w1.dtype)
         dx = torch.zeros_like(x).index_add_(0, tok, dxs.to(x.dtype))
-        return (None, dx, dw1.to(w1.dtype), dw2.to(w2.dtype),
-                dw3.to(w3.dtype) if dw3 is not None else None, None,
-                dgate.to(gate.dtype), None)
+        return (None, dx, dw1, dw2, dw3, None, dgate.to(gate.dtype), None)
 
 
 def fused_ffn(act, x, w1, w2, w3, tok, gate, group_sizes):

@@ -37,7 +37,7 @@ SIGNATURES = {
     "paged_attn_scores_max": ("paged_attn", [_P] * 5 + [_I] * 7 + [_F, _P]),
     "paged_attn_accumulate": ("paged_attn", [_P] * 8 + [_I] * 7 + [_F, _P]),
     "grouped_matmul_aligned": ("grouped_matmul", [_P] * 4 + [_I] * 7 + [_P]),
-    "grouped_matmul_wgrad": ("grouped_matmul", [_P] * 5 + [_I] * 6 + [_P]),
+    "grouped_matmul_wgrad": ("grouped_matmul", [_P] * 5 + [_I] * 7 + [_P]),
     "normhead_matmul": ("normhead", [_P] * 3 + [_I] * 5 + [_F, _P]),
     "wkv6": ("wkv6", [_P] * 8 + [_I] * 5 + [_P]),
 }

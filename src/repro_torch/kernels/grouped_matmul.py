@@ -8,6 +8,11 @@ plain PyTorch versions (counterpart of `repro.kernels.grouped_matmul`):
                                gradient (no TPU kernel: the reference
                                leaves the transpose of ragged_dot to XLA).
 
+K2 and the weight gradient run bf16 wgmma on the tensor cores; an fp32
+operand is cut exactly into three bf16 pieces (`split_bf16` is that
+arithmetic in PyTorch, for the tests), so their results equal fp32
+products up to summation order.
+
 K1's operands follow the reference's expert-aligned layout
 (`kernels.ops._fused_layout`): x (T, d) unsorted activations; w1/w3
 (G, d, ff) and w2 (G, ff, d); row_idx (n_m, bm) int32 token per padded
@@ -155,18 +160,37 @@ def grouped_matmul_aligned_ref(lhs, rhs, tile_group, *, bm: int,
     return out.reshape(M_pad, N)
 
 
+def split_bf16(x: torch.Tensor, n: int = 3):
+    """The kernels' split of an fp32 operand, in PyTorch (used by tests):
+    n fp32 tensors, each a bf16 value (low 16 bits zero), cut by
+    truncation: piece_i = top 16 bits of (x - piece_0 - ... - piece_i-1).
+    With n = 3, x = sum of the pieces exactly where |x| >= 2^-110; below
+    that the last piece drops bits under 2^-133 (bf16's smallest
+    subnormal).  Truncation keeps the first piece finite at fp32's
+    maximum; an infinite x gives NaN pieces after the first."""
+    pieces, r = [], x.float()
+    for _ in range(n):
+        p = (r.view(torch.int32) & -65536).view(torch.float32)
+        pieces.append(p)
+        r = r - p
+    return pieces
+
+
 def _check_cuda(name: str, **tensors):
     for arg, (t, dtypes) in tensors.items():
         if t.dtype not in dtypes or not t.is_contiguous():
             raise ValueError(f"{name}: {arg} must be contiguous "
                              f"{'/'.join(str(d) for d in dtypes)}, got "
                              f"{t.dtype}")
+        if t.data_ptr() % 8:
+            raise ValueError(f"{name}: {arg} must be 8-byte aligned")
 
 
 def grouped_matmul_aligned(lhs, rhs, tile_group, *, bm: int,
                            trans_b: bool = False) -> torch.Tensor:
     """K2.  CPU tensors: the plain version.  CUDA tensors: the kernel
-    (lhs fp32 or bf16, rhs bf16; K and N multiples of 4)."""
+    (lhs fp32 or bf16, rhs bf16; K and N multiples of 4; an fp32 lhs takes
+    three bf16 wgmma passes)."""
     if lhs.device.type == "cpu":
         return grouped_matmul_aligned_ref(lhs, rhs, tile_group, bm=bm,
                                           trans_b=trans_b)
@@ -198,11 +222,12 @@ def grouped_matmul_aligned(lhs, rhs, tile_group, *, bm: int,
     return out
 
 
-def grouped_matmul_wgrad_ref(lhs, rhs, group_sizes) -> torch.Tensor:
+def grouped_matmul_wgrad_ref(lhs, rhs, group_sizes, *,
+                             out_dtype=torch.float32) -> torch.Tensor:
     """Plain version of the weight-gradient kernel: lhs (M, K) and rhs
-    (M, N) row-sorted by group; returns (G, K, N) fp32 with out[g] =
-    lhs_rows_g^T rhs_rows_g over group g's rows; rows past the last group
-    contribute nothing."""
+    (M, N) row-sorted by group; returns (G, K, N) with out[g] =
+    lhs_rows_g^T rhs_rows_g over group g's rows in fp32, rounded once to
+    `out_dtype`; rows past the last group contribute nothing."""
     M, K = lhs.shape
     N = rhs.shape[1]
     G = group_sizes.shape[0]
@@ -213,15 +238,19 @@ def grouped_matmul_wgrad_ref(lhs, rhs, group_sizes) -> torch.Tensor:
         if end > start:
             out[g] = lhs[start:end].float().T @ rhs[start:end].float()
         start = end
-    return out
+    return out.to(out_dtype)
 
 
-def grouped_matmul_wgrad(lhs, rhs, group_sizes) -> torch.Tensor:
+def grouped_matmul_wgrad(lhs, rhs, group_sizes, *,
+                         out_dtype=torch.float32) -> torch.Tensor:
     """The grouped weight gradient.  CPU tensors: the plain version.  CUDA
     tensors: the kernel (lhs and rhs fp32 or bf16; K and N multiples of
-    4), with the group offsets cumulated on the device."""
+    4), with the group offsets cumulated on the device.  `out_dtype`
+    fp32 or bf16: a bf16 result is the fp32 sum rounded once to nearest
+    even, what `.to(torch.bfloat16)` of the fp32 result gives."""
     if lhs.device.type == "cpu":
-        return grouped_matmul_wgrad_ref(lhs, rhs, group_sizes)
+        return grouped_matmul_wgrad_ref(lhs, rhs, group_sizes,
+                                        out_dtype=out_dtype)
     if lhs.device.type != "cuda":
         raise ValueError(f"grouped_matmul_wgrad: unsupported device "
                          f"{lhs.device}")
@@ -230,19 +259,21 @@ def grouped_matmul_wgrad(lhs, rhs, group_sizes) -> torch.Tensor:
     G = group_sizes.shape[0]
     both = (torch.float32, torch.bfloat16)
     _check_cuda("grouped_matmul_wgrad", lhs=(lhs, both), rhs=(rhs, both))
-    if rhs.shape[0] != M or K % 4 or N % 4:
+    if rhs.shape[0] != M or K % 4 or N % 4 or out_dtype not in both:
         raise ValueError(f"grouped_matmul_wgrad: lhs {tuple(lhs.shape)}, "
-                         f"rhs {tuple(rhs.shape)}: rows must agree and K, N "
-                         f"be multiples of 4")
+                         f"rhs {tuple(rhs.shape)}, out_dtype {out_dtype}: "
+                         f"rows must agree, K, N be multiples of 4 and the "
+                         f"output fp32 or bf16")
     sizes = group_sizes.to(torch.int32).contiguous()
     offsets = (torch.cumsum(group_sizes.long(), 0) - group_sizes.long()) \
         .to(torch.int32)
-    out = torch.empty((G, K, N), dtype=torch.float32, device=lhs.device)
+    out = torch.empty((G, K, N), dtype=out_dtype, device=lhs.device)
     stream = torch.cuda.current_stream(lhs.device).cuda_stream
     err = build.entry("grouped_matmul_wgrad")(
         lhs.data_ptr(), rhs.data_ptr(), offsets.data_ptr(), sizes.data_ptr(),
         out.data_ptr(), M, K, N, G, int(lhs.dtype == torch.bfloat16),
-        int(rhs.dtype == torch.bfloat16), stream)
+        int(rhs.dtype == torch.bfloat16), int(out_dtype == torch.bfloat16),
+        stream)
     build.check(err, "grouped_matmul_wgrad")
     build.LAUNCHES["grouped_matmul_wgrad"] += 1
     return out

@@ -85,12 +85,14 @@ def grouped_matmul(lhs, rhs, group_sizes, *, bm: int = 128,
     return _take_rows(out, layout.dest)
 
 
-def grouped_matmul_wgrad(lhs, rhs, group_sizes) -> torch.Tensor:
+def grouped_matmul_wgrad(lhs, rhs, group_sizes, *,
+                         out_dtype=torch.float32) -> torch.Tensor:
     """The weight gradient of `grouped_matmul`: lhs (M, K) and rhs (M, N)
-    group-sorted rows -> (G, K, N) fp32, out[g] = lhs_g^T rhs_g (what
-    jax.vjp of ragged_dot gives for its rhs)."""
+    group-sorted rows -> (G, K, N), out[g] = lhs_g^T rhs_g (what jax.vjp
+    of ragged_dot gives for its rhs) summed in fp32 and rounded once to
+    `out_dtype`."""
     return _gm.grouped_matmul_wgrad(lhs.contiguous(), rhs.contiguous(),
-                                    group_sizes)
+                                    group_sizes, out_dtype=out_dtype)
 
 
 def _fused_layout(tok, gate, group_sizes, n_tokens: int, bm: int):

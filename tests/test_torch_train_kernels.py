@@ -260,3 +260,178 @@ def test_fused_ffn_backward_on_the_card_matches_plain():
     torch.cuda.synchronize()
     for o, r in zip(out, ref):
         assert (o.cpu() - r).abs().max().item() <= 1e-5 * r.abs().max().item()
+
+
+# The tensor-core kernels' edges: each form at column counts that leave a
+# partial 128-wide wgmma tile (N = 200: rows 16-byte aligned, so the expert
+# tiles come by TMA; N = 132: 8-byte copies) and K with a tail shorter than
+# the 16-deep wgmma step (K = 200 = 3 * 64 + 8; K = 132 = 2 * 64 + 4).
+K2_EDGES = [(200, 200), (132, 132), (200, 132), (132, 200)]
+WGRAD_FORMS = [("float32", "float32"), ("bfloat16", "float32"),
+               ("float32", "bfloat16"), ("bfloat16", "bfloat16")]
+
+
+def _k2_cuda_case(lhs_dt, trans_b, K, N, bm, seed):
+    rs = np.random.RandomState(seed)
+    gs = torch.tensor([70, 0, 301, 5, 140], device="cuda")
+    M = 530
+    lhs = torch.tensor(rs.randn(M, K).astype(np.float32), device="cuda") \
+        .to(getattr(torch, lhs_dt))
+    rhs = torch.tensor(rs.randn(5, N, K) if trans_b else rs.randn(5, K, N),
+                       dtype=torch.float32, device="cuda").to(torch.bfloat16)
+    lay = tops.align_layout(gs, M, bm)
+    return tops._take_rows(lhs, lay.row_map), rhs, lay.tile_group
+
+
+def _wgrad_cuda_case(dts, K, N, seed):
+    rs = np.random.RandomState(seed)
+    gs = torch.tensor([70, 0, 301, 5, 140], device="cuda")
+    mk = lambda *s, dt: torch.tensor(rs.randn(*s).astype(np.float32),
+                                     device="cuda").to(getattr(torch, dt))
+    return mk(530, K, dt=dts[0]), mk(530, N, dt=dts[1]), gs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lhs_dt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("trans_b", [False, True])
+@pytest.mark.parametrize("K,N", K2_EDGES)
+def test_k2_cuda_partial_tiles_and_k_tails(lhs_dt, trans_b, K, N):
+    _need_cuda()
+    lhs, rhs, tg = _k2_cuda_case(lhs_dt, trans_b, K, N, 128, K + N)
+    out = gm.grouped_matmul_aligned(lhs, rhs, tg, bm=128, trans_b=trans_b)
+    ref = gm.grouped_matmul_aligned_ref(lhs, rhs, tg, bm=128,
+                                        trans_b=trans_b)
+    torch.cuda.synchronize()
+    assert (out - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dts", WGRAD_FORMS)
+@pytest.mark.parametrize("K,N", K2_EDGES)
+def test_wgrad_cuda_partial_tiles_and_row_tails(dts, K, N):
+    """Group sizes 70, 301, 5 and 140 end inside a 32-row stage."""
+    _need_cuda()
+    lhs, rhs, gs = _wgrad_cuda_case(dts, K, N, K * N)
+    out = gm.grouped_matmul_wgrad(lhs, rhs, gs)
+    ref = gm.grouped_matmul_wgrad_ref(lhs, rhs, gs)
+    torch.cuda.synchronize()
+    assert torch.equal(out[1], torch.zeros_like(out[1]))
+    assert (out - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lhs_dt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("trans_b", [False, True])
+def test_k2_cuda_is_deterministic(lhs_dt, trans_b):
+    _need_cuda()
+    lhs, rhs, tg = _k2_cuda_case(lhs_dt, trans_b, 200, 200, 128, 1)
+    a = gm.grouped_matmul_aligned(lhs, rhs, tg, bm=128, trans_b=trans_b)
+    b = gm.grouped_matmul_aligned(lhs, rhs, tg, bm=128, trans_b=trans_b)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dts", WGRAD_FORMS)
+@pytest.mark.parametrize("out_dt", ["float32", "bfloat16"])
+def test_wgrad_cuda_is_deterministic(dts, out_dt):
+    _need_cuda()
+    lhs, rhs, gs = _wgrad_cuda_case(dts, 200, 132, 2)
+    odt = getattr(torch, out_dt)
+    a = gm.grouped_matmul_wgrad(lhs, rhs, gs, out_dtype=odt)
+    b = gm.grouped_matmul_wgrad(lhs, rhs, gs, out_dtype=odt)
+    torch.cuda.synchronize()
+    assert a.dtype == odt and torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dts", WGRAD_FORMS)
+def test_wgrad_cuda_bf16_output_is_the_plain_rounding(dts):
+    """out_dtype=bf16 against the plain version's fp32 result rounded to
+    bf16: the two fp32 sums differ in summation order only, so a sum near
+    a rounding boundary may round one bf16 ulp the other way."""
+    _need_cuda()
+    lhs, rhs, gs = _wgrad_cuda_case(dts, 136, 132, 4)
+    out = gm.grouped_matmul_wgrad(lhs, rhs, gs, out_dtype=torch.bfloat16)
+    ref = gm.grouped_matmul_wgrad_ref(lhs, rhs, gs,
+                                      out_dtype=torch.bfloat16).float()
+    torch.cuda.synchronize()
+    assert out.dtype == torch.bfloat16
+    ulp = torch.ldexp(torch.ones_like(ref), torch.frexp(ref).exponent - 8)
+    err = (out.float() - ref).abs()
+    assert (err <= ulp + 1e-5 * ref.abs().max()).all()
+    assert torch.equal(out[1].float(), torch.zeros_like(ref[1]))
+
+
+def _extreme_rows(M, K, rs, cls):
+    """fp32 rows by class: 0 ordinary N(0, 1); 1 near fp32's maximum (the
+    largest entries exactly +-3.4028235e38); 2 subnormal (N(0, 1) *
+    1e-39)."""
+    x = rs.randn(M, K).astype(np.float32)
+    big = cls == 1
+    x[big] = np.clip(x[big] / 4.0, -1, 1) * np.float32(3.4028235e38)
+    x[big, 0] = np.float32(3.4028235e38)
+    x[big, 1] = -np.float32(3.4028235e38)
+    x[cls == 2] *= np.float32(1e-39)
+    return x
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("trans_b", [False, True])
+def test_k2_cuda_fp32_lhs_at_the_ends_of_the_range(trans_b):
+    """The fp32-lhs form on rows near fp32's maximum (group 0, its rhs
+    scaled by 2^-20 so the sums stay finite: truncation keeps the first
+    piece finite where rounding would make it inf) and on subnormal rows
+    beside ordinary ones (group 2, rhs N(0, 1)).  Each class is held to
+    1e-5 of its own largest value; a subnormal row also to an absolute
+    floor of K * 2^-126 * max|rhs|: parts of a value below fp32's
+    smallest normal may be lost (pieces under bf16's 2^-133)."""
+    _need_cuda()
+    rs = np.random.RandomState(9)
+    M, K, N = 256, 136, 132
+    gs_np = np.array([100, 0, 156])
+    cls = np.concatenate([np.ones(100, int), rs.randint(0, 2, 156) * 2])
+    x = _extreme_rows(M, K, rs, cls)
+    gs = torch.tensor(gs_np, device="cuda")
+    lay = tops.align_layout(gs, M, 128)
+    row_map = lay.row_map.cpu().numpy()
+    cls_pad = np.where(row_map >= 0, cls[np.maximum(row_map, 0)], -1)
+    lhs = tops._take_rows(torch.tensor(x, device="cuda"), lay.row_map)
+    w = rs.randn(3, N, K) if trans_b else rs.randn(3, K, N)
+    w[0] = np.ldexp(w[0], -20)
+    rhs = torch.tensor(w, dtype=torch.float32,
+                       device="cuda").to(torch.bfloat16)
+    out = gm.grouped_matmul_aligned(lhs, rhs, lay.tile_group, bm=128,
+                                    trans_b=trans_b)
+    ref = gm.grouped_matmul_aligned_ref(lhs, rhs, lay.tile_group, bm=128,
+                                        trans_b=trans_b)
+    torch.cuda.synchronize()
+    assert torch.isfinite(ref).all() and torch.isfinite(out).all()
+    floor = K * 2.0 ** -126 * rhs.float().abs().max().item()
+    for c in range(3):
+        sel = torch.tensor(cls_pad == c, device="cuda")
+        o, r = out[sel], ref[sel]
+        tol = 1e-5 * r.abs().max().item() + (floor if c == 2 else 0.0)
+        assert (o - r).abs().max().item() <= tol, c
+
+
+@pytest.mark.cuda
+def test_wgrad_cuda_fp32_lhs_at_the_ends_of_the_range():
+    """The same rows through the weight gradient's fp32 x fp32 and fp32 x
+    bf16 forms: the output's entries mix every class, so it is held to
+    1e-5 of its largest value, which the near-maximum rows set."""
+    _need_cuda()
+    rs = np.random.RandomState(10)
+    M, K, N = 256, 136, 132
+    x = _extreme_rows(M, K, rs, rs.randint(0, 3, M))
+    gs = torch.tensor([100, 0, 156], device="cuda")
+    lhs = torch.tensor(x, device="cuda")
+    for rdt in (torch.float32, torch.bfloat16):
+        rhs = torch.tensor(np.ldexp(rs.randn(M, N), -20), dtype=torch.float32,
+                           device="cuda").to(rdt)
+        out = gm.grouped_matmul_wgrad(lhs, rhs, gs)
+        ref = gm.grouped_matmul_wgrad_ref(lhs, rhs, gs)
+        torch.cuda.synchronize()
+        assert torch.isfinite(out).all() and torch.isfinite(ref).all()
+        assert (out - ref).abs().max().item() <= \
+            1e-5 * ref.abs().max().item()
