@@ -13,7 +13,8 @@ Phases, each failing loudly (non-zero exit, no result line):
      CUDA-event times, the roofline bound (3.35 TB/s; 989 TFLOP/s bf16)
      and, where one PyTorch call computes the same function, its time:
      K1 fused MoE FFN (T=8 decode, T=64 prefill, T=2048 training, routing
-     from a random router), K3/K4 paged attention (decode B=8 Q=1 with 2
+     from a random router; the path each shape takes, the wrapper's time
+     and the C entry's alone, split by kernel with torch.profiler), K3/K4 paged attention (decode B=8 Q=1 with 2
      inactive slots and unallocated pages on the scratch page; prefill
      B=1 Q=64), K2 grouped matmul at the MoE backward's shapes (12288
      routed rows over 64 experts: the up product 2048 -> 1408 from bf16
@@ -173,9 +174,37 @@ def library_time(candidates):
     return None, "; ".join(reasons)
 
 
-def check_k1(cfg, T: int, gen):
-    """K1 at Ling-Lite widths with a random router's routing."""
+def kernel_split(fn, prefixes, iters: int = 20):
+    """Device time per call of each group of kernels whose names contain
+    a prefix, summed by torch.profiler over `iters` calls of fn; None
+    where the profiler shows no device time."""
     import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out = {p: 0.0 for p in prefixes}
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = getattr(ev, "self_cuda_time_total", 0)
+        for p in prefixes:
+            if p in ev.key:
+                out[p] += us / 1e3 / iters
+    return out if any(out.values()) else None
+
+
+def check_k1(cfg, T: int, gen):
+    """K1 at Ling-Lite widths with a random router's routing.  Times the
+    wrapper (checks, allocation and host dispatch included) and the C
+    entry alone on prepared arguments (its kernels' time, also split by
+    kernel with the profiler: up, down, and the combine with its index
+    passes)."""
+    import torch
+    from repro_torch.kernels import build
     from repro_torch.kernels import grouped_matmul as gm
     from repro_torch.kernels import ops
     m = cfg.moe
@@ -185,12 +214,14 @@ def check_k1(cfg, T: int, gen):
     row_idx, g, tile_group = ops._fused_layout(tok, gates, group_sizes, T,
                                                bm)
     args = (x, p["we1"], p["we2"], p["we3"], row_idx, g, tile_group)
+    path = gm.k1_path(row_idx.shape[0], bm, m.n_experts)
     out = gm.fused_moe_ffn(*args)
     ref = gm.fused_moe_ffn_ref(*args)
     torch.cuda.synchronize()
     err = (out - ref).abs().max().item()
-    # fp32 products of bf16 operands, fp32 hidden: the two differ only in
-    # fp32 summation order over d=2048 and ff=1408
+    # fp32 products of bf16 operands, fp32 hidden (cut exactly into three
+    # bf16 pieces for the down product): the two differ only in fp32
+    # summation order over d=2048 and ff=1408
     tol = 1e-4 * ref.abs().max().item()
     n_experts = int((group_sizes > 0).sum())
     w_bytes = n_experts * 3 * cfg.d_model * m.expert_d_ff * 2
@@ -199,14 +230,32 @@ def check_k1(cfg, T: int, gen):
                        2 * cap * 3 * cfg.d_model * m.expert_d_ff)
     ms = cuda_ms(lambda: gm.fused_moe_ffn(*args))
     plain_ms = cuda_ms(lambda: gm.fused_moe_ffn_ref(*args))
+    # the C entry alone, its checks and scratch allocation done once
+    out_c, c_args, _held = gm._k1_launch(*args, act="swiglu")
+    entry = build.entry("fused_moe_ffn")
+    build.check(entry(*c_args), "fused_moe_ffn")
+    torch.cuda.synchronize()
+    if not torch.equal(out_c, out):
+        fail(f"fused_moe_ffn T={T}: two launches on the same inputs differ")
+    device_ms = cuda_ms(lambda: entry(*c_args))
+    split = kernel_split(lambda: entry(*c_args),
+                         ("moe_up", "moe_down", "moe_combine"))
     shape = (f"T={T} cap={cap} bm={bm} tiles={tile_group.numel()} "
-             f"experts_routed={n_experts}")
+             f"experts_routed={n_experts} path={path}")
     report("fused_moe_ffn", shape, err, tol, ref.abs().max().item(), ms,
            plain_ms, b_ms, b_by)
+    parts = ("not measured" if split is None else
+             " ".join(f"{k}={v:.4f}ms" for k, v in split.items()))
+    print(f"[kernels] fused_moe_ffn T={T} path={path}: wrapper={ms:.4f}ms "
+          f"kernels alone={device_ms:.4f}ms (share of bound "
+          f"{b_ms / device_ms:.1%}; wrapper {b_ms / ms:.1%}); profiler "
+          f"per call: {parts}")
     if not err <= tol:
         fail(f"fused_moe_ffn T={T}: max_abs_err {err} > tolerance {tol}")
     return dict(max_abs_err=err, tolerance=tol, ms=ms, plain_ms=plain_ms,
-                bound_ms=b_ms, bound_by=b_by, library_ms=None, shape=shape)
+                bound_ms=b_ms, bound_by=b_by, library_ms=None, shape=shape,
+                path=path, wrapper_ms=ms, device_ms=device_ms,
+                device_split_ms=split)
 
 
 def paged_case(cfg, *, B, Q, ctx, base, n_pages, gen):

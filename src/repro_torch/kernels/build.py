@@ -2,11 +2,12 @@
 
 Each `csrc/*.cu` file is compiled on first use, all sources in parallel
 (one `nvcc` each), for `sm_90a` into `build/repro_torch/` at the root of
-the checkout, under a name that carries a hash of the source and flags so
-an edited source never loads a stale library.  The C entry points take
-raw device pointers and the CUDA stream as `c_void_p`, launch on that
-stream, allocate nothing, and return `cudaGetLastError()`; `check` raises
-on a non-zero code.  Nothing here runs at import time, and nothing falls
+the checkout, under a name that carries a hash of the source, the
+`csrc/*.cuh` headers it includes and the flags, so an edited source or
+header never loads a stale library.  The C entry points take raw device
+pointers and the CUDA stream as `c_void_p`, launch on that stream,
+allocate nothing, and return `cudaGetLastError()`; `check` raises on a
+non-zero code.  Nothing here runs at import time, and nothing falls
 back: a missing `nvcc` or a failed build raises.
 
 `LAUNCHES` counts one per kernel-wrapper call that launched its CUDA
@@ -20,6 +21,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -33,7 +35,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry point -> (source stem, argtypes); every entry returns int.
 SIGNATURES = {
-    "fused_moe_ffn": ("fused_moe_ffn", [_P] * 13 + [_I] * 8 + [_P]),
+    "fused_moe_ffn": ("fused_moe_ffn", [_P] * 11 + [_I] * 9 + [_P]),
     "paged_attn_scores_max": ("paged_attn", [_P] * 5 + [_I] * 7 + [_F, _P]),
     "paged_attn_accumulate": ("paged_attn", [_P] * 8 + [_I] * 7 + [_F, _P]),
     "grouped_matmul_aligned": ("grouped_matmul", [_P] * 4 + [_I] * 7 + [_P]),
@@ -62,10 +64,28 @@ def nvcc() -> str:
     return path
 
 
+def _headers(src: Path):
+    """The csrc/*.cuh files that `src` includes, directly or through
+    another header, in include order."""
+    seen, todo = [], [src]
+    while todo:
+        for name in re.findall(r'^\s*#\s*include\s+"([^"]+)"',
+                               todo.pop().read_text(), re.M):
+            dep = CSRC / name
+            if dep.suffix == ".cuh" and dep.exists() and dep not in seen:
+                seen.append(dep)
+                todo.append(dep)
+    return seen
+
+
 def _target(src: Path) -> Path:
-    digest = hashlib.sha1(src.read_bytes()
-                          + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"{src.stem}-{digest}.so"
+    """The library's path: a hash of the source, the headers it includes
+    and the flags, so an edited header never loads a stale library."""
+    digest = hashlib.sha1()
+    for part in [src] + _headers(src):
+        digest.update(part.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{src.stem}-{digest.hexdigest()[:12]}.so"
 
 
 @functools.cache

@@ -13,6 +13,10 @@ operand is cut exactly into three bf16 pieces (`split_bf16` is that
 arithmetic in PyTorch, for the tests), so their results equal fp32
 products up to summation order.
 
+K1 runs bf16 wgmma too, on one of two paths chosen from the static
+shapes (`k1_path`): weight streaming for a few rows per expert, 128-row
+tensor-core tiles for training batches.
+
 K1's operands follow the reference's expert-aligned layout
 (`kernels.ops._fused_layout`): x (T, d) unsorted activations; w1/w3
 (G, d, ff) and w2 (G, ff, d); row_idx (n_m, bm) int32 token per padded
@@ -32,8 +36,11 @@ from repro_torch.kernels import build
 
 GATED_ACTS = ("swiglu", "geglu")
 _ACT_IDS = {"swiglu": 0, "geglu": 1, "gelu": 2, "squared_relu": 3}
-# The CUDA kernel's column tile: d and ff must be multiples of it.
-TILE_N = 64
+# K1's weight-streaming path takes layouts of at most this many routed rows
+# per expert (cap / G); above it, the tensor-core path.  32 is the
+# streaming kernel's narrow side (wgmma N): at or below it most tiles need
+# one pass over their expert's weights.
+K1_STREAM_MAX_ROWS = 32
 
 
 def apply_act(name: str, x: torch.Tensor) -> torch.Tensor:
@@ -81,14 +88,29 @@ def fused_moe_ffn_ref(x, w1, w2, w3, row_idx, gates, tile_group, *,
     return out.index_add_(0, tok[rows], y[rows])
 
 
-def fused_moe_ffn(x, w1, w2, w3, row_idx, gates, tile_group, *,
-                  act: str = "swiglu") -> torch.Tensor:
-    """K1.  CPU tensors: the plain version.  CUDA tensors: the kernel."""
-    if x.device.type == "cpu":
-        return fused_moe_ffn_ref(x, w1, w2, w3, row_idx, gates, tile_group,
-                                 act=act)
-    if x.device.type != "cuda":
-        raise ValueError(f"fused_moe_ffn: unsupported device {x.device}")
+def k1_rows_per_expert(n_m: int, bm: int, G: int) -> float:
+    """cap / G of a K1 layout, read off its static shape: the layout pads
+    cap rows to M_pad = n_m * bm = round_up(cap + G (bm - 1), bm), so this
+    is cap / G rounded up by less than bm / G (an upper bound)."""
+    return (n_m * bm - G * (bm - 1)) / G
+
+
+def k1_path(n_m: int, bm: int, G: int) -> str:
+    """K1's kernels for a layout of n_m tiles of bm rows over G experts:
+    "stream" (the weights stream through swap-AB wgmma, for a few rows per
+    expert: decode ticks, prefill chunks) or "tensor_cores" (128-row wgmma
+    tiles, for training batches).  Static shapes only: nothing is read
+    from the device."""
+    if k1_rows_per_expert(n_m, bm, G) <= K1_STREAM_MAX_ROWS:
+        return "stream"
+    return "tensor_cores"
+
+
+def _k1_launch(x, w1, w2, w3, row_idx, gates, tile_group, act):
+    """Checks K1's CUDA operands and prepares its launch: (out, the C
+    entry's arguments, the tensors they point into).  Allocation
+    only: the combine's index arrays are computed by the C entry's own
+    launches."""
     T, d = x.shape
     G, _, ff = w1.shape
     n_m, bm = row_idx.shape
@@ -100,36 +122,51 @@ def fused_moe_ffn(x, w1, w2, w3, row_idx, gates, tile_group, *,
         if t.dtype != torch.bfloat16 or not t.is_contiguous():
             raise ValueError(f"fused_moe_ffn: {name} must be contiguous "
                              f"bf16, got {t.dtype}")
-    if w2.shape != (G, ff, d) or d % TILE_N or ff % TILE_N:
+        if t.data_ptr() % 16:
+            raise ValueError(f"fused_moe_ffn: {name} must be 16-byte "
+                             f"aligned")
+    if (w1.shape[1] != d or w2.shape != (G, ff, d)
+            or (w3 is not None and w3.shape != w1.shape) or d % 8 or ff % 8):
         raise ValueError(f"fused_moe_ffn: w1 {tuple(w1.shape)} / w2 "
-                         f"{tuple(w2.shape)}: d and ff must be multiples "
-                         f"of {TILE_N}")
+                         f"{tuple(w2.shape)}: shapes must agree and d and "
+                         f"ff be multiples of 8")
     row_idx = row_idx.to(torch.int32).contiguous()
     gates = gates.to(torch.float32).contiguous()
     tile_group = tile_group.to(torch.int32).contiguous()
-    # combine order: each token's live rows, ascending (a stable sort of
-    # rows by token keeps row order within a token)
-    tok = row_idx.reshape(-1).long()
-    live = (gates.reshape(-1) != 0) & (
-        tile_group.long().repeat_interleave(bm) < G)
-    key = torch.where(live, tok, T)
-    order = torch.argsort(key, stable=True).to(torch.int32)
-    # scatter_add_, not bincount: no device->host read of the max
-    counts = torch.zeros(T + 1, dtype=torch.long, device=x.device) \
-        .scatter_add_(0, key, torch.ones_like(key))[:T]
-    offsets = (torch.cumsum(counts, 0) - counts).to(torch.int32)
-    counts = counts.to(torch.int32)
-    h = torch.empty((n_m * bm, ff), dtype=torch.float32, device=x.device)
-    y = torch.empty((n_m * bm, d), dtype=torch.float32, device=x.device)
+    if gates.shape != (n_m, bm) or tile_group.shape != (n_m,):
+        raise ValueError(f"fused_moe_ffn: row_idx {(n_m, bm)}, gates "
+                         f"{tuple(gates.shape)}, tile_group "
+                         f"{tuple(tile_group.shape)} must agree")
+    rows = n_m * bm
+    # scratch: h and y (fp32), the combine's index arrays (int32)
+    hy = torch.empty(rows * (ff + d), dtype=torch.float32, device=x.device)
+    idx = torch.empty(3 * T + 2 * rows, dtype=torch.int32, device=x.device)
     out = torch.empty((T, d), dtype=torch.float32, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = build.entry("fused_moe_ffn")(
-        x.data_ptr(), w1.data_ptr(), w3.data_ptr() if gated else None,
-        w2.data_ptr(), row_idx.data_ptr(), gates.data_ptr(),
-        tile_group.data_ptr(), order.data_ptr(), offsets.data_ptr(),
-        counts.data_ptr(), h.data_ptr(), y.data_ptr(), out.data_ptr(),
-        T, d, ff, G, n_m, bm, _ACT_IDS[act], int(gated), stream)
-    build.check(err, "fused_moe_ffn")
+    ptr = lambda t: None if t is None else t.data_ptr()
+    c_args = tuple(ptr(t) for t in (x, w1, w3, w2, row_idx, gates,
+                                    tile_group, idx)) + (
+        hy.data_ptr(), hy.data_ptr() + rows * ff * 4, out.data_ptr(),
+        T, d, ff, G, n_m, bm, _ACT_IDS[act], int(gated),
+        int(k1_path(n_m, bm, G) == "stream"), stream)
+    # the tensors the pointers name, for a caller that keeps c_args
+    held = (x, w1, w2, w3, row_idx, gates, tile_group, hy, idx)
+    return out, c_args, held
+
+
+def fused_moe_ffn(x, w1, w2, w3, row_idx, gates, tile_group, *,
+                  act: str = "swiglu") -> torch.Tensor:
+    """K1.  CPU tensors: the plain version.  CUDA tensors: the kernels of
+    `k1_path`'s path (x and the weights bf16, 16-byte aligned, d and ff
+    multiples of 8)."""
+    if x.device.type == "cpu":
+        return fused_moe_ffn_ref(x, w1, w2, w3, row_idx, gates, tile_group,
+                                 act=act)
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_moe_ffn: unsupported device {x.device}")
+    out, c_args, _ = _k1_launch(x, w1, w2, w3, row_idx, gates, tile_group,
+                                act)
+    build.check(build.entry("fused_moe_ffn")(*c_args), "fused_moe_ffn")
     build.LAUNCHES["fused_moe_ffn"] += 1
     return out
 

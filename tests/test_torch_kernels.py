@@ -211,6 +211,105 @@ def test_k1_cuda_kernel_matches_plain(act):
     assert (out - ref).abs().max().item() <= tol
 
 
+# K1's two paths at small widths (`gm.k1_path` picks one from the shapes;
+# tests/test_torch_k1_split.py checks which on the CPU): T=70 over 4
+# experts top-2 (cap/G ~ 35) takes the tensor cores, T=13 (~6.5) and the
+# skewed T=60 (30, expert 0 holding all 60 rows) stream.  d=96 and ff=200
+# are no multiples of the 64- and 128-wide tiles (column and contraction
+# tails); expert 2 is empty, so some tiles are all padding.
+K1_PATH_CASES = {"tensor_cores": 70, "stream": 13}
+
+
+def _k1_cuda_case(seed, T, act, *, d=96, ff=200, skew=False):
+    """(args on the card, bm) for the plain version and the kernels."""
+    x, w1, w2, w3, tok, gate, gs = _moe_case(seed, T, act, d=d, ff=ff)
+    if skew:   # every token picks expert 0 and one of experts 1 and 3
+        rs = np.random.RandomState(seed)
+        other = rs.choice([1, 3], T)
+        experts = np.stack([np.zeros(T, np.int64), other], 1).reshape(-1)
+        order = np.argsort(experts, kind="stable")
+        tok = (order // 2).astype(np.int32)
+        gs = np.bincount(experts[order], minlength=4).astype(np.int32)
+    dev = lambda a: None if a is None else torch.tensor(a).cuda()
+    bf = lambda a: None if a is None else dev(a).to(torch.bfloat16)
+    bm = min(128, max(8, tok.shape[0]))
+    row_idx, gates, tg = tops._fused_layout(dev(tok), dev(gate), dev(gs), T,
+                                            bm)
+    return (bf(x), bf(w1), bf(w2), bf(w3), row_idx, gates, tg), bm
+
+
+def _k1_check(args, act):
+    before = build.LAUNCHES["fused_moe_ffn"]
+    out = gm.fused_moe_ffn(*args, act=act)
+    assert build.LAUNCHES["fused_moe_ffn"] == before + 1
+    ref = gm.fused_moe_ffn_ref(*args, act=act)
+    torch.cuda.synchronize()
+    tol = 1e-5 * ref.abs().max().item()
+    assert (out - ref).abs().max().item() <= tol
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("act", ACTS)
+@pytest.mark.parametrize("path", sorted(K1_PATH_CASES))
+def test_k1_cuda_paths_tails_and_padding_tiles(path, act):
+    """Each path, every activation, d and ff off the tiles' multiples, an
+    all-padding tile, and tiles with fewer live rows than the MMA's narrow
+    side (the stream path's N = 32, the tensor cores' 64-row warpgroup
+    tiles)."""
+    _need_cuda()
+    T = K1_PATH_CASES[path]
+    args, bm = _k1_cuda_case(2, T, act)
+    row_idx, gates, tg = args[4:]
+    assert gm.k1_path(row_idx.shape[0], bm, 4) == path
+    assert (tg == 4).any()
+    live = (gates != 0).sum(1)
+    narrow = 32 if path == "stream" else 64
+    assert ((live > 0) & (live < narrow)).any()
+    _k1_check(args, act)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("act", ["swiglu", "squared_relu"])
+def test_k1_cuda_stream_tile_over_one_pass(act):
+    """A streamed tile with 60 live rows takes two 32-row passes."""
+    _need_cuda()
+    args, bm = _k1_cuda_case(3, 60, act, skew=True)
+    assert gm.k1_path(args[4].shape[0], bm, 4) == "stream"
+    assert (args[5] != 0).sum(1).max().item() > 32
+    _k1_check(args, act)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", sorted(K1_PATH_CASES))
+def test_k1_cuda_deterministic(path):
+    _need_cuda()
+    args, _ = _k1_cuda_case(4, K1_PATH_CASES[path], "geglu")
+    a = gm.fused_moe_ffn(*args, act="geglu")
+    b = gm.fused_moe_ffn(*args, act="geglu")
+    assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", sorted(K1_PATH_CASES))
+def test_k1_cuda_non_finite_input_stays_non_finite(path):
+    """An inf in one token's row makes that token's output non-finite, as
+    in the plain version, and leaves every other token as it was."""
+    _need_cuda()
+    args, _ = _k1_cuda_case(5, K1_PATH_CASES[path], "swiglu")
+    x = args[0].clone()
+    x[3, 5] = float("inf")
+    args = (x,) + args[1:]
+    out = gm.fused_moe_ffn(*args, act="swiglu")
+    ref = gm.fused_moe_ffn_ref(*args, act="swiglu")
+    torch.cuda.synchronize()
+    fin = torch.isfinite(ref)
+    assert not fin[3].any()
+    assert torch.equal(torch.isfinite(out), fin)
+    tol = 1e-5 * ref[fin].abs().max().item()
+    assert (out[fin] - ref[fin]).abs().max().item() <= tol
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("Q", [1, 8, 3])
 def test_k3_k4_cuda_kernels_match_plain(Q):
