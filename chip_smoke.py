@@ -11,12 +11,17 @@ Phases, each failing loudly (non-zero exit, no result line):
   3. per-kernel checks at Ling-Lite shapes against their plain PyTorch
      versions on identical inputs, with error, tolerance, median
      CUDA-event times, the roofline bound (3.35 TB/s; 989 TFLOP/s bf16)
-     and, where one PyTorch call computes the same function, its time:
+     and, where one PyTorch call computes the same function, its time
+     (every kernel's `ms`: the wrapper from an idle queue, host dispatch
+     included):
      K1 fused MoE FFN (T=8 decode, T=64 prefill, T=2048 training, routing
      from a random router; the path each shape takes, the wrapper's time
-     and the C entry's alone, split by kernel with torch.profiler), K3/K4 paged attention (decode B=8 Q=1 with 2
-     inactive slots and unallocated pages on the scratch page; prefill
-     B=1 Q=64), K2 grouped matmul at the MoE backward's shapes (12288
+     and the C entry's alone, split by kernel with torch.profiler), K3/K4
+     paged attention (PA_CASES: decode B=8 Q=1 with 2 inactive slots and
+     unallocated pages on the scratch page; prefill B=1 Q=64; beside
+     `ms`, the card's time for the call enqueued behind a sleep kernel
+     and the wrapper's host dispatch alone, which is longer than the
+     kernel), K2 grouped matmul at the MoE backward's shapes (12288
      routed rows over 64 experts: the up product 2048 -> 1408 from bf16
      rows, the down product 1408 -> 2048 from fp32 rows, the transposed
      product 1408 -> 2048 from fp32 rows) and the grouped weight
@@ -73,6 +78,13 @@ HBM_BYTES_S = 3.35e12          # H100 SXM HBM3
 BF16_FLOPS = 989e12            # H100 SXM dense bf16 tensor-core peak
 SERVE_KERNELS = ("fused_moe_ffn", "paged_attn_scores_max",
                  "paged_attn_accumulate")      # once per layer and step
+# phase 3's paged-attention cases (`paged_case`'s arguments), also timed
+# by scripts/profile_torch_pa.py: Ling-Lite's KV heads, 32 logical pages
+# of 16 per slot
+PA_CASES = {
+    "decode": dict(B=8, Q=1, ctx=[100, 300, 0, 171, 256, 0, 129, 233],
+                   base=None, n_pages=8 * 32 + 1),
+    "prefill": dict(B=1, Q=64, ctx=[192], base=128, n_pages=8 * 32 + 1)}
 
 
 def fail(msg: str):
@@ -104,6 +116,46 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
         b.record()
         b.synchronize()
         times.append(a.elapsed_time(b))
+    times.sort()
+    return times[len(times) // 2]
+
+
+def device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Median over `iters` calls of CUDA-event time around one call
+    enqueued behind a sleep kernel: the host's dispatch of the call
+    overlaps the sleep, so only the card's time for the call's work
+    remains (cuda_ms also counts the dispatch while the card waits)."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(iters):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(5_000_000)         # ~2.5 ms: longer than dispatch
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    times.sort()
+    return times[len(times) // 2]
+
+
+def host_ms(fn, iters: int = 50, repeats: int = 5) -> float:
+    """Host time of one call of fn (its dispatch alone): the median over
+    `repeats` of the mean over `iters` calls that do not wait for the
+    card."""
+    import torch
+    fn()
+    times = []
+    for _ in range(repeats):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        times.append(1e3 * (time.perf_counter() - t0) / iters)
+    torch.cuda.synchronize()
     times.sort()
     return times[len(times) // 2]
 
@@ -237,7 +289,7 @@ def check_k1(cfg, T: int, gen):
     torch.cuda.synchronize()
     if not torch.equal(out_c, out):
         fail(f"fused_moe_ffn T={T}: two launches on the same inputs differ")
-    device_ms = cuda_ms(lambda: entry(*c_args))
+    entry_ms = cuda_ms(lambda: entry(*c_args))
     split = kernel_split(lambda: entry(*c_args),
                          ("moe_up", "moe_down", "moe_combine"))
     shape = (f"T={T} cap={cap} bm={bm} tiles={tile_group.numel()} "
@@ -247,14 +299,14 @@ def check_k1(cfg, T: int, gen):
     parts = ("not measured" if split is None else
              " ".join(f"{k}={v:.4f}ms" for k, v in split.items()))
     print(f"[kernels] fused_moe_ffn T={T} path={path}: wrapper={ms:.4f}ms "
-          f"kernels alone={device_ms:.4f}ms (share of bound "
-          f"{b_ms / device_ms:.1%}; wrapper {b_ms / ms:.1%}); profiler "
+          f"kernels alone={entry_ms:.4f}ms (share of bound "
+          f"{b_ms / entry_ms:.1%}; wrapper {b_ms / ms:.1%}); profiler "
           f"per call: {parts}")
     if not err <= tol:
         fail(f"fused_moe_ffn T={T}: max_abs_err {err} > tolerance {tol}")
     return dict(max_abs_err=err, tolerance=tol, ms=ms, plain_ms=plain_ms,
                 bound_ms=b_ms, bound_by=b_by, library_ms=None, shape=shape,
-                path=path, wrapper_ms=ms, device_ms=device_ms,
+                path=path, wrapper_ms=ms, device_ms=entry_ms,
                 device_split_ms=split)
 
 
@@ -337,13 +389,20 @@ def check_pa(cfg, label, case):
     # the other way, moving num by at most 2^-8 * max|v|
     tol4 = (1e-5 * max(num_r.abs().max().item(), den_r.abs().max().item())
             + 2.0 ** -8 * v_pool.float().abs().max().item())
-    ms3 = cuda_ms(lambda: pa.paged_attn_scores_max(gq, k_pool, table, mask4))
-    pl3 = cuda_ms(lambda: pa.paged_attn_scores_max_ref(gq, k_pool, table,
-                                                       mask4))
-    ms4 = cuda_ms(lambda: pa.paged_attn_accumulate(gq, k_pool, v_pool, table,
-                                                   mask4, m_safe))
-    pl4 = cuda_ms(lambda: pa.paged_attn_accumulate_ref(gq, k_pool, v_pool,
-                                                       table, mask4, m_safe))
+    # ms and plain_ms from an idle queue, as every row; each kernel is one
+    # launch shorter than the wrapper's host dispatch, so the card's time
+    # for the call (queue held: device_ms) and the dispatch alone
+    # (host_ms) stand beside them
+    k3 = lambda: pa.paged_attn_scores_max(gq, k_pool, table, mask4)
+    k4 = lambda: pa.paged_attn_accumulate(gq, k_pool, v_pool, table, mask4,
+                                          m_safe)
+    p3 = lambda: pa.paged_attn_scores_max_ref(gq, k_pool, table, mask4)
+    p4 = lambda: pa.paged_attn_accumulate_ref(gq, k_pool, v_pool, table,
+                                              mask4, m_safe)
+    ms3, ms4, pl3, pl4 = cuda_ms(k3), cuda_ms(k4), cuda_ms(p3), cuda_ms(p4)
+    dv3, dv4, pd3, pd4 = (device_ms(k3), device_ms(k4), device_ms(p3),
+                          device_ms(p4))
+    hs3, hs4 = host_ms(k3), host_ms(k4)
     b3, by3 = pa_bounds(gq, k_pool, table, mask4, pass2=False)
     b4, by4 = pa_bounds(gq, k_pool, table, mask4, pass2=True)
     shape = f"{label} q={tuple(gq.shape)} table={tuple(table.shape)}"
@@ -351,15 +410,20 @@ def check_pa(cfg, label, case):
            m_ref[fin].abs().max().item(), ms3, pl3, b3, by3)
     report("paged_attn_accumulate", shape, err4, tol4,
            num_r.abs().max().item(), ms4, pl4, b4, by4)
+    print(f"[kernels] paged_attn {label}: the card's time (queue held) "
+          f"scores_max={dv3:.4f}ms accumulate={dv4:.4f}ms (plain "
+          f"{pd3:.4f} / {pd4:.4f}ms); host dispatch {hs3:.4f} / "
+          f"{hs4:.4f}ms")
     if not err3 <= tol3:
         fail(f"paged_attn_scores_max {label}: {err3} > {tol3}")
     if not err4 <= tol4:
         fail(f"paged_attn_accumulate {label}: {err4} > {tol4}")
-    row = lambda e, t, ms, pl, b, by: dict(
+    row = lambda e, t, ms, pl, b, by, dv, pd, hs: dict(
         max_abs_err=e, tolerance=t, ms=ms, plain_ms=pl, bound_ms=b,
-        bound_by=by, library_ms=None, shape=shape)
-    return (row(err3, tol3, ms3, pl3, b3, by3),
-            row(err4, tol4, ms4, pl4, b4, by4))
+        bound_by=by, library_ms=None, shape=shape, device_ms=dv,
+        plain_device_ms=pd, host_ms=hs)
+    return (row(err3, tol3, ms3, pl3, b3, by3, dv3, pd3, hs3),
+            row(err4, tol4, ms4, pl4, b4, by4, dv4, pd4, hs4))
 
 
 def _passes(a_dtype, b_dtype) -> int:
@@ -988,14 +1052,10 @@ def main():
     k1 = {"decode": check_k1(cfg, 8, gen), "prefill": check_k1(cfg, 64, gen),
           "train": check_k1(cfg, 2048, gen)}
     torch.cuda.empty_cache()
-    n_pages = 8 * 32 + 1
-    dec = paged_case(cfg, B=8, Q=1, ctx=[100, 300, 0, 171, 256, 0, 129, 233],
-                     base=None, n_pages=n_pages, gen=gen)
-    pre = paged_case(cfg, B=1, Q=64, ctx=[192], base=128, n_pages=n_pages,
-                     gen=gen)
-    k3d, k4d = check_pa(cfg, "decode", dec)
-    k3p, k4p = check_pa(cfg, "prefill", pre)
-    del dec, pre
+    k3, k4 = {}, {}
+    for label, kw in PA_CASES.items():
+        k3[label], k4[label] = check_pa(cfg, label,
+                                        paged_case(cfg, gen=gen, **kw))
     k2, wgrad = check_k2(cfg, gen)
     rcfg = get_config("rwkv6-3b")
     vl, vr = cfg.vocab_size, rcfg.vocab_size
@@ -1012,8 +1072,7 @@ def main():
     results = {"fused_moe_ffn": k1,
                "grouped_matmul_aligned": k2,
                "grouped_matmul_wgrad": wgrad,
-               "paged_attn_scores_max": {"decode": k3d, "prefill": k3p},
-               "paged_attn_accumulate": {"decode": k4d, "prefill": k4p},
+               "paged_attn_scores_max": k3, "paged_attn_accumulate": k4,
                "normhead_matmul": k5, "wkv6": k6}
     gc.collect()
     torch.cuda.empty_cache()

@@ -44,8 +44,8 @@ RWKV_B, RWKV_S, RWKV_TICKS = 8, 512, 8
 GROUPS = (("K1 fused_moe_ffn", ("moe_up", "moe_down", "moe_combine")),
           ("K5 normhead_matmul", ("normhead_kernel",)),
           ("K6 wkv6", ("wkv6_kernel",)),
-          ("K3 paged_attn_scores_max", ("scores_max_kernel",)),
-          ("K4 paged_attn_accumulate", ("accumulate_kernel",)),
+          ("K3 paged_attn_scores_max", ("pa_scores_max_kernel",)),
+          ("K4 paged_attn_accumulate", ("pa_accumulate_kernel",)),
           # cuBLAS on Hopper names its kernels nvjet_* / sm90_xmma_*
           ("dense GEMMs (torch.matmul)", ("gemm", "gemv", "xmma", "cutlass",
                                           "cublas", "splitk", "nvjet")),

@@ -36,8 +36,8 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry point -> (source stem, argtypes); every entry returns int.
 SIGNATURES = {
     "fused_moe_ffn": ("fused_moe_ffn", [_P] * 11 + [_I] * 9 + [_P]),
-    "paged_attn_scores_max": ("paged_attn", [_P] * 5 + [_I] * 7 + [_F, _P]),
-    "paged_attn_accumulate": ("paged_attn", [_P] * 8 + [_I] * 7 + [_F, _P]),
+    "paged_attn_scores_max": ("paged_attn", [_P] * 7 + [_I] * 8 + [_F, _P]),
+    "paged_attn_accumulate": ("paged_attn", [_P] * 10 + [_I] * 8 + [_F, _P]),
     "grouped_matmul_aligned": ("grouped_matmul", [_P] * 4 + [_I] * 7 + [_P]),
     "grouped_matmul_wgrad": ("grouped_matmul", [_P] * 5 + [_I] * 7 + [_P]),
     "normhead_matmul": ("normhead", [_P] * 3 + [_I] * 5 + [_F, _P]),

@@ -22,7 +22,10 @@
 // non-zero gate (the layout puts an expert's rows first in its tile) are
 // zero-filled and never stored.
 //
-// Products run on the tensor cores (bf16 wgmma, fp32 accumulators).  x and
+// Products run on the tensor cores (bf16 wgmma, fp32 accumulators; each
+// stage's wgmmas add into fresh registers that are then added to the
+// accumulators in fp32, since the tensor cores truncate their sums:
+// hopper_mma.cuh `promote`).  x and
 // the weights are bf16, so x W1 and x W3 are exact bf16 products in one
 // pass; h is fp32 and is cut exactly into three bf16 pieces (hi, mid, lo;
 // hopper_mma.cuh `split3`), so h W2 takes three passes and equals the fp32
@@ -118,7 +121,7 @@ __device__ __forceinline__ TcBlock tc_block(int n_col, int bn, int bm,
 // Gated: BNU = 64 columns of W1 and the same of W3 side by side in one
 // 128-column wgmma tile; otherwise 128 columns of W1.
 template <bool GATED>
-__global__ void __launch_bounds__(NT, 2) moe_up_tc_kernel(
+__global__ void __launch_bounds__(NT, 1) moe_up_tc_kernel(
     const bf16* __restrict__ x, const int* __restrict__ row_idx,
     const float* __restrict__ gates, const int* __restrict__ tile_group,
     float* __restrict__ h, int d, int ff, int G, int bm, int act,
@@ -160,7 +163,7 @@ __global__ void __launch_bounds__(NT, 2) moe_up_tc_kernel(
 }
 
 // y[tile rows, n0 : n0 + BN] = gate * (h_rows W2), fp32; h in three pieces.
-__global__ void __launch_bounds__(NT, 2) moe_down_tc_kernel(
+__global__ void __launch_bounds__(NT, 1) moe_down_tc_kernel(
     const float* __restrict__ h, const float* __restrict__ gates,
     const int* __restrict__ tile_group, float* __restrict__ y, int d, int ff,
     int G, int bm, const __grid_constant__ CUtensorMap w2_map) {
@@ -301,16 +304,21 @@ __global__ void __launch_bounds__(SNT) moe_up_stream_kernel(
   auto compute = [&](int slot) {
     const uint32_t w = smem_u32(base + slot * UP_STAGE);
     const uint32_t xr = w + 2 * W_BYTES;
+    float p1[16], p3[16];   // the stage's sums, promoted (hopper_mma.cuh)
+    zero(p1);
+    zero(p3);
     wgmma_fence();
 #pragma unroll
     for (int j = 0; j < MM_BK / 16; ++j) {
-      wgmma_ss_n32(a1, desc_w(w, j), desc_rows(xr, j));
-      if (GATED) wgmma_ss_n32(a3, desc_w(w + W_BYTES, j), desc_rows(xr, j));
+      wgmma_ss_n32(p1, desc_w(w, j), desc_rows(xr, j));
+      if (GATED) wgmma_ss_n32(p3, desc_w(w + W_BYTES, j), desc_rows(xr, j));
     }
     wgmma_commit();
     wgmma_wait<0>();
-    keep(a1);
-    keep(a3);
+    keep(p1);
+    keep(p3);
+    promote(a1, p1);
+    if (GATED) promote(a3, p3);
   };
   // a[4 i + 2 hh + j]: weight column f0 + m + 8 hh, row r0 + 8 i + 2 (lane
   // % 4) + j, with m = 16 warp + lane / 4
@@ -380,19 +388,24 @@ __global__ void __launch_bounds__(SNT) moe_down_stream_kernel(
     fence_async_smem();
     __syncthreads();
     const uint32_t w = smem_u32(st), p = smem_u32(pieces);
+    float part[2][16];      // the stage's sums, promoted (hopper_mma.cuh)
+    zero(part[0]);
+    zero(part[1]);
     wgmma_fence();
 #pragma unroll
     for (int j = 0; j < MM_BK / 16; ++j)
 #pragma unroll
       for (int q = 0; q < 3; ++q) {
         const uint64_t db = desc_rows(p + q * X_BYTES, j);
-        wgmma_ss_n32(acc[0], desc_w(w, j), db);
-        wgmma_ss_n32(acc[1], desc_w(w + W_BYTES, j), db);
+        wgmma_ss_n32(part[0], desc_w(w, j), db);
+        wgmma_ss_n32(part[1], desc_w(w + W_BYTES, j), db);
       }
     wgmma_commit();
     wgmma_wait<0>();
-    keep(acc[0]);
-    keep(acc[1]);
+    keep(part[0]);
+    keep(part[1]);
+    promote(acc[0], part[0]);
+    promote(acc[1], part[1]);
   };
   auto done = [&](int pass) {
     const int m = c0 + ((tid >> 5) << 4) + (lane >> 2);

@@ -26,10 +26,12 @@
 //  * Tensor cores.  Each block computes a 128 x 128 fp32 output tile with
 //    two warpgroups, each issuing wgmma.mma_async m64n128k16 (bf16 inputs,
 //    fp32 accumulators, 64 per thread).  The column tile is 128: it divides
-//    both 1408 and 2048 (176 would leave 2048 a masked tile), and n128
-//    keeps the accumulators at 64 registers beside two k16 steps of split
-//    A fragments (24 registers), so two blocks fit an SM.  A comes from
-//    registers, B from shared memory
+//    both 1408 and 2048 (176 would leave 2048 a masked tile).  The tensor
+//    cores truncate each wgmma's sum, so every stage adds into 64 fresh
+//    registers that the stage then adds to the tile's accumulators in
+//    fp32 (hopper_mma.cuh `promote`): the error then grows like sqrt(K),
+//    not like K.  With 128 accumulator registers a thread, one block fits
+//    an SM.  A comes from registers, B from shared memory
 //    through a 128-byte-swizzle descriptor: K-major for trans_b (rhs (N,
 //    K)), MN-major (the transpose bit for 16-bit B) otherwise.
 //  * Exact split of fp32 operands.  An fp32 value x is cut by truncation
@@ -46,8 +48,8 @@
 //    summation order.  In the weight gradient, an fp32 x fp32 product
 //    keeps the six piece products with i + j <= 2 (the dropped three are
 //    below 2^-24 relative: ~7e-9 of the largest output).
-//  * Staging.  A ring of A and B tiles in shared memory (2 stages for fp32
-//    rows, 3 for bf16, two blocks per SM), the copies for stage s +
+//  * Staging.  A ring of A and B tiles in shared memory (4 stages for fp32
+//    rows, 6 for bf16, 4 in the weight gradient), the copies for stage s +
 //    STAGES - 1 in flight while stage s computes.  K2 loads the expert
 //    tiles with TMA (cp.async.bulk.tensor, 128-byte swizzle, out-of-bounds
 //    zero fill, completion on an mbarrier) where rhs's row stride is a
@@ -90,7 +92,7 @@ namespace {
 // rows [tile * bm + chunk * BM, min(+BM, (tile + 1) * bm)) of row block
 // b / n_col = tile * chunks + chunk.
 template <bool A32, bool TRANS_B>
-__global__ void __launch_bounds__(NT, 2) grouped_mm_kernel(
+__global__ void __launch_bounds__(NT, 1) grouped_mm_kernel(
     const void* __restrict__ lhs_, const bf16* __restrict__ rhs,
     const int* __restrict__ tile_group, float* __restrict__ out, int K,
     int N, int G, int bm, int a16, int tma,
@@ -139,7 +141,7 @@ struct WgShape {
   // rows per stage: 64, or 32 for fp32 x fp32, whose split B pieces
   // would otherwise leave room for one block per SM
   static constexpr int BK = (A32 && B32) ? 32 : 64;
-  static constexpr int STAGES = 2;
+  static constexpr int STAGES = 4;  // one block per SM, as K2
   static constexpr int A_LD = BM + (A32 ? 4 : 8);  // conflict-free reads
   static constexpr int A_BYTES = BK * A_LD * (A32 ? 4 : 2);
   static constexpr int PIECE = BK * BN * 2;  // one swizzled bf16 tile
@@ -160,6 +162,8 @@ __device__ __forceinline__ void wg_stage(float (&acc)[64],
   constexpr uint32_t HALF = W::BK * 128;
   const int m = m0 + (lane >> 2), k = (lane & 3) * 2;
   uint32_t a[KS][NP][4];
+  float part[64];
+  zero(part);
 #pragma unroll
   for (int j = 0; j < KS; ++j) {
     const int kc = 16 * j + k;
@@ -188,15 +192,15 @@ __device__ __forceinline__ void wg_stage(float (&acc)[64],
       const uint64_t d1 = desc_b128(b_tile + W::PIECE + 2048 * j, HALF, SWZ);
       const uint64_t d2 =
           desc_b128(b_tile + 2 * W::PIECE + 2048 * j, HALF, SWZ);
-      wgmma_rs<1>(acc, a[j][0], d0);
-      wgmma_rs<1>(acc, a[j][0], d1);
-      wgmma_rs<1>(acc, a[j][1], d0);
-      wgmma_rs<1>(acc, a[j][0], d2);
-      wgmma_rs<1>(acc, a[j][1], d1);
-      wgmma_rs<1>(acc, a[j][2], d0);
+      wgmma_rs<1>(part, a[j][0], d0);
+      wgmma_rs<1>(part, a[j][0], d1);
+      wgmma_rs<1>(part, a[j][1], d0);
+      wgmma_rs<1>(part, a[j][0], d2);
+      wgmma_rs<1>(part, a[j][1], d1);
+      wgmma_rs<1>(part, a[j][2], d0);
     } else {
 #pragma unroll
-      for (int p = 0; p < NP; ++p) wgmma_rs<1>(acc, a[j][p], d0);
+      for (int p = 0; p < NP; ++p) wgmma_rs<1>(part, a[j][p], d0);
     }
     wgmma_commit();
     if (j > 0) {
@@ -206,9 +210,10 @@ __device__ __forceinline__ void wg_stage(float (&acc)[64],
     }
   }
   wgmma_wait<0>();
-  keep(acc);
+  keep(part);
 #pragma unroll
   for (int p = 0; p < NP; ++p) keep(a[KS - 1][p]);
+  promote(acc, part);
 }
 
 // out[g] = a_g^T b_g over group g's rows: (CA, CB), or stored transposed as
@@ -216,7 +221,7 @@ __device__ __forceinline__ void wg_stage(float (&acc)[64],
 // even.  Grid: (ceil(CB / BN), ceil(CA / BM), G), one group's tiles
 // together.
 template <bool A32, bool B32, bool TRANS_OUT, bool OUT16>
-__global__ void __launch_bounds__(NT, 2) grouped_wgrad_kernel(
+__global__ void __launch_bounds__(NT, 1) grouped_wgrad_kernel(
     const void* __restrict__ a_, const void* __restrict__ b_,
     const int* __restrict__ offsets, const int* __restrict__ sizes,
     void* __restrict__ out_, int M, int CA, int CB, int a16, int b16) {

@@ -379,9 +379,10 @@ __device__ __forceinline__ void store_tile(const float (&acc)[64], float* t,
 
 template <bool A32>
 struct MmShape {
-  // fp32 rows: 2 stages (107 KB) so that two blocks share an SM, which
-  // was faster on the H100 than 4 stages in one block
-  static constexpr int STAGES = A32 ? 2 : 3;
+  // one block per SM (the promoted accumulators take 128 registers a
+  // thread), so the ring fills the SM's shared memory: 213 KB for fp32
+  // rows, 209 KB for bf16
+  static constexpr int STAGES = A32 ? 4 : 6;
   static constexpr int A_LD = MM_BK + 8;  // conflict-free fragment reads
   static constexpr int A_BYTES = BM * A_LD * (A32 ? 4 : 2);
   static constexpr int B_BYTES = MM_BK * BN * 2;  // 16 KB, 16 atoms
@@ -389,11 +390,31 @@ struct MmShape {
   static constexpr int SMEM = SWZ + (RING > EPI_BYTES ? RING : EPI_BYTES);
 };
 
+// acc += part, in fp32 registers (round to nearest).  The tensor cores
+// truncate each wgmma's sum instead of rounding it, so an accumulator
+// that every k16 step adds into shrinks by about half an ulp per step:
+// its error grows like K (tests/test_torch_train_kernels.py measures it).
+// Each stage's wgmmas therefore add into a fresh `part`, and the stage
+// ends by promoting it here: the truncation then touches at most one
+// stage's sum (4 k16 steps, 12 with three pieces), and the error grows
+// like sqrt(K), as fp32 summation order does.
+template <int N>
+__device__ __forceinline__ void promote(float (&acc)[N],
+                                        const float (&part)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) acc[i] += part[i];
+}
+template <int N>
+__device__ __forceinline__ void zero(float (&part)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) part[i] = 0.f;
+}
+
 // One stage (MM_BK of K) of one warpgroup's 64 x 128 tile.  The k16
 // steps are pipelined: step j's fragments are loaded (and split) while
 // step j - 1's wgmmas run; wgmma_wait<1> then frees step j - 1's
 // registers, and the stage ends with every wgmma done (its shared-memory
-// slot is reloaded after the next barrier).
+// slot is reloaded after the next barrier) and its sum promoted to acc.
 template <bool A32, bool TRANS_B>
 __device__ __forceinline__ void mm_stage(float (&acc)[64],
                                          const uint8_t* a_tile,
@@ -402,6 +423,8 @@ __device__ __forceinline__ void mm_stage(float (&acc)[64],
   constexpr int NP = A32 ? 3 : 1, LD = MmShape<A32>::A_LD, KS = MM_BK / 16;
   const int r = row0 + (lane >> 2), c = (lane & 3) * 2;
   uint32_t a[KS][NP][4];
+  float part[64];
+  zero(part);
 #pragma unroll
   for (int j = 0; j < KS; ++j) {
     if constexpr (A32) {
@@ -429,7 +452,7 @@ __device__ __forceinline__ void mm_stage(float (&acc)[64],
                                            SWZ);
     wgmma_fence();
 #pragma unroll
-    for (int p = 0; p < NP; ++p) wgmma_rs<TRANS_B ? 0 : 1>(acc, a[j][p], d);
+    for (int p = 0; p < NP; ++p) wgmma_rs<TRANS_B ? 0 : 1>(part, a[j][p], d);
     wgmma_commit();
     if (j > 0) {
       wgmma_wait<1>();
@@ -438,9 +461,10 @@ __device__ __forceinline__ void mm_stage(float (&acc)[64],
     }
   }
   wgmma_wait<0>();
-  keep(acc);
+  keep(part);
 #pragma unroll
   for (int p = 0; p < NP; ++p) keep(a[KS - 1][p]);
+  promote(acc, part);
 }
 
 // The B side of one tile: the group's rhs in device memory (`rg`, for the

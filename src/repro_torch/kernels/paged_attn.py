@@ -14,8 +14,19 @@ The plain versions gather the pages (`pool[table]`) and contract in fp32,
 the same math as the gathered path (`layers._paged_scores_combine`).  The
 wrappers take them for CPU tensors and launch csrc/paged_attn.cu for CUDA
 tensors, raising on anything the kernels do not take.
+
+On the card each pass is one launch that splits every slot's page walk
+into runs of `split_pages(ps)` logical pages, one block per (run, kv
+head and group of up to 64 query rows, slot); the last block of a (slot,
+kv head, row group) combines the runs' partials (max, or num and den in
+ascending run order) and resets its ticket.  The tickets and the
+partials' scratch are kept per pass, device and stream (`_scratch`), so
+calls on one stream run in order and calls on two streams never share
+them.
 """
 from __future__ import annotations
+
+from typing import Dict, Tuple
 
 import torch
 
@@ -23,6 +34,40 @@ from repro_torch.kernels import build
 
 HD_MAX = 128   # csrc/paged_attn.cu limits
 PS_MAX = 32
+SPLIT_POSITIONS = 64   # positions a block covers, at most
+
+# (pass, device index, stream handle) -> (tickets, partials)
+_SCRATCH: Dict[Tuple[str, int, int], Tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def split_pages(ps: int) -> int:
+    """Logical pages per block of the kernels' split page walk."""
+    return max(1, SPLIT_POSITIONS // ps)
+
+
+def n_splits(n_lp: int, ps: int) -> int:
+    """Blocks per (slot, kv head): runs of `split_pages(ps)` pages."""
+    P = split_pages(ps)
+    return max(1, -(-n_lp // P))
+
+
+def _scratch(name: str, q, stream: int, n_tickets: int, n_part: int):
+    """The pass's ticket counters (zero; each launch leaves them zero) and
+    fp32 partials on q's device for `stream`, at least n_tickets and
+    n_part long: allocated on the pass's first call on the stream, and
+    again only to grow.  Launches on one stream are ordered, so the next
+    call finds both free; another stream gets buffers of its own."""
+    key = (name, q.get_device(), stream)
+    s = _SCRATCH.get(key)
+    if s is None or s[0].numel() < n_tickets or s[1].numel() < n_part:
+        tickets, part = s if s is not None else (None, None)
+        if tickets is None or tickets.numel() < n_tickets:
+            tickets = torch.zeros(max(n_tickets, 256), dtype=torch.int32,
+                                  device=q.device)
+        if part is None or part.numel() < n_part:
+            part = torch.empty(n_part, dtype=torch.float32, device=q.device)
+        s = _SCRATCH[key] = (tickets, part)
+    return s
 
 
 def _check_shapes(q, k_pool, table, mask):
@@ -71,7 +116,7 @@ def _cuda_operands(q, pools, table, mask):
     """Validate and prepare the operands both kernels share."""
     B, KV, GQ, hd, ps, n_lp, n_q, _ = _check_shapes(q, pools[0], table,
                                                     mask)
-    if q.device.type != "cuda":
+    if not q.is_cuda:
         raise ValueError(f"paged attention: unsupported device {q.device}")
     for t in (q,) + tuple(pools):
         if t.dtype != torch.bfloat16 or not t.is_contiguous():
@@ -81,9 +126,11 @@ def _cuda_operands(q, pools, table, mask):
         raise ValueError(f"paged attention kernels take head_dim <= "
                          f"{HD_MAX} and page_size <= {PS_MAX}; got {hd}, "
                          f"{ps}")
-    table = table.to(torch.int32).contiguous()
-    mask = mask.to(torch.bool).contiguous()
-    dims = (B, KV, GQ, hd, ps, n_lp, n_q, hd ** -0.5)
+    if table.dtype != torch.int32 or not table.is_contiguous():
+        table = table.to(torch.int32).contiguous()
+    if mask.dtype != torch.bool or not mask.is_contiguous():
+        mask = mask.to(torch.bool).contiguous()
+    dims = (B, KV, GQ, hd, ps, n_lp, n_q, split_pages(ps), hd ** -0.5)
     return table, mask, dims, torch.cuda.current_stream(q.device).cuda_stream
 
 
@@ -92,11 +139,13 @@ def paged_attn_scores_max(q, k_pool, table, mask):
     if q.device.type == "cpu":
         return paged_attn_scores_max_ref(q, k_pool, table, mask)
     table, mask, dims, stream = _cuda_operands(q, (k_pool,), table, mask)
-    B, KV, GQ = dims[:3]
+    B, KV, GQ, _, ps, n_lp = dims[:6]
     m = torch.empty((B, KV, GQ), dtype=torch.float32, device=q.device)
+    tickets, part = _scratch("scores_max", q, stream, B * KV * GQ,
+                             n_splits(n_lp, ps) * 2 * B * KV * GQ)
     err = build.entry("paged_attn_scores_max")(
         q.data_ptr(), k_pool.data_ptr(), table.data_ptr(), mask.data_ptr(),
-        m.data_ptr(), *dims, stream)
+        m.data_ptr(), part.data_ptr(), tickets.data_ptr(), *dims, stream)
     build.check(err, "paged_attn_scores_max")
     build.LAUNCHES["paged_attn_scores_max"] += 1
     return m
@@ -113,13 +162,18 @@ def paged_attn_accumulate(q, k_pool, v_pool, table, mask, m_safe):
     if v_pool.shape != k_pool.shape or m_safe.shape != (B, KV, GQ):
         raise ValueError(f"v_pool {tuple(v_pool.shape)}, m_safe "
                          f"{tuple(m_safe.shape)}")
-    m_safe = m_safe.to(torch.float32).contiguous()
+    if m_safe.dtype != torch.float32 or not m_safe.is_contiguous():
+        m_safe = m_safe.to(torch.float32).contiguous()
+    ps, n_lp = dims[4:6]
+    R = B * KV * GQ
     num = torch.empty((B, KV, GQ, hd), dtype=torch.float32, device=q.device)
     den = torch.empty((B, KV, GQ), dtype=torch.float32, device=q.device)
+    tickets, part = _scratch("accumulate", q, stream, R,
+                             n_splits(n_lp, ps) * R * (hd + 2))
     err = build.entry("paged_attn_accumulate")(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), table.data_ptr(),
         mask.data_ptr(), m_safe.data_ptr(), num.data_ptr(), den.data_ptr(),
-        *dims, stream)
+        part.data_ptr(), tickets.data_ptr(), *dims, stream)
     build.check(err, "paged_attn_accumulate")
     build.LAUNCHES["paged_attn_accumulate"] += 1
     return num, den

@@ -337,6 +337,154 @@ def test_k3_k4_cuda_kernels_match_plain(Q):
     assert (den - den_r).abs().max() <= 1e-5 * den_r.abs().max()
 
 
+# Serving shapes (Ling-Lite: 4 KV heads, g = 4, head_dim 128, page 16, 32
+# logical pages): decode contexts as chip_smoke.py's, with two inactive
+# slots and a full 512-token slot, and a 64-row causal prefill chunk; the
+# kernels split each walk into runs of 4 pages, and a kv head's query rows
+# into blocks of at most 64 (48 rows: three 16-row tiles in one block; 80:
+# a block of four tiles and one of one).  Then shapes off the fast paths:
+# head_dim 40 (not a multiple of 16: zero columns), 36 (not of 8: element
+# copies) and 30, pages of 12 (runs of 5 pages, 60 positions) and of 5.
+PA_SERVING = {
+    "decode": dict(Q=1, ctx=[100, 300, 0, 171, 512, 0, 129, 233]),
+    "prefill": dict(Q=64, ctx=[192], base=128),
+    "verify": dict(Q=4, ctx=[37, 0, 250]),
+    "rows48": dict(Q=12, ctx=[77, 0, 300]),
+    "rows80": dict(Q=20, ctx=[90, 0, 33]),
+    "hd40_ps12": dict(Q=3, ctx=[7, 100, 0], hd=40, ps=12, n_lp=9),
+    "hd36_ps5": dict(Q=2, ctx=[41, 3], hd=36, ps=5, n_lp=13),
+    "hd30_ps16": dict(Q=5, ctx=[60, 16], hd=30, ps=16, n_lp=5),
+}
+
+
+def _pa_cuda_case(seed, Q, ctx, base=None, KV=4, g=4, hd=128, ps=16,
+                  n_lp=32):
+    """Grouped operands on the card: (gq, k_pool, v_pool, table, mask4)."""
+    rs = np.random.RandomState(seed)
+    B = len(ctx)
+    n_pages = 1 + B * n_lp
+    bf = lambda *s: torch.tensor(rs.randn(*s).astype(np.float32),
+                                 device="cuda").to(torch.bfloat16)
+    k_pool, v_pool = bf(n_pages, ps, KV, hd), bf(n_pages, ps, KV, hd)
+    table = np.zeros((B, n_lp), np.int32)
+    perm = rs.permutation(np.arange(1, n_pages)).astype(np.int32)
+    used = 0
+    for b, c in enumerate(ctx):
+        n = -(-c // ps)
+        table[b, :n] = perm[used:used + n]
+        used += n
+    if base is None:
+        pos = [[max(c - Q, 0) + j for j in range(Q)] for c in ctx]
+    else:
+        pos = [[base + j for j in range(Q)] for _ in ctx]
+    table = torch.tensor(table, device="cuda")
+    mask = TL.paged_valid_mask(table, torch.tensor(pos, device="cuda"),
+                               page_size=ps)
+    q = bf(B, Q, KV * g, hd)
+    return (tops._pa_group_q(q, KV), k_pool, v_pool, table,
+            mask.reshape(B, Q, n_lp, ps))
+
+
+def _pa_cuda_check(case):
+    """Both kernels against their plain versions, with chip_smoke.py's
+    tolerances (check_pa): fp32 summation order for m; for num, also one
+    bf16 flip of a p that sits on a rounding boundary."""
+    gq, k_pool, v_pool, table, mask4 = case
+    m = pa.paged_attn_scores_max(gq, k_pool, table, mask4)
+    m_ref = pa.paged_attn_scores_max_ref(gq, k_pool, table, mask4)
+    torch.cuda.synchronize()
+    inf = torch.isinf(m_ref)
+    assert torch.equal(torch.isinf(m), inf)
+    fin = ~inf
+    if fin.any():
+        tol3 = 1e-5 * max(m_ref[fin].abs().max().item(), 1.0)
+        assert (m[fin] - m_ref[fin]).abs().max().item() <= tol3
+    m_safe = torch.where(fin, m_ref, 0.0)
+    num, den = pa.paged_attn_accumulate(gq, k_pool, v_pool, table, mask4,
+                                        m_safe)
+    num_r, den_r = pa.paged_attn_accumulate_ref(gq, k_pool, v_pool, table,
+                                                mask4, m_safe)
+    torch.cuda.synchronize()
+    assert (num[inf] == 0).all() and (den[inf] == 0).all()
+    tol4 = (1e-5 * max(num_r.abs().max().item(), den_r.abs().max().item())
+            + 2.0 ** -8 * v_pool.float().abs().max().item())
+    assert (num - num_r).abs().max().item() <= tol4
+    assert (den - den_r).abs().max().item() <= tol4
+    return m, m_safe, num, den
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(PA_SERVING))
+def test_k3_k4_cuda_split_walk_at_serving_shapes(name):
+    _need_cuda()
+    case = _pa_cuda_case(7, **PA_SERVING[name])
+    before = dict(build.LAUNCHES)
+    _pa_cuda_check(case)
+    assert build.LAUNCHES["paged_attn_scores_max"] == \
+        before["paged_attn_scores_max"] + 1
+    assert build.LAUNCHES["paged_attn_accumulate"] == \
+        before["paged_attn_accumulate"] + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["decode", "prefill"])
+def test_k3_k4_cuda_are_deterministic(name):
+    """Which block of a (slot, kv head) combines varies between calls;
+    the splits are added in one order, so the results do not."""
+    _need_cuda()
+    gq, k_pool, v_pool, table, mask4 = _pa_cuda_case(8, **PA_SERVING[name])
+    m1 = pa.paged_attn_scores_max(gq, k_pool, table, mask4)
+    m2 = pa.paged_attn_scores_max(gq, k_pool, table, mask4)
+    m_safe = torch.where(torch.isfinite(m1), m1, 0.0)
+    a = pa.paged_attn_accumulate(gq, k_pool, v_pool, table, mask4, m_safe)
+    b = pa.paged_attn_accumulate(gq, k_pool, v_pool, table, mask4, m_safe)
+    torch.cuda.synchronize()
+    assert torch.equal(m1, m2)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+@pytest.mark.cuda
+def test_k3_k4_cuda_streams_keep_their_own_scratch():
+    """Two streams running the same passes at once, at the same shapes:
+    each takes its own tickets and partials, so each gives its inputs'
+    one-stream results bitwise."""
+    _need_cuda()
+    cases = [_pa_cuda_case(seed, **PA_SERVING["decode"]) for seed in (9, 10)]
+
+    def m_of(case):
+        gq, k_pool, _, table, mask4 = case
+        return pa.paged_attn_scores_max(gq, k_pool, table, mask4)
+
+    def num_den(case, m):
+        gq, k_pool, v_pool, table, mask4 = case
+        m_safe = torch.where(torch.isfinite(m), m, 0.0)
+        return pa.paged_attn_accumulate(gq, k_pool, v_pool, table, mask4,
+                                        m_safe)
+
+    want = []
+    for case in cases:
+        m = m_of(case)
+        want.append((m,) + tuple(num_den(case, m)))
+    streams = [torch.cuda.Stream() for _ in cases]
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream())
+    got = [[] for _ in cases]
+    for _ in range(4):                  # each pass issued on both streams
+        ms = []
+        for s, case in zip(streams, cases):
+            with torch.cuda.stream(s):
+                ms.append(m_of(case))
+        for i, (s, case) in enumerate(zip(streams, cases)):
+            with torch.cuda.stream(s):
+                got[i].append((ms[i],) + tuple(num_den(case, ms[i])))
+    torch.cuda.synchronize()
+    for w, runs in zip(want, got):
+        for g in runs:
+            assert all(torch.equal(a, b) for a, b in zip(w, g))
+    handles = {key[2] for key in pa._SCRATCH}
+    assert all(s.cuda_stream in handles for s in streams)
+
+
 @pytest.mark.cuda
 def test_cuda_kernels_refuse_fp32_operands():
     _need_cuda()

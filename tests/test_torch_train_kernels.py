@@ -435,3 +435,109 @@ def test_wgrad_cuda_fp32_lhs_at_the_ends_of_the_range():
         assert torch.isfinite(out).all() and torch.isfinite(ref).all()
         assert (out - ref).abs().max().item() <= \
             1e-5 * ref.abs().max().item()
+
+
+# ---------------------------------------------------------------------------
+# on the card: the tensor cores' fp32 accumulation as the contraction grows
+# ---------------------------------------------------------------------------
+#
+# Each kernel's result against a float64 product of the same bf16 values,
+# at contraction lengths K = 256 ... 4096.  Summation order alone (each
+# k16 block's fp32 sum rounded to nearest) makes the relative error grow
+# about like sqrt(K); an accumulator that truncates instead of rounding
+# shrinks every partial sum by half an ulp on average, so its error grows
+# like K.  The exponent of the growth tells the two apart.  The H100's
+# wgmma truncates: with one accumulator for the whole contraction K1's
+# error grew like K^1.00 (about 1e-5 of the largest output at Ling-Lite's
+# widths).  Since each 64-deep stage is summed in fresh registers and
+# promoted to the fp32 accumulators (hopper_mma.cuh `promote`), the
+# measured growth is K^0.05-0.27 and the error at K = 2048 (Ling-Lite's
+# d_model; its ff, 1408, is shorter) 2e-7 to 6e-7 of the largest output;
+# the test holds it to 1e-6.
+
+ACC_K = [256, 512, 1024, 2048, 4096]
+ACC_BOUND_LING_LITE = 1e-6      # max error / max |exact| at K = 2048
+
+
+def _err_vs_f64(out, ref64):
+    """(rms error, mean error along the sign of the exact value, max
+    error), each relative to the rms or max of the exact value."""
+    e = out.double() - ref64
+    rms = ref64.pow(2).mean().sqrt()
+    return ((e.pow(2).mean().sqrt() / rms).item(),
+            ((e * ref64.sign()).mean() / rms).item(),
+            (e.abs().max() / ref64.abs().max()).item())
+
+
+def _k2_up_vs_f64(K, seed):
+    rs = np.random.RandomState(seed)
+    gs = torch.tensor([256, 256, 256, 256], device="cuda")
+    lhs = torch.tensor(rs.randn(1024, K).astype(np.float32),
+                       device="cuda").to(torch.bfloat16)
+    rhs = torch.tensor(rs.randn(4, K, 256).astype(np.float32) * K ** -0.5,
+                       device="cuda").to(torch.bfloat16)
+    lay = tops.align_layout(gs, 1024, 128)
+    lhs = tops._take_rows(lhs, lay.row_map)
+    out = gm.grouped_matmul_aligned(lhs, rhs, lay.tile_group, bm=128)
+    tiles, tg = lhs.double().reshape(-1, 128, K), lay.tile_group.long()
+    ref = torch.zeros((tiles.shape[0], 128, 256), dtype=torch.float64,
+                      device="cuda")
+    for g in range(4):
+        ref[tg == g] = tiles[tg == g] @ rhs[g].double()
+    live = lay.row_map >= 0                        # rows that hold lhs rows
+    return out[live], ref.reshape(-1, 256)[live]
+
+
+def _k1_vs_f64(K, T, seed, act="swiglu"):
+    """K1 with d = ff = K over 4 experts, top-2, against the same FFN in
+    float64."""
+    rs = np.random.RandomState(seed)
+    G = 4
+    x = torch.tensor(rs.randn(T, K).astype(np.float32), device="cuda")
+    w = lambda *s: torch.tensor(rs.randn(*s).astype(np.float32) * K ** -0.5,
+                                device="cuda").to(torch.bfloat16)
+    w1, w2, w3 = w(G, K, K), w(G, K, K), w(G, K, K)
+    experts = np.stack([rs.choice(G, 2, replace=False) for _ in range(T)])
+    order = np.argsort(experts.reshape(-1), kind="stable")
+    tok = torch.tensor(order // 2, dtype=torch.int32, device="cuda")
+    gate = torch.tensor(rs.uniform(0.05, 1.0, 2 * T).astype(np.float32),
+                        device="cuda")
+    gs = torch.tensor(np.bincount(experts.reshape(-1), minlength=G),
+                      dtype=torch.int32, device="cuda")
+    bm = min(128, max(8, 2 * T))
+    row_idx, gates, tg = tops._fused_layout(tok, gate, gs, T, bm)
+    xb = x.to(torch.bfloat16)
+    out = gm.fused_moe_ffn(xb, w1, w2, w3, row_idx, gates, tg, act=act)
+    ref = torch.zeros((T, K), dtype=torch.float64, device="cuda")
+    slot = 0
+    for e in range(G):
+        n = int(gs[e])
+        t = tok[slot:slot + n].long()
+        xe = xb[t].double()
+        h = gm.apply_act(act, xe @ w1[e].double()) * (xe @ w3[e].double())
+        ref.index_add_(0, t, (h @ w2[e].double())
+                       * gate[slot:slot + n, None].double())
+        slot += n
+    return out, ref, gm.k1_path(row_idx.shape[0], bm, G)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["k2_up", "k1_tensor_cores", "k1_stream"])
+def test_tensor_core_accumulation_error_grows_like_sqrt_k(form):
+    _need_cuda()
+    errs = []
+    for K in ACC_K:
+        if form == "k2_up":
+            out, ref = _k2_up_vs_f64(K, K)
+        else:
+            T = 70 if form == "k1_tensor_cores" else 13
+            out, ref, path = _k1_vs_f64(K, T, K)
+            assert path == form[3:]
+        torch.cuda.synchronize()
+        errs.append(_err_vs_f64(out, ref))
+        print(f"[accumulation] {form} K={K}: rms {errs[-1][0]:.3e} "
+              f"bias {errs[-1][1]:+.3e} max {errs[-1][2]:.3e}")
+    growth = np.log(errs[-1][0] / errs[0][0]) / np.log(ACC_K[-1] / ACC_K[0])
+    print(f"[accumulation] {form}: rms error ~ K^{growth:.2f}")
+    assert growth < 0.75
+    assert errs[ACC_K.index(2048)][2] <= ACC_BOUND_LING_LITE
