@@ -30,10 +30,18 @@ Phases, each failing loudly (non-zero exit, no result line):
      each with its count of bf16 wgmma passes and, for a form with an
      fp32 operand, an fp32 `torch._grouped_mm` as its yardstick where
      this build takes one (else bf16); K5 fused NormHead logits at
-     Ling-Lite's fp32 head (x bf16, T=8 and T=1) and rwkv6-3b's (T=8, and
-     T=64 for the 8-row passes); K6 the WKV6 recurrence at rwkv6-3b's
-     prefill (B=8, T=512, 40 heads of 64, bf16 r/k/v, non-zero state), at
-     decode (T=1, state updated in place) and at T=100 in fp32;
+     Ling-Lite's fp32 head (x bf16, T=8 and T=1) and rwkv6-3b's (T=8, T=64
+     in one pass over W, T=65 in two), each also timed on the card with
+     the queue held, by its host dispatch alone, and against one fp32
+     cuBLAS product on a head normalized beforehand (`product_ms`); K6
+     the WKV6 recurrence at rwkv6-3b's prefill (B=8, T=512, 40 heads of
+     64, bf16 r/k/v, non-zero state), at decode (T=1, state updated in
+     place), at T=100 in fp32 and at T=128 with decays near 0 and near 1,
+     each also timed on the card with the queue held and by its host
+     dispatch alone; rwkv6's decay kernel at the prefill's 8 x 512 rows,
+     a tick's 8 rows and 64 fp32 rows (d = n = 2560), timed the same
+     way, and each row's result held bit for bit against the kernel on
+     that row alone (fp32 operations at 67 TFLOP/s in its bound);
   4. gradients: one full-width MoE layer at T=256, `FusedFFN`'s grads of
      x, w1, w2, w3 and the gates on the kernels against autograd through
      a plain fp32 composition, before and after the cast to bf16;
@@ -50,11 +58,17 @@ Phases, each failing loudly (non-zero exit, no result line):
   7. rwkv6 serving: Ling-Lite freed, full-width rwkv6-3b (32 layers, bf16
      weights from torch.Generator(device="cuda").manual_seed(0)):
      `make_prefill` on 8 prompts of 512 tokens (numpy seed 0), then 32
-     greedy `decode_step` ticks (K6 32 launches and K5 one per prefill
-     and per tick); a 64-token prefill of one prompt against 64
+     greedy `decode_step` ticks (K6 and the decay kernel 32 launches and
+     K5 one per prefill and per tick); a 64-token prefill of one prompt against 64
      token-by-token ticks (same greedy token, logits within 2^-5 of the
-     largest); the offline Flood engine through `launch.serve`'s
-     `build_model_engine` (16 requests, 32 new tokens, micro-batch 8);
+     largest); the same with fp32 activations, and again through the
+     plain K5 and K6 (the same greedy token in all four runs; prefill vs
+     ticks and kernels vs plain within RWKV_FP32_TOL of the largest
+     logit); the offline Flood engine through `launch.serve`'s
+     `build_model_engine` (16 requests, 32 new tokens, micro-batch 8).
+     A miss of the prefill-vs-ticks checks is printed at once and fails
+     the run after phase 8 and the kernels line, so that those still
+     report;
   8. training: the serving models freed, Ling-Lite at full width cut to 4
      layers, fp32 masters from torch.Generator(device="cuda")
      .manual_seed(0), 4 optimizer steps of the port's Trainer (seq 1024,
@@ -67,6 +81,7 @@ Phases, each failing loudly (non-zero exit, no result line):
 """
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import subprocess
@@ -76,15 +91,38 @@ from pathlib import Path
 
 HBM_BYTES_S = 3.35e12          # H100 SXM HBM3
 BF16_FLOPS = 989e12            # H100 SXM dense bf16 tensor-core peak
+FP32_FLOPS = 67e12             # H100 SXM fp32 outside the tensor cores
 SERVE_KERNELS = ("fused_moe_ffn", "paged_attn_scores_max",
                  "paged_attn_accumulate")      # once per layer and step
 # phase 3's paged-attention cases (`paged_case`'s arguments), also timed
-# by scripts/profile_torch_pa.py: Ling-Lite's KV heads, 32 logical pages
-# of 16 per slot
+# by scripts/profile_torch_kernels.py: Ling-Lite's KV heads, 32 logical
+# pages of 16 per slot
 PA_CASES = {
     "decode": dict(B=8, Q=1, ctx=[100, 300, 0, 171, 256, 0, 129, 233],
                    base=None, n_pages=8 * 32 + 1),
     "prefill": dict(B=1, Q=64, ctx=[192], base=128, n_pages=8 * 32 + 1)}
+
+
+# phase 7's bounds with fp32 activations, shares of the largest logit
+# (about ten times the largest reading; PERF.md, Findings)
+RWKV_FP32_TOL = {"prefill vs ticks": 7.5e-4, "kernels vs plain": 4.5e-4}
+
+# phase 3's K5 cases (the head's architecture, rows of x) and K6 cases
+# (batch, T, r/k/v dtype, decays near 0 and 1), also timed by
+# scripts/profile_torch_kernels.py
+K5_CASES = {"ling head T=8": ("ling-lite", 8),
+            "ling head T=1": ("ling-lite", 1),
+            "rwkv6 head T=8": ("rwkv6-3b", 8),
+            "rwkv6 head T=64": ("rwkv6-3b", 64),
+            "rwkv6 head T=65": ("rwkv6-3b", 65)}
+K6_CASES = {"prefill": (8, 512, "bfloat16", False),
+            "decode": (8, 1, "bfloat16", False),
+            "T=100": (8, 100, "float32", False),
+            "decays near 0 and 1": (8, 128, "bfloat16", True)}
+# phase 3's cases of rwkv6's decay kernel (rows, their dtype) at
+# rwkv6-3b's width: the prefill's 8 x 512 rows, a tick's 8, fp32 rows
+DECAY_CASES = {"prefill": (8 * 512, "bfloat16"), "decode": (8, "bfloat16"),
+               "fp32 rows": (64, "float32")}
 
 
 def fail(msg: str):
@@ -160,8 +198,8 @@ def host_ms(fn, iters: int = 50, repeats: int = 5) -> float:
     return times[len(times) // 2]
 
 
-def bound(nbytes: float, flops: float):
-    t_bytes, t_ops = nbytes / HBM_BYTES_S, flops / BF16_FLOPS
+def bound(nbytes: float, flops: float, flops_s: float = BF16_FLOPS):
+    t_bytes, t_ops = nbytes / HBM_BYTES_S, flops / flops_s
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -559,13 +597,29 @@ def check_k2(cfg, gen):
     return rows, wrows
 
 
-def check_k5(label, T: int, V: int, d: int, gen):
-    """K5 on a random fp32 head (V, d) and bf16 x (T, d) against its plain
-    version (normalize the rows in fp32, then one fp32 product)."""
+def k5_case(arch: str, T: int, gen):
+    """A random fp32 head (V, d) of `arch`'s widths and bf16 x (T, d)."""
     import torch
+    from repro_torch.configs.base import get_config
+    cfg = get_config(arch)
+    w = 0.02 * torch.randn((cfg.vocab_size, cfg.d_model), generator=gen,
+                           device="cuda")
+    x = torch.randn((T, cfg.d_model), generator=gen, device="cuda") \
+        .to(torch.bfloat16)
+    return x, w
+
+
+def check_k5(label, x, w):
+    """K5 on x (T, d) bf16 and an fp32 head w (V, d) against its plain
+    version (normalize the rows in fp32, then one fp32 product).  Beside
+    `ms` (the wrapper from an idle queue): the card's time for the call
+    (queue held), the host dispatch alone, and `product_ms`, one fp32
+    cuBLAS product x W_n^T on a head normalized beforehand (the same
+    bytes read once: a yardstick, not the same function)."""
+    import torch
+    from repro_torch.core.normhead import normalize_rows
     from repro_torch.kernels import normhead as nh
-    w = 0.02 * torch.randn((V, d), generator=gen, device="cuda")
-    x = torch.randn((T, d), generator=gen, device="cuda").to(torch.bfloat16)
+    (T, d), V = x.shape, w.shape[0]
     out, ref = nh.normhead_matmul(x, w), nh.normhead_matmul_ref(x, w)
     torch.cuda.synchronize()
     err = (out - ref).abs().max().item()
@@ -573,29 +627,53 @@ def check_k5(label, T: int, V: int, d: int, gen):
     # where the plain version divides W first: fp32 rounding only
     tol = 1e-4 * ref.abs().max().item()
     b_ms, b_by = bound(nbytes(x, w, out), 2 * T * V * d + 2 * V * d)
-    ms = cuda_ms(lambda: nh.normhead_matmul(x, w))
-    plain_ms = cuda_ms(lambda: nh.normhead_matmul_ref(x, w))
+    run = lambda: nh.normhead_matmul(x, w)
+    plain = lambda: nh.normhead_matmul_ref(x, w)
+    ms, plain_ms = cuda_ms(run), cuda_ms(plain)
+    dv, pdv, hs = device_ms(run), device_ms(plain), host_ms(run)
+    wn, xf = normalize_rows(w, nh.EPS), x.float()
+    product_ms = cuda_ms(lambda: torch.matmul(xf, wn.T))
+    del wn, xf
     shape = f"{label} x=({T}, {d}) bf16 W=({V}, {d}) fp32"
     report("normhead_matmul", shape, err, tol, ref.abs().max().item(), ms,
            plain_ms, b_ms, b_by)
+    print(f"[kernels] normhead_matmul {label}: the card's time (queue "
+          f"held) {dv:.4f}ms (plain {pdv:.4f}ms); host dispatch {hs:.4f}ms; "
+          f"fp32 product on a normalized head {product_ms:.4f}ms")
     if not err <= tol:
         fail(f"normhead_matmul {label} T={T}: {err} > {tol}")
     return dict(max_abs_err=err, tolerance=tol, ms=ms, plain_ms=plain_ms,
-                bound_ms=b_ms, bound_by=b_by, library_ms=None, shape=shape)
+                bound_ms=b_ms, bound_by=b_by, library_ms=None, shape=shape,
+                device_ms=dv, plain_device_ms=pdv, host_ms=hs,
+                product_ms=product_ms)
 
 
-def check_k6(label, B: int, T: int, H: int, dtype, gen):
-    """K6 against its plain version (the sequential recurrence in fp32)
-    from a non-zero state: r, k, v ~ N(0, 1) in `dtype`, w = exp(-exp(.))
-    in (0, 1), u ~ 0.5 N(0, 1); the state is written in place."""
+def k6_case(B: int, T: int, dtype: str, extreme: bool, gen):
+    """K6's operands at rwkv6-3b's heads (40 of 64) from a non-zero state:
+    r, k, v ~ N(0, 1) in `dtype`, w = exp(-exp(.)) in (0, 1) (`extreme`:
+    exp(-exp(N(0, 1) +- 3)), each decay near 0 or near 1), u ~ 0.5 N(0,
+    1), s0 ~ 0.1 N(0, 1)."""
+    import torch
+    from repro_torch.configs.base import get_config
+    cfg = get_config("rwkv6-3b")
+    H, hd = cfg.d_model // cfg.rwkv_head_dim, cfg.rwkv_head_dim
+    rnd = lambda *sh: torch.randn(sh, generator=gen, device="cuda")
+    r, k, v = (rnd(B, T, H, hd).to(getattr(torch, dtype)) for _ in range(3))
+    if extreme:
+        shift = 3.0 * torch.where(rnd(B, T, H, hd) > 0, 1.0, -1.0)
+        w = torch.exp(-torch.exp(rnd(B, T, H, hd) + shift))
+    else:
+        w = torch.exp(-torch.exp(rnd(B, T, H, hd) - 1.0))
+    return r, k, v, w, 0.5 * rnd(H, hd), 0.1 * rnd(B, H, hd, hd)
+
+
+def check_k6(label, r, k, v, w, u, s0):
+    """K6 against its plain version (the sequential recurrence in fp32);
+    the state is written in place.  Beside `ms`: the card's time for the
+    call (queue held) and the host dispatch alone."""
     import torch
     from repro_torch.kernels import wkv6 as wk
-    hd = 64
-    rnd = lambda *sh: torch.randn(sh, generator=gen, device="cuda")
-    r, k, v = (rnd(B, T, H, hd).to(dtype) for _ in range(3))
-    w = torch.exp(-torch.exp(rnd(B, T, H, hd) - 1.0))
-    u = 0.5 * rnd(H, hd)
-    s0 = 0.1 * rnd(B, H, hd, hd)
+    (B, T, H, hd), dtype = r.shape, r.dtype
     state = s0.clone()
     y, sT = wk.wkv6(r, k, v, w, u, state, out_state=state)
     y_ref, s_ref = wk.wkv6_ref(r, k, v, w, u, s0)
@@ -613,9 +691,12 @@ def check_k6(label, B: int, T: int, H: int, dtype, gen):
     tol_s = 1e-4 * s_ref.abs().max().item()
     tol_y = 1e-4 * y_ref.float().abs().max().item()
     st = s0.clone()
-    ms = cuda_ms(lambda: wk.wkv6(r, k, v, w, u, st, out_state=st))
-    plain_ms = cuda_ms(lambda: wk.wkv6_ref(r, k, v, w, u, s0), iters=5,
-                       warmup=1)
+    run = lambda: wk.wkv6(r, k, v, w, u, st, out_state=st)
+    plain = lambda: wk.wkv6_ref(r, k, v, w, u, s0)
+    ms = cuda_ms(run)
+    plain_ms = cuda_ms(plain, iters=5, warmup=1)
+    dv, hs = device_ms(run), host_ms(run)
+    pdv = device_ms(plain, iters=5, warmup=1)
     b_ms, b_by = bound(nbytes(r, k, v, w, u, s0, y) + sT.numel() * 4,
                        5 * hd * hd * B * H * T)
     shape = (f"{label} B={B} T={T} H={H} hd={hd} r/k/v={dtype} "
@@ -623,11 +704,64 @@ def check_k6(label, B: int, T: int, H: int, dtype, gen):
              f"{tol_y:.3e}; state {err_s:.3e}, tolerance {tol_s:.3e})")
     report("wkv6", shape, max(err_s, err_y), max(tol_s, tol_y),
            s_ref.abs().max().item(), ms, plain_ms, b_ms, b_by)
+    print(f"[kernels] wkv6 {label}: the card's time (queue held) "
+          f"{dv:.4f}ms (plain {pdv:.4f}ms); host dispatch {hs:.4f}ms")
     if not (err_s <= tol_s and err_y <= tol_y):
         fail(f"wkv6 {label}: state {err_s} > {tol_s} or y {err_y} > {tol_y}")
     return dict(max_abs_err=max(err_s, err_y), tolerance=max(tol_s, tol_y),
                 ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                library_ms=None, shape=shape)
+                library_ms=None, shape=shape, device_ms=dv,
+                plain_device_ms=pdv, host_ms=hs)
+
+
+def decay_case(M: int, dtype: str, gen):
+    """The decay kernel's operands at rwkv6-3b's width: rows ~ N(0, 1) in
+    `dtype`, A ~ N(0, 1 / d), B ~ N(0, 1 / 8), w0 ~ N(0, 1) - 1, so that
+    w spreads over (0, 1) and moves with every term of the sums."""
+    import torch
+    from repro_torch.configs.base import get_config
+    d = get_config("rwkv6-3b").d_model
+    rnd = lambda *sh: torch.randn(sh, generator=gen, device="cuda")
+    return (rnd(M, d).to(getattr(torch, dtype)), rnd(d, 32) / d ** 0.5,
+            rnd(32, d) / 8 ** 0.5, rnd(d) - 1.0)
+
+
+def check_decay(label, x, a, b, w0):
+    """rwkv6's decay kernel against its plain version (the reference's
+    two fp32 products), and each of up to 64 rows against the kernel on
+    that row alone, bit for bit.  Beside `ms`: the card's time for the
+    call (queue held) and the host dispatch alone."""
+    import torch
+    from repro_torch.kernels import rwkv_decay as dk
+    M, d = x.shape
+    n = b.shape[1]
+    w = dk.rwkv_decay(x, a, b, w0)
+    ref = dk.rwkv_decay_ref(x, a, b, w0)
+    alone = torch.cat([dk.rwkv_decay(x[i:i + 1], a, b, w0)
+                       for i in range(min(M, 64))])
+    torch.cuda.synchronize()
+    err = (w - ref).abs().max().item()
+    # fp32 sums in another order: 1e-4 of the largest output
+    tol = 1e-4 * ref.abs().max().item()
+    run = lambda: dk.rwkv_decay(x, a, b, w0)
+    plain = lambda: dk.rwkv_decay_ref(x, a, b, w0)
+    ms, plain_ms = cuda_ms(run), cuda_ms(plain)
+    dv, hs, pdv = device_ms(run), host_ms(run), device_ms(plain)
+    b_ms, b_by = bound(nbytes(x, a, b, w0, w),
+                       2 * M * 32 * (d + n), FP32_FLOPS)
+    same = torch.equal(alone, w[:alone.shape[0]])
+    shape = (f"{label} rows={M} d={d} n={n} x={x.dtype} (each of "
+             f"{alone.shape[0]} rows alone gives the same bits: {same})")
+    report("rwkv_decay", shape, err, tol, ref.abs().max().item(), ms,
+           plain_ms, b_ms, b_by)
+    print(f"[kernels] rwkv_decay {label}: the card's time (queue held) "
+          f"{dv:.4f}ms (plain {pdv:.4f}ms); host dispatch {hs:.4f}ms")
+    if not (err <= tol and same):
+        fail(f"rwkv_decay {label}: {err} > {tol}, or a row alone gives "
+             f"other bits ({same})")
+    return dict(max_abs_err=err, tolerance=tol, ms=ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, library_ms=None, shape=shape,
+                device_ms=dv, plain_device_ms=pdv, host_ms=hs)
 
 
 # ---------------------------------------------------------------------------
@@ -758,17 +892,52 @@ def serve(cfg, params):
 # ---------------------------------------------------------------------------
 
 
+def prefill_and_ticks(cfg, params, tokens):
+    """Last-position logits of rwkv6 over `tokens` (1, n): one prefill,
+    and n decode ticks from zeroed caches."""
+    import torch
+    from repro_torch.models import model as M
+    with torch.no_grad():
+        la, _ = M.prefill_logits(cfg, params, {"tokens": tokens})
+        c1 = M.init_caches(cfg, 1, tokens.device)
+        for pos in range(tokens.shape[1]):
+            lb, c1 = M.decode_logits(cfg, params, c1, tokens[:, pos])
+    return la, lb
+
+
+@contextlib.contextmanager
+def plain_k5_k6():
+    """Serve through the plain versions of K5 and K6 on CUDA tensors, the
+    witness the kernels' logits are held against (no launch counted)."""
+    from repro_torch.kernels import normhead as nh
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import wkv6 as wk
+
+    def wkv6_plain(r, k, v, w, u, state, *, out_state=None):
+        y, sT = wk.wkv6_ref(r, k, v, w, u, state)
+        return y, (sT if out_state is None else out_state.copy_(sT))
+
+    saved = kops.normhead_logits, kops.wkv6
+    kops.normhead_logits, kops.wkv6 = nh.normhead_matmul_ref, wkv6_plain
+    try:
+        yield
+    finally:
+        kops.normhead_logits, kops.wkv6 = saved
+
+
 def rwkv_serve(card):
     """Full-width rwkv6-3b: prefill + greedy decode through the Runner,
     the prefill/decode consistency on the card, and the offline Flood
-    engine.  Returns the launches of the prefill + ticks run."""
+    engine.  Returns the launches of the prefill + ticks run and the
+    prefill-vs-ticks checks that failed."""
+    import dataclasses
+
     import numpy as np
     import torch
     from repro_torch import api
     from repro_torch.configs.base import get_config
     from repro_torch.kernels import build
     from repro_torch.launch.serve import build_model_engine
-    from repro_torch.models import model as M
     from repro_torch.serving.flood import FloodEngine, GenRequest
     from repro_torch.serving.segment_cache import SegmentCache
     cfg = get_config("rwkv6-3b")
@@ -816,9 +985,11 @@ def rwkv_serve(card):
           f"after the prefill {after_prefill}, after the ticks {launches} "
           f"[{card}]")
     want_prefill = {n: 0 for n in launches}
-    want_prefill.update(wkv6=cfg.n_layers, normhead_matmul=1)
+    want_prefill.update(wkv6=cfg.n_layers, normhead_matmul=1,
+                        rwkv_decay=cfg.n_layers)
     want_all = dict(want_prefill, wkv6=cfg.n_layers * (1 + ticks),
-                    normhead_matmul=1 + ticks)
+                    normhead_matmul=1 + ticks,
+                    rwkv_decay=cfg.n_layers * (1 + ticks))
     if after_prefill != want_prefill or launches != want_all:
         fail(f"rwkv6 serving launches {after_prefill} / {launches}, "
              f"expected {want_prefill} / {want_all}")
@@ -829,22 +1000,50 @@ def rwkv_serve(card):
     # consistency on the card: one 64-token prefill vs 64 decode ticks
     n = 64
     p1 = prompts[:1, :n]
-    with torch.no_grad():
-        la, _ = M.prefill_logits(cfg, params, {"tokens": p1})
-        c1 = runner.init_caches(1)
-        for pos in range(n):
-            lb, c1 = M.decode_logits(cfg, params, c1, p1[:, pos])
-    torch.cuda.synchronize()
+    la, lb = prefill_and_ticks(cfg, params, p1)
     err = (la - lb).abs().max().item()
-    # bf16 activations: the prefill's products over 64 rows and the
-    # ticks' over one row round differently; 2^-5 of the largest logit
+    # bf16 activations: every op of the block gives a row the same bits
+    # whatever the rows in the call (the decay on its kernel), so the two
+    # agree; 2^-5 of the largest logit
     tol = 2.0 ** -5 * la.abs().max().item()
     same = int(la.argmax(-1).item()) == int(lb.argmax(-1).item())
     print(f"[rwkv] prefill {n} tokens vs {n} decode ticks: logits "
           f"max_abs_err={err:.4e} (tolerance {tol:.4e}) same greedy token="
           f"{same}")
-    if not (same and err <= tol and torch.isfinite(la).all()):
-        fail(f"rwkv6 prefill vs decode: {err} > {tol} or token differs")
+    ok16 = same and err <= tol and bool(torch.isfinite(la).all())
+    # the same with fp32 activations, where rounding stays far below a
+    # fault: prefill vs ticks, and the kernels' logits (prefill and last
+    # tick) against the same runs through the plain K5 and K6, each bound
+    # RWKV_FP32_TOL of the largest logit
+    c32 = dataclasses.replace(cfg, compute_dtype="float32")
+    fa, fb = prefill_and_ticks(c32, params, p1)
+    with plain_k5_k6():
+        pa, pb = prefill_and_ticks(c32, params, p1)
+    top = pa.abs().max().item()
+    err32 = (fa - fb).abs().max().item()
+    errk = max((fa - pa).abs().max().item(), (fb - pb).abs().max().item())
+    tol32 = {k: v * top for k, v in RWKV_FP32_TOL.items()}
+    same32 = len({int(t.argmax(-1).item()) for t in (fa, fb, pa, pb)}) == 1
+    print(f"[rwkv] fp32 activations: prefill vs ticks max_abs_err="
+          f"{err32:.4e} ({err32 / top:.3e} of the largest, tolerance "
+          f"{tol32['prefill vs ticks']:.4e}); kernels vs plain K5/K6 "
+          f"max_abs_err={errk:.4e} ({errk / top:.3e} of the largest, "
+          f"tolerance {tol32['kernels vs plain']:.4e}); same greedy token="
+          f"{same32}")
+    ok32 = (same32 and err32 <= tol32["prefill vs ticks"]
+            and errk <= tol32["kernels vs plain"]
+            and all(bool(torch.isfinite(t).all()) for t in (fa, fb)))
+    failed = []
+    if not ok16:
+        failed.append(f"rwkv6 prefill vs decode: {err} > {tol} or token "
+                      f"differs")
+    if not ok32:
+        failed.append(f"rwkv6 fp32: prefill vs decode {err32}, kernels vs "
+                      f"plain {errk} (tolerances {tol32}) or a token "
+                      f"differs")
+    for msg in failed:
+        print(f"chip_smoke: FAIL (the run fails at its end): {msg}",
+              file=sys.stderr)
 
     # the offline Flood engine, through launch.serve's build_model_engine
     rs = np.random.RandomState(0)
@@ -865,7 +1064,7 @@ def rwkv_serve(card):
                                               for r in reqs):
         fail(f"Flood engine emitted {stats.tokens_out} tokens, expected "
              f"{16 * 32}")
-    return launches
+    return launches, failed
 
 
 # ---------------------------------------------------------------------------
@@ -930,7 +1129,7 @@ def train(card):
             "grouped_matmul_aligned": 6 * cfg.n_layers * accum,
             "grouped_matmul_wgrad": 3 * cfg.n_layers * accum,
             "paged_attn_scores_max": 0, "paged_attn_accumulate": 0,
-            "normhead_matmul": 0, "wkv6": 0}
+            "normhead_matmul": 0, "wkv6": 0, "rwkv_decay": 0}
     tok_s = B * S * accum / step_s
     print(f"[train] step times {[round(t, 3) for t in times]}s; median of "
           f"the last 2 {step_s:.3f}s (device time {dev_ms:.1f}ms); "
@@ -1057,23 +1256,17 @@ def main():
         k3[label], k4[label] = check_pa(cfg, label,
                                         paged_case(cfg, gen=gen, **kw))
     k2, wgrad = check_k2(cfg, gen)
-    rcfg = get_config("rwkv6-3b")
-    vl, vr = cfg.vocab_size, rcfg.vocab_size
-    k5 = {"ling head T=8": check_k5("ling head", 8, vl, cfg.d_model, gen),
-          "ling head T=1": check_k5("ling head", 1, vl, cfg.d_model, gen),
-          "rwkv6 head T=8": check_k5("rwkv6 head", 8, vr, rcfg.d_model,
-                                     gen),
-          "rwkv6 head T=64": check_k5("rwkv6 head", 64, vr, rcfg.d_model,
-                                      gen)}
-    nh = rcfg.d_model // rcfg.rwkv_head_dim
-    k6 = {"prefill": check_k6("prefill", 8, 512, nh, torch.bfloat16, gen),
-          "decode": check_k6("decode", 8, 1, nh, torch.bfloat16, gen),
-          "T=100": check_k6("T=100", 8, 100, nh, torch.float32, gen)}
+    k5 = {label: check_k5(label, *k5_case(arch, T, gen))
+          for label, (arch, T) in K5_CASES.items()}
+    k6 = {label: check_k6(label, *k6_case(*case, gen))
+          for label, case in K6_CASES.items()}
+    decay = {label: check_decay(label, *decay_case(M, dt, gen))
+             for label, (M, dt) in DECAY_CASES.items()}
     results = {"fused_moe_ffn": k1,
                "grouped_matmul_aligned": k2,
                "grouped_matmul_wgrad": wgrad,
                "paged_attn_scores_max": k3, "paged_attn_accumulate": k4,
-               "normhead_matmul": k5, "wkv6": k6}
+               "normhead_matmul": k5, "wkv6": k6, "rwkv_decay": decay}
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -1101,7 +1294,7 @@ def main():
     del params          # 31 GiB of bf16 serving weights
     gc.collect()
     torch.cuda.empty_cache()
-    rwkv_launches = rwkv_serve(card)
+    rwkv_launches, rwkv_failed = rwkv_serve(card)
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -1132,7 +1325,11 @@ def main():
                                 "rwkv6 head T=8", "rwkv_serve"),
             "wkv6": ("src/repro_torch/kernels/csrc/wkv6.cu",
                      "src/repro/kernels/wkv6.py:62", "prefill",
-                     "rwkv_serve")}
+                     "rwkv_serve"),
+            # no TPU kernel: the reference's jnp decay
+            "rwkv_decay": ("src/repro_torch/kernels/csrc/rwkv_decay.cu",
+                           "src/repro/models/rwkv6.py:112", "prefill",
+                           "rwkv_serve")}
     launches = {"serve": serve_launches, "rwkv_serve": rwkv_launches,
                 "train": train_launches}
     rows = []
@@ -1150,8 +1347,12 @@ def main():
                      "ms": d["ms"], "plain_ms": d["plain_ms"],
                      "bound_ms": d["bound_ms"], "bound_by": d["bound_by"],
                      "library_ms": d["library_ms"],
+                     **{key: d[key] for key in ("device_ms", "host_ms",
+                                                "product_ms") if key in d},
                      "shapes": shapes})
     print(json.dumps({"kernels": rows}))
+    if rwkv_failed:
+        fail("; ".join(rwkv_failed))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -23,20 +23,26 @@ one prefill and 8 ticks on the host clock, then traces one prefill and 8
 ticks.
 
 Each trace prints device time by kernel (top 20), grouped by layer of
-the port (K1..K6, dense GEMMs, everything else), and the device's busy
-time and idle share of the window's wall time.
+the port (K1..K6, the rwkv6 decay, dense GEMMs, everything else), and
+the device's busy time and idle share of the window's wall time.
+
+    python3 scripts/profile_torch_serve.py [--only ling-lite|rwkv6-3b]
+                                           [--src DIR]
+
+`--only` runs one of the two paths; `--src` runs the port found in DIR
+(for instance an unpacked parent commit's `src`), so that two versions
+can be compared in one call on one card.
 
 Needs a CUDA card; prints the card's name and power limit first.
 """
 from __future__ import annotations
 
+import argparse
 import subprocess
 import sys
 import time
 from collections import defaultdict
 from pathlib import Path
-
-sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
 
 SKIP, TICKS = 16, 12
 RWKV_B, RWKV_S, RWKV_TICKS = 8, 512, 8
@@ -44,6 +50,7 @@ RWKV_B, RWKV_S, RWKV_TICKS = 8, 512, 8
 GROUPS = (("K1 fused_moe_ffn", ("moe_up", "moe_down", "moe_combine")),
           ("K5 normhead_matmul", ("normhead_kernel",)),
           ("K6 wkv6", ("wkv6_kernel",)),
+          ("rwkv6 decay", ("rwkv_decay_",)),
           ("K3 paged_attn_scores_max", ("pa_scores_max_kernel",)),
           ("K4 paged_attn_accumulate", ("pa_accumulate_kernel",)),
           # cuBLAS on Hopper names its kernels nvjet_* / sm90_xmma_*
@@ -184,17 +191,27 @@ def rwkv_dense():
 
 
 def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--only", choices=("ling-lite", "rwkv6-3b"))
+    ap.add_argument("--src", default=str(Path(__file__).resolve()
+                                         .parents[1] / "src"))
+    args = ap.parse_args()
+    sys.path.insert(0, str(Path(args.src).resolve()))
     import gc
     import torch
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch_serve: needs a CUDA card")
+    import repro_torch
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip())
-    ling_online()
-    gc.collect()
-    torch.cuda.empty_cache()
-    rwkv_dense()
+    print(f"[profile] port from {Path(repro_torch.__file__).parent}")
+    if args.only != "rwkv6-3b":
+        ling_online()
+        gc.collect()
+        torch.cuda.empty_cache()
+    if args.only != "ling-lite":
+        rwkv_dense()
 
 
 if __name__ == "__main__":

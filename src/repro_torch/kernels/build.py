@@ -11,8 +11,8 @@ non-zero code.  Nothing here runs at import time, and nothing falls
 back: a missing `nvcc` or a failed build raises.
 
 `LAUNCHES` counts one per kernel-wrapper call that launched its CUDA
-kernel (the wrappers in grouped_matmul.py, paged_attn.py, normhead.py
-and wkv6.py increment it); calls that took the plain PyTorch version on
+kernel (the wrappers in grouped_matmul.py, paged_attn.py, normhead.py,
+wkv6.py and rwkv_decay.py increment it); calls that took the plain PyTorch version on
 CPU tensors do not count.
 """
 from __future__ import annotations
@@ -42,6 +42,7 @@ SIGNATURES = {
     "grouped_matmul_wgrad": ("grouped_matmul", [_P] * 5 + [_I] * 7 + [_P]),
     "normhead_matmul": ("normhead", [_P] * 3 + [_I] * 5 + [_F, _P]),
     "wkv6": ("wkv6", [_P] * 8 + [_I] * 5 + [_P]),
+    "rwkv_decay": ("rwkv_decay", [_P] * 6 + [_I] * 4 + [_P]),
 }
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in SIGNATURES}

@@ -1,9 +1,10 @@
 // Device and host helpers shared by the port's Hopper (sm_90a) kernels
-// K1 (fused_moe_ffn.cu) and K2 (grouped_matmul.cu): cp.async and TMA
-// copies, mbarriers, wgmma issue and descriptors, the exact three-piece
+// K1 (fused_moe_ffn.cu), K2 (grouped_matmul.cu), K3/K4 (paged_attn.cu),
+// K5 (normhead.cu) and K6 (wkv6.cu): cp.async and TMA copies, mbarriers,
+// wgmma issue and descriptors, mma.sync m16n8k16, the exact three-piece
 // bf16 split of fp32 operands, the 128-byte swizzle, the fp32 tile store,
-// and K2's pipelined 128 x 128 tile (`mm_tile`), which K1's
-// tensor-core path runs with gathered rows.
+// K2's pipelined 128 x 128 tile (`mm_tile`), which K1's tensor-core path
+// runs with gathered rows, and the per-device shared-memory opt-in.
 //
 // Included once by each .cu file (each builds its own library), so the
 // helpers live in an anonymous namespace.
@@ -255,6 +256,19 @@ __device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t da,
         "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
         "+f"(d[15])
       : "l"(da), "l"(db), "r"(1));
+}
+
+// d += a (16 x 16 bf16, row) @ b (16 x 8 bf16, col), fp32 (mma.sync: a
+// warp's tile; A fragment as `split_frag` below, B fragment b0 = (k, k +
+// 1), b1 = (k + 8, k + 9) at k = 2 (lane % 4) of column lane / 4)
+__device__ __forceinline__ void mma16816(float (&d)[4],
+                                         const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // ---------------------------------------------------------------------------
@@ -557,6 +571,29 @@ __device__ __forceinline__ void mm_tile(float (&acc)[64], uint8_t* base,
 // ---------------------------------------------------------------------------
 // host side
 // ---------------------------------------------------------------------------
+
+constexpr int MAX_DEVICES = 64;
+
+// Let `kern` launch with `smem` bytes of dynamic shared memory and the
+// largest shared-memory carveout on the current device.  The attributes
+// hold per device: `granted` (the caller's, one per kernel) remembers the
+// devices that have them, so only a device's first launch pays for them.
+template <typename Kern>
+int opt_in_smem(Kern kern, int smem, bool (&granted)[MAX_DEVICES]) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (dev < MAX_DEVICES && granted[dev]) return 0;
+  e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           smem);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(kern,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (dev < MAX_DEVICES) granted[dev] = true;
+  return 0;
+}
 
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType,
                                 cuuint32_t, void*, const cuuint64_t*,

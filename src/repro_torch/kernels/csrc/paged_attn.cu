@@ -69,14 +69,11 @@
 //    scores; pass 2 differs from one walk in fp32 summation order only,
 //    and both passes are deterministic.  One launch per pass, no host
 //    sync, no allocation.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
+
+#include "hopper_mma.cuh"
 
 namespace {
-
-using bf16 = __nv_bfloat16;
 
 constexpr int SPLIT = 64;                 // positions per split, at most
 constexpr int ROWS = 64;                  // query rows per block, at most
@@ -96,10 +93,6 @@ struct Shapes {
   int q32;   // q 4-byte aligned and hd even: 4-byte fragment loads
   float scale;
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
 
 // 16 bytes global -> shared, zero fill when !valid
 __device__ __forceinline__ void cp_async16(void* dst, const void* src,
@@ -126,17 +119,6 @@ __device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
       "[%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
       : "r"(smem_u32(p)));
-}
-
-// d += a (16 x 16 bf16, row) @ b (16 x 8 bf16, col), fp32
-__device__ __forceinline__ void mma16816(float (&d)[4],
-                                         const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // bf16x2 of two fp32 values rounded to nearest even, a in the low half

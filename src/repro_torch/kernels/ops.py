@@ -2,8 +2,8 @@
 
 Layout and grouping stay plain torch index ops on the tensor's device;
 the kernel wrappers they call (grouped_matmul.py, paged_attn.py,
-normhead.py, wkv6.py) take the plain versions for CPU tensors and launch
-the CUDA kernels for CUDA tensors.
+normhead.py, wkv6.py, rwkv_decay.py) take the plain versions for CPU
+tensors and launch the CUDA kernels for CUDA tensors.
 """
 from __future__ import annotations
 
@@ -14,6 +14,7 @@ import torch
 from repro_torch.kernels import grouped_matmul as _gm
 from repro_torch.kernels import normhead as _nh
 from repro_torch.kernels import paged_attn as _pa
+from repro_torch.kernels import rwkv_decay as _decay
 from repro_torch.kernels import wkv6 as _wkv
 
 
@@ -195,3 +196,10 @@ def wkv6(r, k, v, w, u, state, *, out_state=None):
     has no counterpart).  `out_state` receives state' (it may be `state`:
     an in-place update)."""
     return _wkv.wkv6(r, k, v, w, u, state, out_state=out_state)
+
+
+def rwkv_decay(x, a, b, w0):
+    """RWKV6's data-dependent decay exp(-exp(w0 + tanh(x a) b)): x (...,
+    d), a (d, 32), b (32, n), w0 (n,) -> (..., n) fp32, each row's bits
+    independent of the rows that share the call."""
+    return _decay.rwkv_decay(x, a, b, w0)

@@ -14,7 +14,12 @@ the decode tick updates its state in place).
 
 The wrapper takes the plain version for CPU tensors and launches
 csrc/wkv6.cu for CUDA tensors, raising on anything the kernel does not
-take.
+take.  The kernel splits each (b, h) over two blocks of 64 threads (a
+half of the state's columns each, 8 rows x 4 columns a thread), stages
+8-timestep chunks two ahead by cp.async, sums each chunk's y while the
+next one computes, and adds the row groups' partial y in a fixed order (`y = sum_i r_i S_ij +
+v_j * sum_i r_i u_i k_i`); tests/test_torch_k6_split.py emulates that
+order on the CPU.
 """
 from __future__ import annotations
 
@@ -24,7 +29,7 @@ import torch
 
 from repro_torch.kernels import build
 
-HD = 64   # csrc/wkv6.cu: one thread per state column
+HD = 64   # csrc/wkv6.cu: the head dim the kernel takes
 
 
 def wkv6_ref(r, k, v, w, u, s0):

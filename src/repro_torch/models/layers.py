@@ -81,8 +81,12 @@ def init_norm(cfg, init: Init) -> Params:
 def apply_norm(cfg, params: Params, x: torch.Tensor) -> torch.Tensor:
     scale = params["scale"].float()
     xf = x.float()
-    ms = torch.mean(xf * xf, dim=-1, keepdim=True)
-    out = xf * torch.rsqrt(ms + 1e-6) * scale
+    # the mean square in fp64, its inverse root rounded once to fp32: the
+    # reduction's order follows the number of rows in the call, and in
+    # fp32 a row's scale could then differ by an ulp between a prefill
+    # and a decode tick
+    ms = torch.mean(xf.double().square(), dim=-1, keepdim=True)
+    out = xf * torch.rsqrt(ms + 1e-6).float() * scale
     return out.to(x.dtype)
 
 

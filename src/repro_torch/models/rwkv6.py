@@ -6,7 +6,9 @@ per-channel decay w_t comes from the token itself through a low-rank
 (LoRA) projection.  The recurrence runs on K6 (`kernels.ops.wkv6`) in the
 prefill (T = prompt) and in every decode tick (T = 1, state updated in
 place); the reference's chunked jnp formulation (`wkv6_chunked`) belongs
-to the rwkv6 training slice.
+to the rwkv6 training slice.  The decay itself runs on its own kernel
+(`kernels.ops.rwkv_decay`), which gives a token the same decay in the
+prefill and in a decode tick.
 
 Serving storage (`Init.masters` False): the leaves the reference casts to
 the compute dtype at use (`mu`, the r/k/v/g/o projections, the channel
@@ -72,11 +74,11 @@ def _projections(cfg, params: L.Params, x: torch.Tensor,
 
     r, k, v, g = (proj(n, t) for n, t in (("wr", xr), ("wk", xk),
                                           ("wv", xv), ("wg", xg)))
-    # data-dependent decay (LoRA), fp32 for the exp-exp
-    la = params["w_lora_a"].float()
-    lb = params["w_lora_b"].float()
-    dec = params["w0"].float() + torch.tanh(xw.float() @ la) @ lb
-    w = torch.exp(-torch.exp(dec)).reshape(dec.shape[:-1] + (nh, hd))
+    # data-dependent decay (LoRA), fp32 for the exp-exp; the kernel gives
+    # a token the same decay in the prefill and in a decode tick
+    w = kops.rwkv_decay(xw, params["w_lora_a"].float(),
+                        params["w_lora_b"].float(), params["w0"].float())
+    w = w.reshape(w.shape[:-1] + (nh, hd))
     u = params["u"].float().reshape(nh, hd)
     return r, k, v, w, g, u
 

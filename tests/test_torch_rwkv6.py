@@ -244,6 +244,7 @@ def test_greedy_stream_matches_reference(streams):
 def test_cpu_tensors_launch_no_kernel(streams):
     assert streams["launches"]["wkv6"] == 0
     assert streams["launches"]["normhead_matmul"] == 0
+    assert streams["launches"]["rwkv_decay"] == 0
 
 
 def test_prefill_then_decode_matches_stepwise(models, streams):

@@ -1,7 +1,9 @@
 """The port's K5 (fused NormHead logits) and K6 (WKV6 recurrence): plain
 versions against the JAX package's Pallas kernels run in interpret mode
 and its jnp references, on the same numpy-made inputs; and, on a CUDA
-card only, the CUDA kernels against the plain versions.
+card only, the CUDA kernels against the plain versions, with the rwkv6
+decay kernel (tests/test_torch_decay_split.py holds its order against
+the JAX time mix on the CPU).
 
 Tolerances: every version sums in fp32 in its own order, so outputs are
 held to 1e-5 of their largest magnitude (K6's state and y over up to 64
@@ -40,14 +42,18 @@ def _close(got, want, rel=1e-5):
     assert err <= tol, (err, tol)
 
 
-def _wkv_case(seed, B, T, H, hd=64):
+def _wkv_case(seed, B, T, H, hd=64, extreme=False):
     """r, k, v ~ N(0, 1); w = exp(-exp(.)) in (0, 1); u small; a
-    non-zero start state."""
+    non-zero start state.  `extreme`: w = exp(-exp(N(0, 1) +- 3)) instead,
+    each element near 0 (down to ~1e-30) or near 1 (~0.95)."""
     rs = np.random.RandomState(seed)
     r, k, v = (rs.randn(B, T, H, hd).astype(np.float32) for _ in range(3))
     w = np.exp(-np.exp(rs.randn(B, T, H, hd) - 1.0)).astype(np.float32)
     u = (0.5 * rs.randn(H, hd)).astype(np.float32)
     s0 = (0.1 * rs.randn(B, H, hd, hd)).astype(np.float32)
+    if extreme:
+        shift = rs.choice([-3.0, 3.0], size=w.shape)
+        w = np.exp(-np.exp(rs.randn(*w.shape) + shift)).astype(np.float32)
     return r, k, v, w, u, s0
 
 
@@ -147,15 +153,19 @@ def _need_cuda():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("T,dtype", [(1, "bfloat16"), (16, "bfloat16"),
-                                     (64, "float32"), (37, "bfloat16")])
-def test_wkv6_cuda_kernel_matches_plain(T, dtype):
-    """Smoke shapes (4 heads of 64) from a non-zero state, T = 1 with the
-    state updated in place, and T = 37 (not a power of two, a partial
-    32-step stage)."""
+@pytest.mark.parametrize("B,T,dtype,extreme", [
+    (2, 1, "bfloat16", False), (2, 16, "bfloat16", False),
+    (2, 64, "float32", False), (2, 37, "bfloat16", False),
+    (2, 512, "bfloat16", False), (8, 1, "bfloat16", False),
+    (2, 37, "float32", True), (8, 100, "bfloat16", True)])
+def test_wkv6_cuda_kernel_matches_plain(B, T, dtype, extreme):
+    """Smoke shapes (4 heads of 64) from a non-zero state, the state
+    updated in place: T = 1 (decode, also at B = 8), T = 37 and 100 (not
+    a multiple of the kernel's 8-step chunk), T = 512 (rwkv6-3b's
+    prefill length), and decays near 0 and near 1."""
     _need_cuda()
     r, k, v, w, u, s0 = (torch.tensor(a).cuda()
-                         for a in _wkv_case(T, 2, T, 4))
+                         for a in _wkv_case(T, B, T, 4, extreme=extreme))
     dt = getattr(torch, dtype)
     r, k, v = (t.to(dt) for t in (r, k, v))
     y_ref, s_ref = wk.wkv6_ref(r, k, v, w, u, s0)
@@ -173,18 +183,25 @@ def test_wkv6_cuda_kernel_matches_plain(T, dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("T,x_dtype,w_dtype", [
-    (1, "bfloat16", "float32"), (8, "bfloat16", "float32"),
-    (13, "float32", "bfloat16"), (32, "bfloat16", "bfloat16")])
-def test_normhead_cuda_kernel_matches_plain(T, x_dtype, w_dtype):
-    """Smoke widths (d 256, V 512) and V = 500, not a multiple of the
-    block's 32 rows; T = 13 takes two passes of 8 rows."""
+@pytest.mark.parametrize("T,x_dtype,w_dtype,V,d", [
+    (1, "bfloat16", "float32", 512, 256), (8, "bfloat16", "float32", 512, 256),
+    (13, "float32", "bfloat16", 500, 256),
+    (32, "bfloat16", "bfloat16", 512, 256),
+    (64, "bfloat16", "float32", 512, 256),
+    (65, "bfloat16", "float32", 500, 256),
+    (8, "bfloat16", "float32", 500, 256), (24, "float32", "float32", 500, 256),
+    (64, "bfloat16", "float32", 500, 576), (13, "float32", "float32", 500, 1600)])
+def test_normhead_cuda_kernel_matches_plain(T, x_dtype, w_dtype, V, d):
+    """On the tensor cores: V = 500, not a multiple of a block's 128 rows
+    or a warp's 16; T = 13 and 24 in tiles of 8 rows, T = 64 in one pass
+    over W, T = 65 in two; an fp32 x as three bf16 pieces (six piece
+    products against an fp32 W).  x comes in 128-column slices: d = 576
+    and 1600 end in a half-empty one."""
     _need_cuda()
     rs = np.random.RandomState(T)
-    V = 500 if T == 13 else 512
-    x = torch.tensor(rs.randn(T, 256).astype(np.float32)).cuda() \
+    x = torch.tensor(rs.randn(T, d).astype(np.float32)).cuda() \
         .to(getattr(torch, x_dtype))
-    w = torch.tensor((0.02 * rs.randn(V, 256)).astype(np.float32)).cuda() \
+    w = torch.tensor((0.02 * rs.randn(V, d)).astype(np.float32)).cuda() \
         .to(getattr(torch, w_dtype))
     before = build.LAUNCHES["normhead_matmul"]
     out = tops.normhead_logits(x, w)
@@ -195,12 +212,92 @@ def test_normhead_cuda_kernel_matches_plain(T, x_dtype, w_dtype):
     assert (out - ref).abs().max() <= 1e-5 * ref.abs().max()
 
 
+def _decay_case(M, d, n, dtype, seed=0):
+    """As tests/test_torch_decay_split.py's cases: rows ~ N(0, 1), A ~
+    N(0, 1 / d), B ~ N(0, 1 / 8), w0 ~ N(0, 1) - 1, so w spreads over
+    (0, 1); on the card."""
+    rs = np.random.RandomState(seed)
+    x = torch.tensor(rs.randn(M, d).astype(np.float32)).cuda().to(
+        getattr(torch, dtype))
+    a = torch.tensor((rs.randn(d, 32) / d ** 0.5).astype(np.float32)).cuda()
+    b = torch.tensor((rs.randn(32, n) / 8 ** 0.5).astype(np.float32)).cuda()
+    w0 = torch.tensor((rs.randn(n) - 1.0).astype(np.float32)).cuda()
+    return x, a, b, w0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,d,n,dtype", [
+    (1, 2560, 2560, "bfloat16"), (8, 2560, 2560, "bfloat16"),
+    (4096, 2560, 2560, "bfloat16"), (37, 100, 128, "float32"),
+    (5, 256, 64, "bfloat16"), (3, 7, 300, "float32")])
+def test_rwkv_decay_cuda_kernel_matches_plain(M, d, n, dtype):
+    """rwkv6-3b's decode (8 rows) and prefill (8 x 512 rows) and a single
+    row at its width; d = 100 and 7 leave chunks and warp spans short or
+    empty, n = 300 a partial column tile."""
+    _need_cuda()
+    from repro_torch.kernels import rwkv_decay as dk
+    x, a, b, w0 = _decay_case(M, d, n, dtype)
+    before = build.LAUNCHES["rwkv_decay"]
+    got = tops.rwkv_decay(x, a, b, w0)
+    ref = dk.rwkv_decay_ref(x, a, b, w0)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["rwkv_decay"] == before + 1
+    assert got.shape == (M, n) and got.dtype == torch.float32
+    assert (got - ref).abs().max() <= 1e-5 * ref.abs().max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [2560, 100])
+def test_rwkv_decay_cuda_rows_do_not_depend_on_the_call(d):
+    """A row's decay has the same bits in a call of 200 rows, of 64, of
+    8 (a block's rows) and alone, as a prefill and a decode tick need."""
+    _need_cuda()
+    x, a, b, w0 = _decay_case(200, d, 2560, "bfloat16", seed=1)
+    whole = tops.rwkv_decay(x, a, b, w0)
+    for size in (64, 8, 3, 1):
+        parts = torch.cat([tops.rwkv_decay(x[i:i + size], a, b, w0)
+                           for i in range(0, 200, size)])
+        assert torch.equal(parts, whole), size
+
+
+@pytest.mark.cuda
+def test_rwkv6_prefill_and_ticks_agree_bitwise_at_full_width():
+    """rwkv6-3b at its full width, cut to 2 layers, bf16 activations: one
+    64-token prefill and 64 decode ticks from zeroed caches give the same
+    last logits, bit for bit.  Every op of the block gives a row the same
+    bits whatever the number of rows in the call: K5, K6 and the decay
+    kernel by design, cuBLAS's bf16 products at these shapes."""
+    _need_cuda()
+    import dataclasses
+
+    from repro_torch import api
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import model as M
+    cfg = dataclasses.replace(get_config("rwkv6-3b"), n_layers=2)
+    params = api.Runner(cfg, device="cuda").init_params(0)
+    tokens = torch.tensor(np.random.RandomState(0).randint(
+        0, cfg.vocab_size, (1, 64))).cuda()
+    with torch.no_grad():
+        prefill, _ = M.prefill_logits(cfg, params, {"tokens": tokens})
+        caches = M.init_caches(cfg, 1, tokens.device)
+        for pos in range(tokens.shape[1]):
+            tick, caches = M.decode_logits(cfg, params, caches,
+                                           tokens[:, pos])
+    assert bool(torch.isfinite(prefill).all())
+    assert torch.equal(prefill, tick)
+
+
 @pytest.mark.cuda
 def test_cuda_kernels_refuse_what_they_do_not_take():
     _need_cuda()
     x = torch.zeros((2, 30), device="cuda")          # 30 fp32: 120 bytes
     with pytest.raises(ValueError, match="16-byte"):
         tops.normhead_logits(x, torch.zeros((8, 30), device="cuda"))
+    with pytest.raises(ValueError, match="a must be fp32"):
+        tops.rwkv_decay(torch.zeros((2, 30), device="cuda"),
+                        torch.zeros((30, 32), device="cuda").bfloat16(),
+                        torch.zeros((32, 8), device="cuda"),
+                        torch.zeros((8,), device="cuda"))
     r = torch.zeros((1, 2, 1, 32), device="cuda")
     with pytest.raises(ValueError, match="head_dim 64"):
         tops.wkv6(r, r, r, r, torch.zeros((1, 32), device="cuda"),

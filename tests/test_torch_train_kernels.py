@@ -453,7 +453,9 @@ def test_wgrad_cuda_fp32_lhs_at_the_ends_of_the_range():
 # promoted to the fp32 accumulators (hopper_mma.cuh `promote`), the
 # measured growth is K^0.05-0.27 and the error at K = 2048 (Ling-Lite's
 # d_model; its ff, 1408, is shorter) 2e-7 to 6e-7 of the largest output;
-# the test holds it to 1e-6.
+# the test holds it to 1e-6.  K5 (the NormHead logits on mma.sync, an fp32
+# head in three bf16 pieces) promotes each 64-column stage the same way
+# and is held to the same bounds, its norm and division included.
 
 ACC_K = [256, 512, 1024, 2048, 4096]
 ACC_BOUND_LING_LITE = 1e-6      # max error / max |exact| at K = 2048
@@ -486,6 +488,18 @@ def _k2_up_vs_f64(K, seed):
         ref[tg == g] = tiles[tg == g] @ rhs[g].double()
     live = lay.row_map >= 0                        # rows that hold lhs rows
     return out[live], ref.reshape(-1, 256)[live]
+
+
+def _k5_vs_f64(K, seed):
+    """K5 with d = K: 8 bf16 rows of x (a decode tick) against 512 rows of
+    an fp32 head, against the float64 NormHead of the same values."""
+    rs = np.random.RandomState(seed)
+    x = torch.tensor(rs.randn(8, K).astype(np.float32),
+                     device="cuda").to(torch.bfloat16)
+    w = torch.tensor(rs.randn(512, K).astype(np.float32), device="cuda")
+    out = tops.normhead_logits(x, w)
+    w64 = w.double()
+    return out, (x.double() @ w64.T) / w64.norm(dim=1).clamp_min(1e-6)
 
 
 def _k1_vs_f64(K, T, seed, act="swiglu"):
@@ -522,13 +536,16 @@ def _k1_vs_f64(K, T, seed, act="swiglu"):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("form", ["k2_up", "k1_tensor_cores", "k1_stream"])
+@pytest.mark.parametrize("form", ["k2_up", "k1_tensor_cores", "k1_stream",
+                                  "k5"])
 def test_tensor_core_accumulation_error_grows_like_sqrt_k(form):
     _need_cuda()
     errs = []
     for K in ACC_K:
         if form == "k2_up":
             out, ref = _k2_up_vs_f64(K, K)
+        elif form == "k5":
+            out, ref = _k5_vs_f64(K, K)
         else:
             T = 70 if form == "k1_tensor_cores" else 13
             out, ref, path = _k1_vs_f64(K, T, K)
