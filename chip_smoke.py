@@ -14,11 +14,13 @@ Phases, each failing loudly (non-zero exit, no result line):
      and, where one PyTorch call computes the same function, its time
      (every kernel's `ms`: the wrapper from an idle queue, host dispatch
      included):
-     K1 fused MoE FFN (T=8 decode, T=64 prefill, T=2048 training, routing
+     K1 fused MoE FFN (T=8 decode, T=64 prefill, T=40 a k=4 verify pass,
+     T=2048 training, routing
      from a random router; the path each shape takes, the wrapper's time
      and the C entry's alone, split by kernel with torch.profiler), K3/K4
      paged attention (PA_CASES: decode B=8 Q=1 with 2 inactive slots and
-     unallocated pages on the scratch page; prefill B=1 Q=64; beside
+     unallocated pages on the scratch page; verify B=8 Q=5 at the same
+     contexts; prefill B=1 Q=64; beside
      `ms`, the card's time for the call enqueued behind a sleep kernel
      and the wrapper's host dispatch alone, which is longer than the
      kernel), K2 grouped matmul at the MoE backward's shapes (12288
@@ -30,7 +32,8 @@ Phases, each failing loudly (non-zero exit, no result line):
      each with its count of bf16 wgmma passes and, for a form with an
      fp32 operand, an fp32 `torch._grouped_mm` as its yardstick where
      this build takes one (else bf16); K5 fused NormHead logits at
-     Ling-Lite's fp32 head (x bf16, T=8 and T=1) and rwkv6-3b's (T=8, T=64
+     Ling-Lite's fp32 head (x bf16, T=8, T=1 and T=40) and rwkv6-3b's
+     (T=8, T=64
      in one pass over W, T=65 in two), each also timed on the card with
      the queue held, by its host dispatch alone, and against one fp32
      cuBLAS product on a head normalized beforehand (`product_ms`); K6
@@ -55,6 +58,17 @@ Phases, each failing loudly (non-zero exit, no result line):
      8 decode steps) through the kernels and through the plain modes
      (moe_dispatch="ragged", paged_attn="gathered"), logits compared, K5
      launched once per chunk and per step;
+  6b. sampling and speculative decoding on phase 5's model and prompts
+     (engines fed all 16 requests at once): requests 0-7 greedy and 8-15
+     at temperature 0.8, top-p 0.95, top-k 64 (the greedy streams must be
+     phase 5's), again with the radix cache off and with a pool of 96
+     pages that preempts (all 16 streams unchanged); speculative decoding
+     at k=4 with a 4-layer self-draft (greedy streams phase 5's; K1, K3,
+     K4 launched (k+1)*4 + 28 and K5 (k+1) + 1 times per spec tick, and
+     28 + 4 and 2 per prefill chunk), with a 28-layer self-draft (every
+     draft accepted), and sampled at 0.8; each run's tokens/s, TTFT and
+     ITL p50/p99, ticks per token and acceptance, and one sampling call
+     at 8 and 40 rows of the vocabulary (CUDA events);
   7. rwkv6 serving: Ling-Lite freed, full-width rwkv6-3b (32 layers, bf16
      weights from torch.Generator(device="cuda").manual_seed(0)):
      `make_prefill` on 8 prompts of 512 tokens (numpy seed 0), then 32
@@ -65,7 +79,9 @@ Phases, each failing loudly (non-zero exit, no result line):
      plain K5 and K6 (the same greedy token in all four runs; prefill vs
      ticks and kernels vs plain within RWKV_FP32_TOL of the largest
      logit); the offline Flood engine through `launch.serve`'s
-     `build_model_engine` (16 requests, 32 new tokens, micro-batch 8).
+     `build_model_engine` (16 requests, 32 new tokens, micro-batch 8) on
+     its sampled step at temperature 0 (the same tokens as the engine on
+     the greedy step) and at temperature 0.8, seed 0.
      A miss of the prefill-vs-ticks checks is printed at once and fails
      the run after phase 8 and the kernels line, so that those still
      report;
@@ -87,6 +103,7 @@ import json
 import subprocess
 import sys
 import time
+import types
 from pathlib import Path
 
 HBM_BYTES_S = 3.35e12          # H100 SXM HBM3
@@ -100,6 +117,8 @@ SERVE_KERNELS = ("fused_moe_ffn", "paged_attn_scores_max",
 PA_CASES = {
     "decode": dict(B=8, Q=1, ctx=[100, 300, 0, 171, 256, 0, 129, 233],
                    base=None, n_pages=8 * 32 + 1),
+    "verify": dict(B=8, Q=5, ctx=[100, 300, 0, 171, 256, 0, 129, 233],
+                   base=None, n_pages=8 * 32 + 1),
     "prefill": dict(B=1, Q=64, ctx=[192], base=128, n_pages=8 * 32 + 1)}
 
 
@@ -112,6 +131,7 @@ RWKV_FP32_TOL = {"prefill vs ticks": 7.5e-4, "kernels vs plain": 4.5e-4}
 # scripts/profile_torch_kernels.py
 K5_CASES = {"ling head T=8": ("ling-lite", 8),
             "ling head T=1": ("ling-lite", 1),
+            "ling head T=40": ("ling-lite", 40),
             "rwkv6 head T=8": ("rwkv6-3b", 8),
             "rwkv6 head T=64": ("rwkv6-3b", 64),
             "rwkv6 head T=65": ("rwkv6-3b", 65)}
@@ -854,7 +874,7 @@ def serve(cfg, params):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     build.reset_launches()
-    eng.step_calls = {"prefill": 0, "decode": 0}
+    eng.step_calls = {k: 0 for k in eng.step_calls}
     n_req, max_new = 16, 32
     # 1000 req/s: the 16 arrivals land within a few ms, so all 8 slots
     # fill at once and stay busy while the queue drains
@@ -885,6 +905,160 @@ def serve(cfg, params):
             fail(f"{name} launched {n} times in serving, expected {want} "
                  f"({cfg.n_layers} layers, {calls})")
     return rep, launches
+
+
+# ---------------------------------------------------------------------------
+# phase 6b: sampling, speculative decoding, preemption replay
+# ---------------------------------------------------------------------------
+
+
+def _burst(runner, params, ocfg, reqs, drafter=None):
+    """Serve `reqs` submitted at once through a fresh engine: (streams,
+    figures, engine).  Figures on the host clock: output tokens/s, TTFT
+    and ITL p50/p99, ticks per emitted token after the first."""
+    import numpy as np
+    import torch
+    from repro_torch.serving.online import OnlineEngine
+    eng = OnlineEngine(runner, params, ocfg, drafter=drafter)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for r in reqs:
+        r.arrival_t = t0
+    eng.submit_many(reqs)
+    eng.run(max_ticks=100_000)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    ttft = [1e3 * (r.first_token_t - r.arrival_t) for r in reqs]
+    itl = [1e3 * (b - a) for r in reqs
+           for a, b in zip(r.token_times, r.token_times[1:])]
+    n_tok = sum(len(r.out) for r in reqs)
+    pct = lambda xs, q: float(np.percentile(xs, q)) if xs else 0.0
+    fig = dict(tok_s=n_tok / wall, ttft_p50_ms=pct(ttft, 50),
+               ttft_p99_ms=pct(ttft, 99), itl_p50_ms=pct(itl, 50),
+               itl_p99_ms=pct(itl, 99), tokens=n_tok, wall_s=wall,
+               ticks_per_token=(sum(r.n_decode_ticks for r in reqs)
+                                / max(sum(len(r.out) - 1 for r in reqs), 1)),
+               acceptance=eng.spec_accepted / max(eng.spec_proposed, 1),
+               preemptions=eng.n_preemptions)
+    return [list(r.out) for r in reqs], fig, eng
+
+
+def serve_sampled(cfg, params, base, card):
+    """Phase 6b on phase 5's model and prompts: mixed-temperature serving
+    (again with the radix cache off and with a pool that preempts),
+    greedy speculation with a 4-layer and a 28-layer self-draft, sampled
+    speculation, the launches per spec tick, and the sampling call's
+    time.  Returns the launches of the greedy spec run."""
+    import numpy as np
+    import torch
+    from repro_torch import api
+    from repro_torch.kernels import build
+    from repro_torch.models import embedding as emb
+    from repro_torch.serving.draft import SelfDrafter
+    from repro_torch.serving.online import OnlineConfig, OnlineRequest
+    runner = api.Runner(cfg, device="cuda")
+    prompts = [np.asarray(p, np.int32) for p in base["prompts"]]
+    greedy = base["outputs"]
+    geo = dict(max_slots=8, max_context=512, page_size=16, prefill_chunk=64)
+    hot = dict(temperature=0.8, top_p=0.95, top_k=64)
+    K, DL = 4, 4
+
+    def reqs(mixed=True, **knobs):
+        return [OnlineRequest(
+            rid=i, prompt=p, max_new=32,
+            **(dict(hot, seed=1000 + i) if mixed and i >= 8 else knobs))
+            for i, p in enumerate(prompts)]
+
+    def show(label, fig):
+        print(f"[sample] {label}: tok/s={fig['tok_s']:.2f} ttft p50/p99="
+              f"{fig['ttft_p50_ms']:.1f}/{fig['ttft_p99_ms']:.1f}ms itl "
+              f"p50/p99={fig['itl_p50_ms']:.2f}/{fig['itl_p99_ms']:.2f}ms "
+              f"ticks/token={fig['ticks_per_token']:.3f} acceptance="
+              f"{fig['acceptance']:.4f} preemptions={fig['preemptions']} "
+              f"tokens={fig['tokens']} wall={fig['wall_s']:.2f}s [{card}]")
+
+    # 1. mixed sampling: requests 0-7 greedy, 8-15 at temperature 0.8
+    mixed, fig, _ = _burst(runner, params, OnlineConfig(**geo), reqs())
+    show("mixed temperatures (0-7 greedy, 8-15 at 0.8 / 0.95 / 64)", fig)
+    if mixed[:8] != greedy[:8]:
+        fail("phase 6b: temperature-0 streams differ from phase 5's")
+    if fig["tokens"] != 16 * 32:
+        fail(f"phase 6b: mixed run emitted {fig['tokens']} tokens")
+    off, fig, _ = _burst(runner, params,
+                         OnlineConfig(**geo, radix_cache=False), reqs())
+    show("mixed, radix cache off", fig)
+    cut, fig, eng = _burst(runner, params, OnlineConfig(**geo, n_pages=97),
+                           reqs())
+    show("mixed, pool cut to 96 pages", fig)
+    if eng.n_preemptions < 1:
+        fail("phase 6b: the cut pool preempted nothing")
+    for label, streams in (("radix off", off), ("preempted", cut)):
+        if streams != mixed:
+            bad = [i for i in range(16) if streams[i] != mixed[i]]
+            fail(f"phase 6b: {label} streams differ from the first run's "
+                 f"(requests {bad})")
+
+    # 2. greedy speculation, 4-layer self-draft; 5. its launches
+    torch.cuda.synchronize()
+    build.reset_launches()
+    spec, fig, eng = _burst(runner, params, OnlineConfig(**geo, spec_k=K),
+                            reqs(mixed=False), SelfDrafter(DL))
+    torch.cuda.synchronize()
+    launches = dict(build.LAUNCHES)
+    show(f"greedy spec k={K}, {DL}-layer self-draft", fig)
+    if spec != greedy:
+        bad = [i for i in range(16) if spec[i] != greedy[i]]
+        fail(f"phase 6b: greedy spec streams differ from phase 5's "
+             f"(requests {bad})")
+    calls = eng.step_calls
+    per_tick = {n: (K + 1) * DL + cfg.n_layers for n in SERVE_KERNELS}
+    per_tick["normhead_matmul"] = (K + 1) + 1
+    per_chunk = {n: cfg.n_layers + DL for n in SERVE_KERNELS}
+    per_chunk["normhead_matmul"] = 2            # the target's and drafter's
+    print(f"[sample] spec launches {launches} over {calls['prefill']} "
+          f"prefill chunks (target + drafter) and {calls['verify']} spec "
+          f"ticks; per spec tick expected {per_tick}")
+    if calls["decode"] or calls["draft"] != calls["verify"]:
+        fail(f"phase 6b: spec engine step calls {calls}")
+    for name, n in launches.items():
+        want = (per_chunk.get(name, 0) * calls["prefill"]
+                + per_tick.get(name, 0) * calls["verify"])
+        if n != want:
+            fail(f"phase 6b: {name} launched {n} times, expected {want} "
+                 f"({per_tick.get(name, 0)} per spec tick)")
+
+    # 3. a full-depth self-draft accepts every draft
+    full, fig, eng = _burst(runner, params, OnlineConfig(**geo, spec_k=K),
+                            reqs(mixed=False), SelfDrafter(cfg.n_layers))
+    show(f"greedy spec k={K}, full-depth self-draft", fig)
+    if eng.spec_accepted != eng.spec_proposed or full != greedy:
+        fail(f"phase 6b: full-depth self-draft accepted "
+             f"{eng.spec_accepted} of {eng.spec_proposed} drafts, streams "
+             f"equal phase 5's: {full == greedy}")
+
+    # 4. sampled speculation
+    _, fig, _ = _burst(runner, params, OnlineConfig(**geo, spec_k=K),
+                       reqs(mixed=False, seed=7, **hot), SelfDrafter(DL))
+    show(f"sampled spec k={K} at 0.8 / 0.95 / 64, {DL}-layer self-draft",
+         fig)
+    if fig["tokens"] != 16 * 32:
+        fail(f"phase 6b: sampled spec emitted {fig['tokens']} tokens")
+
+    # one sampling call (transforms, keys, gumbel draw) at a tick's rows
+    # and at a k = 4 verify pass's
+    g = torch.Generator(device="cuda").manual_seed(6)
+    for T in (8, 8 * (K + 1)):
+        lg = torch.randn((T, cfg.vocab_size), generator=g, device="cuda")
+        knobs = (torch.arange(T, device="cuda"),
+                 torch.full((T,), 0.8, device="cuda"),
+                 torch.full((T,), 0.95, device="cuda"),
+                 torch.full((T,), 64, device="cuda"))
+        ms = cuda_ms(lambda: emb.sharded_sample(
+            cfg, lg, seeds=knobs[0], pos=knobs[0], temperature=knobs[1],
+            top_p=knobs[2], top_k=knobs[3]))
+        print(f"[sample] one sampling call at {T} x {cfg.vocab_size}: "
+              f"{ms:.4f}ms [{card}]")
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -1046,24 +1220,41 @@ def rwkv_serve(card):
               file=sys.stderr)
 
     # the offline Flood engine, through launch.serve's build_model_engine
-    rs = np.random.RandomState(0)
-    reqs = [GenRequest(rid=i, prompt=rs.randint(0, cfg.vocab_size, 8)
-                       .astype(np.int32), max_new=32) for i in range(16)]
-    embed_fn, stage_fns, head_fn = build_model_engine(runner, params, 2, 8)
-    eng = FloodEngine(stage_fns, head_fn, embed_fn,
-                      cache=SegmentCache(max_tokens=1 << 16,
-                                         initial_segment=32,
-                                         extend_chunk=32), microbatch=8)
-    eng.submit(reqs)
-    stats = eng.run()
-    torch.cuda.synchronize()
-    print(f"[rwkv] Flood engine: 16 requests x 32 new tokens, micro-batch "
-          f"8, 2 stages: tokens={stats.tokens_out} wall={stats.wall_s:.2f}s "
-          f"tok/s={stats.tokens_per_s:.1f} ticks={stats.ticks}")
-    if stats.tokens_out != 16 * 32 or not all(len(r.out) == 32
-                                              for r in reqs):
-        fail(f"Flood engine emitted {stats.tokens_out} tokens, expected "
-             f"{16 * 32}")
+    # (its sampled decode step): at temperature 0, against the same
+    # engine on the greedy step, and at temperature 0.8
+    def flood(fns, label):
+        rs = np.random.RandomState(0)
+        reqs = [GenRequest(rid=i, prompt=rs.randint(0, cfg.vocab_size, 8)
+                           .astype(np.int32), max_new=32) for i in range(16)]
+        embed_fn, stage_fns, head_fn = fns
+        eng = FloodEngine(stage_fns, head_fn, embed_fn,
+                          cache=SegmentCache(max_tokens=1 << 16,
+                                             initial_segment=32,
+                                             extend_chunk=32), microbatch=8)
+        eng.submit(reqs)
+        stats = eng.run()
+        torch.cuda.synchronize()
+        print(f"[rwkv] Flood engine {label}: 16 requests x 32 new tokens, "
+              f"micro-batch 8, 2 stages: tokens={stats.tokens_out} wall="
+              f"{stats.wall_s:.2f}s tok/s={stats.tokens_per_s:.1f} "
+              f"ticks={stats.ticks} [{card}]")
+        if stats.tokens_out != 16 * 32 or not all(len(r.out) == 32
+                                                  for r in reqs):
+            fail(f"Flood engine {label} emitted {stats.tokens_out} tokens, "
+                 f"expected {16 * 32}")
+        return [r.out for r in reqs]
+
+    cold = flood(build_model_engine(runner, params, 2, 8), "temperature 0")
+    greedy_step = runner.make_decode_step()
+    greedy_runner = types.SimpleNamespace(
+        device=runner.device, init_caches=runner.init_caches,
+        make_decode_step=lambda sample: (
+            lambda p, c, t, pos, *knobs: greedy_step(p, c, t, pos)))
+    if flood(build_model_engine(greedy_runner, params, 2, 8),
+             "on the greedy step") != cold:
+        fail("Flood engine: temperature 0 differs from the greedy step")
+    flood(build_model_engine(runner, params, 2, 8, temperature=0.8,
+                             seed=0), "temperature 0.8")
     return launches, failed
 
 
@@ -1249,6 +1440,7 @@ def main():
     cfg = get_config("ling-lite")
     gen = torch.Generator(device="cuda").manual_seed(1234)
     k1 = {"decode": check_k1(cfg, 8, gen), "prefill": check_k1(cfg, 64, gen),
+          "verify": check_k1(cfg, 40, gen),
           "train": check_k1(cfg, 2048, gen)}
     torch.cuda.empty_cache()
     k3, k4 = {}, {}
@@ -1285,10 +1477,13 @@ def main():
           f"experts={cfg.moe.n_experts} top{cfg.moe.top_k}: {n_par / 1e9:.2f}B "
           f"params, {sum(t.numel() * t.element_size() for t in _leaves(params)) / 2**30:.1f}GiB, "
           f"init {time.perf_counter() - t0:.1f}s (depth not cut)")
-    _, serve_launches = serve(cfg, params)
+    base, serve_launches = serve(cfg, params)
 
     # -- 6. end to end ------------------------------------------------------
     end_to_end(cfg, params, gen)
+
+    # -- 6b. sampling and speculative decoding -------------------------------
+    spec_launches = serve_sampled(cfg, params, base, card)
 
     # -- 7. rwkv6 serving ---------------------------------------------------
     del params          # 31 GiB of bf16 serving weights
@@ -1330,8 +1525,8 @@ def main():
             "rwkv_decay": ("src/repro_torch/kernels/csrc/rwkv_decay.cu",
                            "src/repro/models/rwkv6.py:112", "prefill",
                            "rwkv_serve")}
-    launches = {"serve": serve_launches, "rwkv_serve": rwkv_launches,
-                "train": train_launches}
+    launches = {"serve": serve_launches, "spec": spec_launches,
+                "rwkv_serve": rwkv_launches, "train": train_launches}
     rows = []
     for name, shapes in results.items():
         src_path, replaces, main_shape, path = meta[name]
@@ -1339,7 +1534,7 @@ def main():
         rows.append({"name": name, "route": "cuda", "source": src_path,
                      "replaces": replaces,
                      "launches": launches[path][name],
-                     "launches_by_path": {p: launches[p][name]
+                     "launches_by_path": {p: launches[p].get(name, 0)
                                           for p in launches},
                      "max_abs_err": max(s["max_abs_err"]
                                         for s in shapes.values()),

@@ -1,7 +1,8 @@
 """High-level runner for the port (counterpart of `repro.api.Runner`) at
-tp=1: parameter init, the train step, the greedy prefill and dense decode
-step with their caches (rwkv models), paged KV pools, and the paged
-serving steps (all-attn models) as plain callables.
+tp=1: parameter init, the train step, the greedy prefill and the dense
+decode step with their caches (rwkv models), paged KV pools, and the
+paged serving steps (all-attn models: decode, prefill, and speculative
+decoding's draft and verify), greedy or sampled, as plain callables.
 
 Entry points run on the card: `device` defaults to "cuda", and asking
 for it without one raises.  Pass device="cpu" for the plain PyTorch path
@@ -142,14 +143,23 @@ class Runner:
             return M.prefill(cfg, params, batch, flags)
         return fn
 
-    def make_decode_step(self):
-        """Greedy dense decode step: ``(params, caches, token (B,), pos)
-        -> (next (B,) int32, caches)``; caches update in place."""
+    def make_decode_step(self, sample: bool = False):
+        """Dense decode step: ``(params, caches, token (B,), pos) -> (next
+        (B,) int32, caches)``; caches update in place.  With ``sample``
+        it takes four more (B,) tensors ``(seeds, temperature, top_p,
+        top_k)`` and draws under the online path's (seed, pos, stream)
+        key schedule (bit for bit greedy at temperature <= 0)."""
         cfg = self.cfg
 
-        @torch.no_grad()
-        def fn(params, caches, token, pos):
-            return M.decode_step(cfg, params, caches, token, pos)
+        if sample:
+            @torch.no_grad()
+            def fn(params, caches, token, pos, seeds, temp, top_p, top_k):
+                return M.decode_step(cfg, params, caches, token, pos,
+                                     sample=(seeds, temp, top_p, top_k))
+        else:
+            @torch.no_grad()
+            def fn(params, caches, token, pos):
+                return M.decode_step(cfg, params, caches, token, pos)
         return fn
 
     # -- paged serving (all-attn models) --------------------------------------
@@ -159,29 +169,88 @@ class Runner:
         L.resolve_paged_attn(self.flags.paged_attn)
         return M.init_paged_caches(self.cfg, n_pages, page_size, self.device)
 
-    def make_paged_decode_step(self, page_size: int):
-        """Greedy paged decode tick: ``(params, pools, token (B,), pos
-        (B,), table (B, n_lp), active (B,)) -> (next (B,), pools)``; pools
-        update in place."""
+    def make_paged_decode_step(self, page_size: int, sample: bool = False):
+        """Paged decode tick: ``(params, pools, token (B,), pos (B,), table
+        (B, n_lp), active (B,)) -> (next (B,), pools)``; pools update in
+        place.  With ``sample`` it takes four more (B,) tensors ``(seeds,
+        temperature, top_p, top_k)``; slots at temperature <= 0 still
+        emit the greedy token bit for bit."""
+        cfg, flags = self.cfg, self.flags
+
+        if sample:
+            @torch.no_grad()
+            def step(params, pools, token, pos, table, active, seeds, temp,
+                     top_p, top_k):
+                return M.paged_decode_step(
+                    cfg, params, pools, token, pos, table, active,
+                    page_size=page_size, flags=flags,
+                    sample=(seeds, temp, top_p, top_k))
+        else:
+            @torch.no_grad()
+            def step(params, pools, token, pos, table, active):
+                return M.paged_decode_step(cfg, params, pools, token, pos,
+                                           table, active,
+                                           page_size=page_size, flags=flags)
+        return step
+
+    def make_paged_prefill(self, page_size: int, sample: bool = False):
+        """Chunked-prefill step: ``(params, pools, tokens (C,), base,
+        n_valid, table_row (n_lp,)) -> (next token, pools)``; pools update
+        in place.  With ``sample`` it takes four more scalars ``(seed,
+        temperature, top_p, top_k)`` and draws the returned token at
+        position base + n_valid - 1 (bit for bit greedy at temperature
+        <= 0)."""
+        cfg, flags = self.cfg, self.flags
+
+        if sample:
+            @torch.no_grad()
+            def step(params, pools, tokens, base, n_valid, table_row, seed,
+                     temp, top_p, top_k):
+                return M.paged_prefill_chunk(
+                    cfg, params, pools, tokens, base, n_valid, table_row,
+                    page_size=page_size, flags=flags,
+                    sample=(seed, temp, top_p, top_k))
+        else:
+            @torch.no_grad()
+            def step(params, pools, tokens, base, n_valid, table_row):
+                return M.paged_prefill_chunk(cfg, params, pools, tokens,
+                                             base, n_valid, table_row,
+                                             page_size=page_size,
+                                             flags=flags)
+        return step
+
+    # -- speculative decoding (draft proposals + verify) -----------------------
+    def make_paged_draft_propose(self, page_size: int, k: int):
+        """Drafter-side propose step (call on the drafter's runner):
+        ``(params, pools, token (B,), pos0 (B,), table, active, seeds,
+        temperature, top_p, top_k) -> (drafts (B, k), draft_probs (B, k,
+        Vp), pools)``, k+1 chained sampled decode ticks over the
+        drafter's own pools (stream STREAM_DRAFT)."""
         cfg, flags = self.cfg, self.flags
 
         @torch.no_grad()
-        def step(params, pools, token, pos, table, active):
-            return M.paged_decode_step(cfg, params, pools, token, pos, table,
-                                       active, page_size=page_size,
-                                       flags=flags)
+        def step(params, pools, token, pos0, table, active, seeds, temp,
+                 top_p, top_k):
+            return M.paged_draft_propose(
+                cfg, params, pools, token, pos0, table, active,
+                (seeds, temp, top_p, top_k), k=k, page_size=page_size,
+                flags=flags)
         return step
 
-    def make_paged_prefill(self, page_size: int):
-        """Greedy chunked-prefill step: ``(params, pools, tokens (C,),
-        base, n_valid, table_row (n_lp,)) -> (next token, pools)``; pools
-        update in place."""
+    def make_paged_verify_step(self, page_size: int, k: int):
+        """Target-side verify step: ``(params, pools, tokens (B, k+1), pos0
+        (B,), table, active, draft_probs (B, k, Vp), seeds, temperature,
+        top_p, top_k) -> (n_acc (B,), out (B, k+1), pools)``: one
+        prefill-shaped pass over all k+1 positions and the accept/reject
+        on the device (`models.model.paged_verify_step`)."""
         cfg, flags = self.cfg, self.flags
+        del k                      # the shape of `tokens` carries it
 
         @torch.no_grad()
-        def step(params, pools, tokens, base, n_valid, table_row):
-            return M.paged_prefill_chunk(cfg, params, pools, tokens, base,
-                                         n_valid, table_row,
-                                         page_size=page_size, flags=flags)
+        def step(params, pools, tokens, pos0, table, active, draft_probs,
+                 seeds, temp, top_p, top_k):
+            return M.paged_verify_step(
+                cfg, params, pools, tokens, pos0, table, active, draft_probs,
+                (seeds, temp, top_p, top_k), page_size=page_size,
+                flags=flags)
         return step
-

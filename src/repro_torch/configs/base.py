@@ -87,7 +87,9 @@ class ModelConfig:
         return len(set(self.block_pattern)) == 1
 
 
-# The reference registry; `PORTED` is the subset this package serves.
+# The reference registry; `PORTED` is the subset whose configs resolve here
+# (h2o-danube-1.8b only as a speculative drafter's source config: its
+# "swa" blocks are not built as a model).
 ARCH_IDS = [
     "phi3-mini-3.8b",
     "rwkv6-3b",
@@ -102,7 +104,7 @@ ARCH_IDS = [
     "ling-lite",
     "ling-plus",
 ]
-PORTED = ("ling-lite", "rwkv6-3b")
+PORTED = ("ling-lite", "rwkv6-3b", "h2o-danube-1.8b")
 
 _MODULE_FOR = {a: a.replace("-", "_").replace(".", "_") for a in ARCH_IDS}
 

@@ -55,7 +55,13 @@ def route(cfg, params, x: torch.Tensor, *, train: bool = False,
     `eps` (T, E) is given and the config has warmup steps, as the
     reference applies it when given an rng."""
     m = cfg.moe
-    logits = x.float() @ params["wr"].float()             # (T, E)
+    if train:
+        logits = x.float() @ params["wr"].float()         # (T, E)
+    else:
+        # serving: the fp64 sum rounded once to fp32, so a row's logits do
+        # not depend on how many rows the call has (an fp32 cuBLAS product
+        # picks its summation order by the row count)
+        logits = (x.double() @ params["wr"].double()).float()
     if train and eps is not None and m.router_warmup_steps > 0:
         logits = stochastic_warmup_logits(logits, step,
                                           m.router_warmup_steps, eps)

@@ -53,9 +53,10 @@
 //    (ldmatrix.trans on V), rounded to bf16 to nearest even as the
 //    reference rounds it.  A block's rows make at most four 16-row
 //    tiles; 4 warps (one or two tiles: decode, verify) or 8 (prefill)
-//    share them, a tile's 16-position chunks taken in turn by 4 or 2
-//    warps, whose partials are added in chunk order through shared
-//    memory.  Each accumulator sums at most 4 k16 steps (q.k over
+//    share them, a tile's 16-position chunks taken in turn by 2 warps,
+//    whose partials are added in warp order through shared memory: the
+//    same order at every shape, so a query row's result does not depend
+//    on the other rows of its block (at decode two of the 4 warps idle).  Each accumulator sums at most 4 k16 steps (q.k over
 //    head_dim <= 128 in even and odd halves; p.v over a split's <= 4
 //    chunks), so the tensor cores' truncating adds (see hopper_mma.cuh
 //    `promote`) cost at most a few ulps of a score; the rest is fp32.
@@ -439,7 +440,12 @@ __device__ __forceinline__ void split_walk(
     const int n_pos = n_live * sh.ps, n_ch = (n_pos + 15) / 16;
     const int hdp = (sh.hd + 15) & ~15, ks = hdp / 16;
     const int MT = min(ROWS / 16, (sh.GQ + 15) / 16 - t0);   // its tiles
-    const int G = MT == 1 ? 4 : 2;              // warps a tile
+    // Two warps a tile at every shape: a row's chunks are then added in
+    // one order (sub 0 takes chunks 0, 2, sub 1 chunks 1, 3, then sub 0
+    // adds sub 1's partial) whatever its block's rows, so a decode tick,
+    // a verify pass and a prefill chunk give a query row the same bits.
+    // Four warps a tile at decode summed the chunks in another order.
+    const int G = 2;                            // warps a tile
 
     // -- 2. the live pages' K (and V) rows, all in flight ----------------
     const int vpr = hdp / 8;                    // 8-element vectors a row

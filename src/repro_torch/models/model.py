@@ -1,9 +1,12 @@
 """Model assembly at tp=1 (counterpart of `repro.models.model`):
 parameter init; the forward (training, and the prefill with caches) and
 the loss (`forward`, `loss_fn`); dense decode caches and the greedy
-`prefill` / `decode_step` (rwkv blocks); paged KV pools and the two fixed
+`prefill` / `decode_step` (rwkv blocks); paged KV pools and the fixed
 shape serving steps of attention models — one paged decode tick over
-every slot and one chunked-prefill chunk for one request.
+every slot, one chunked-prefill chunk for one request, and speculative
+decoding's draft proposals and verify pass.  Every decode, prefill and
+verify step may sample (temperature / top-k / top-p under the
+reference's (seed, position, stream) threefry keys).
 
 Two block kinds are ported: "attn" (training, and paged serving of
 all-attn models) and "rwkv" (prefill and dense decode).  Other kinds and
@@ -30,6 +33,7 @@ from repro_torch.core import router as router_lib
 from repro_torch.core import moe as moe_lib
 from repro_torch.models import embedding as emb
 from repro_torch.models import layers as L
+from repro_torch.models import prng
 from repro_torch.models import rwkv6 as rwkv_lib
 
 
@@ -356,14 +360,25 @@ def decode_logits(cfg: ModelConfig, params, caches, token):
     return emb.serve_logits(cfg, params["embed"], x), caches
 
 
-def decode_step(cfg: ModelConfig, params, caches, token, pos):
-    """One greedy decode step: token (B,) -> (next (B,) int32, caches).
-    `pos`, the position being written, is the reference's argument; rwkv
-    blocks carry their position in the state and do not read it (nor do
-    they read any RunFlags knob)."""
-    del pos
+def decode_step(cfg: ModelConfig, params, caches, token, pos, sample=None):
+    """One decode step: token (B,) -> (next (B,) int32, caches).  `pos`,
+    the position being written, is the reference's argument: rwkv blocks
+    carry their position in the state and do not read it (nor any
+    RunFlags knob), but a sampled step keys its draws by it.  Greedy by
+    default; `sample=(seeds, temperature, top_p, top_k)`, (B,) each,
+    draws under the online paged path's (seed, pos, stream) schedule."""
     logits, caches = decode_logits(cfg, params, caches, token)
-    return emb.sharded_argmax(logits).to(torch.int32), caches
+    if sample is None:
+        return emb.sharded_argmax(logits).to(torch.int32), caches
+    seeds, temp, top_p, top_k = sample
+    B = token.shape[0]
+    pos_b = (pos.expand(B) if isinstance(pos, torch.Tensor)
+             else torch.full((B,), pos, dtype=torch.int64,
+                             device=token.device))
+    nxt, _ = emb.sharded_sample(cfg, logits, seeds=seeds, pos=pos_b,
+                                temperature=temp, top_p=top_p, top_k=top_k,
+                                stream=emb.STREAM_SAMPLE)
+    return nxt, caches
 
 
 # ---- paged decode / chunked prefill (online serving) -----------------------
@@ -430,17 +445,160 @@ def _paged_decode_logits(cfg: ModelConfig, params, pools, token, pos, table,
     return emb.serve_logits(cfg, params["embed"], x), pools
 
 
+def _one(v, dtype, device) -> torch.Tensor:
+    """A scalar knob (Python number or 0-d tensor) as a (1,) tensor on
+    `device`; a number is filled there, not copied from the host."""
+    if isinstance(v, torch.Tensor):
+        return v.reshape(1).to(device=device, dtype=dtype)
+    return torch.full((1,), v, dtype=dtype, device=device)
+
+
 def paged_decode_step(cfg: ModelConfig, params, pools, token, pos, table,
                       active, *, page_size: int,
-                      flags: RunFlags = DEFAULT_FLAGS):
-    """One greedy decode tick over the slot batch.  token (B,) input token
-    per slot; pos (B,) position being written; table (B, n_lp); active
-    (B,) bool.  Inactive slots compute harmlessly (their writes land in
-    the scratch page).  Returns (next (B,), pools)."""
+                      flags: RunFlags = DEFAULT_FLAGS, sample=None):
+    """One decode tick over the slot batch.  token (B,) input token per
+    slot; pos (B,) position being written; table (B, n_lp); active (B,)
+    bool.  Inactive slots compute harmlessly (their writes land in the
+    scratch page).  `sample=None` is greedy; `sample=(seeds, temperature,
+    top_p, top_k)`, all (B,), draws under the (seed, pos, STREAM_SAMPLE)
+    keys, rows at temperature <= 0 bit for bit greedy.  Returns (next
+    (B,) int32, pools)."""
     logits, pools = _paged_decode_logits(cfg, params, pools, token, pos,
                                          table, active, page_size=page_size,
                                          flags=flags)
-    return emb.sharded_argmax(logits).to(torch.int32), pools
+    if sample is None:
+        return emb.sharded_argmax(logits).to(torch.int32), pools
+    seeds, temp, top_p, top_k = sample
+    nxt, _ = emb.sharded_sample(cfg, logits, seeds=seeds, pos=pos,
+                                temperature=temp, top_p=top_p, top_k=top_k,
+                                stream=emb.STREAM_SAMPLE)
+    return nxt, pools
+
+
+# ---- speculative decoding (draft proposals + one verify pass) --------------
+#
+# The drafter (serving/draft.py) proposes k tokens per slot with
+# `paged_draft_propose`: k+1 chained sampled decode ticks over its OWN
+# pools (the target's page ids), the last only writing d_k's KV.
+# `paged_verify_step` then scores all k+1 positions in one prefill-shaped
+# target pass and accepts or rejects on the device: draft d while
+# u*q(d) < p(d), then one residual draw from (p - q)+ (the bonus draw
+# from p when every draft was accepted is its q = 0 case).  Rows at
+# temperature <= 0 use argmax one-hots for p and q, so acceptance is
+# token equality and the stream is bit for bit the greedy one.
+
+
+def paged_draft_propose(cfg: ModelConfig, params, pools, token, pos0, table,
+                        active, sample, *, k: int, page_size: int,
+                        flags: RunFlags = DEFAULT_FLAGS):
+    """k draft tokens per slot from the drafter.  token (B,) the pending
+    (last emitted, unwritten) token per slot at position pos0 (B,); k+1
+    chained sampled decode ticks on stream STREAM_DRAFT: ticks 0..k-1
+    give d_1..d_k, tick k only writes d_k's KV.  Returns (drafts (B, k)
+    int32, draft_probs (B, k, Vp), pools)."""
+    seeds, temp, top_p, top_k = sample
+    tok, toks, probs = token, [], []
+    for i in range(k + 1):
+        pos = pos0 + i
+        logits, pools = _paged_decode_logits(cfg, params, pools, tok, pos,
+                                             table, active,
+                                             page_size=page_size, flags=flags)
+        if i == k:
+            break
+        tok, p = emb.sharded_sample(cfg, logits, seeds=seeds, pos=pos,
+                                    temperature=temp, top_p=top_p,
+                                    top_k=top_k, stream=emb.STREAM_DRAFT)
+        toks.append(tok)
+        probs.append(p)
+    return torch.stack(toks, 1), torch.stack(probs, 1), pools
+
+
+def block_verify_paged(cfg, params, x, pool, pos, table, active, *, B: int,
+                       Q: int, page_size: int, ffn: str,
+                       flags: RunFlags = DEFAULT_FLAGS, valid=None):
+    """One layer of the k+1-token verify pass: x (B*Q, d)."""
+    h = L.apply_norm(cfg, params["norm1"], x)
+    partial, _ = L.paged_verify_attention(
+        cfg, params["attn"], h.reshape(B, Q, -1), pool["self"], pos, table,
+        active, page_size=page_size, paged_attn=flags.paged_attn,
+        valid=valid)
+    return _block_ffn(cfg, params, x + partial, ffn, flags), pool
+
+
+def _paged_verify_logits(cfg: ModelConfig, params, pools, tokens, pos, table,
+                         active, *, page_size: int,
+                         flags: RunFlags = DEFAULT_FLAGS):
+    """tokens (B, Q) at positions pos (B, Q) -> (logits (B*Q, Vp) fp32,
+    pools), every candidate's KV written."""
+    B, Q = tokens.shape
+    x = emb.embed_tokens(cfg, params["embed"], tokens.reshape(-1))
+    ffn = _ffn_kind(cfg, cfg.n_layers - 1)
+    valid = L.paged_valid_mask(table, pos, page_size=page_size)
+    for i in range(cfg.n_layers):
+        x, _ = block_verify_paged(
+            cfg, layer_params(params["blocks"], i), x, _layer_pool(pools, i),
+            pos, table, active, B=B, Q=Q, page_size=page_size, ffn=ffn,
+            flags=flags, valid=valid)
+    x = L.apply_norm(cfg, params["final_norm"], x)
+    return emb.serve_logits(cfg, params["embed"], x), pools
+
+
+def paged_verify_step(cfg: ModelConfig, params, pools, tokens, pos0, table,
+                      active, draft_probs, sample, *, page_size: int,
+                      flags: RunFlags = DEFAULT_FLAGS):
+    """Score k+1 candidate positions per slot and accept or reject the
+    drafts.  tokens (B, K+1): column 0 the pending token, 1..K the
+    drafts; pos0 (B,) the pending token's position; draft_probs (B, K,
+    Vp) the distributions the drafts were drawn from; sample the (B,)
+    (seeds, temperature, top_p, top_k).  Returns (n_acc (B,) int32
+    accepted drafts in [0, K], out (B, K+1) int32 — out[:, :n_acc] the
+    accepted drafts, out[:, n_acc] the residual or bonus token, zeros
+    after — and the pools, with the target KV of all K+1 positions
+    written; the host commits n_acc+1 tokens and trims the page tail)."""
+    B, K1 = tokens.shape
+    K = K1 - 1
+    dev = tokens.device
+    seeds, temp, top_p, top_k = sample
+    pos = pos0[:, None] + torch.arange(K1, device=dev)[None, :]  # (B, K1)
+    logits, pools = _paged_verify_logits(cfg, params, pools, tokens, pos,
+                                         table, active, page_size=page_size,
+                                         flags=flags)        # (B*K1, Vp)
+
+    rep = lambda a: torch.repeat_interleave(a, K1, dim=0)
+    greedy, probs = emb.sampled_probs(cfg, logits, rep(temp), rep(top_p),
+                                      rep(top_k))
+    vp = probs.shape[-1]
+    greedy = greedy.reshape(B, K1)
+    probs = probs.reshape(B, K1, vp)
+
+    # accept while u * q(d) < p(d): sequential through a cumprod
+    d = tokens[:, 1:].long()                                 # (B, K)
+    p_d = torch.gather(probs[:, :K], 2, d[..., None])[..., 0]
+    q_d = torch.gather(draft_probs, 2, d[..., None])[..., 0]
+    ukeys = emb.sample_keys(rep(seeds).reshape(B, K1)[:, :K].reshape(-1),
+                            pos[:, :K].reshape(-1), emb.STREAM_ACCEPT)
+    u = prng.uniform(ukeys).reshape(B, K)
+    acc = (u * q_d < p_d) & active[:, None]
+    n_acc = torch.cumprod(acc.to(torch.int32), dim=1).sum(dim=1)  # (B,)
+
+    # the residual (or bonus) draw at position n_acc
+    sel = n_acc.long()[:, None, None].expand(B, 1, vp)
+    p_sel = torch.gather(probs, 1, sel)[:, 0]                # (B, Vp)
+    q_pad = torch.cat([draft_probs, draft_probs.new_zeros((B, 1, vp))], 1)
+    q_sel = torch.gather(q_pad, 1, sel)[:, 0]
+    res = torch.clamp_min(p_sel - q_sel, 0.0)
+    res = torch.where(res.sum(dim=-1, keepdim=True) > 0, res, p_sel)
+    rkeys = emb.sample_keys(seeds, pos0 + n_acc, emb.STREAM_RESID)
+    cat = prng.categorical(rkeys, torch.log(res)).to(torch.int32)
+    g_sel = torch.gather(greedy, 1, n_acc.long()[:, None])[:, 0]
+    extra = torch.where(temp <= 0.0, g_sel, cat)
+
+    j = torch.arange(K1, device=dev)[None, :]
+    d_pad = torch.cat([tokens[:, 1:], tokens.new_zeros((B, 1))], 1)
+    na = n_acc[:, None]
+    out = torch.where(j < na, d_pad,
+                      torch.where(j == na, extra[:, None], 0))
+    return n_acc.to(torch.int32), out.to(torch.int32), pools
 
 
 def block_prefill_paged(cfg, params, x, pool, base, n_valid, table_row, *,
@@ -477,12 +635,25 @@ def _paged_prefill_logits(cfg: ModelConfig, params, pools, tokens, base,
 
 def paged_prefill_chunk(cfg: ModelConfig, params, pools, tokens, base,
                         n_valid, table_row, *, page_size: int,
-                        flags: RunFlags = DEFAULT_FLAGS):
+                        flags: RunFlags = DEFAULT_FLAGS, sample=None):
     """Prefill one chunk of one request's prompt into its pages.  tokens
     (C,) (tail past n_valid is padding); base (int) tokens already
     written; table_row (n_lp,).  Returns (next token, a 0-d int32 tensor
-    meaningful on the request's final chunk, and the pools)."""
+    meaningful on the request's final chunk, and the pools).  `sample=
+    (seed, temperature, top_p, top_k)` scalars draw that token at
+    position base + n_valid - 1 under the shared key schedule (bit for
+    bit greedy at temperature <= 0)."""
     logits, pools = _paged_prefill_logits(cfg, params, pools, tokens, base,
                                           n_valid, table_row,
                                           page_size=page_size, flags=flags)
-    return emb.sharded_argmax(logits)[0].to(torch.int32), pools
+    if sample is None:
+        return emb.sharded_argmax(logits)[0].to(torch.int32), pools
+    seed, temp, top_p, top_k = sample
+    dev = logits.device
+    nxt, _ = emb.sharded_sample(
+        cfg, logits, seeds=_one(seed, torch.int64, dev),
+        pos=_one(base + n_valid - 1, torch.int64, dev),
+        temperature=_one(temp, torch.float32, dev),
+        top_p=_one(top_p, torch.float32, dev),
+        top_k=_one(top_k, torch.int64, dev), stream=emb.STREAM_SAMPLE)
+    return nxt[0], pools

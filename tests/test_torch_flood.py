@@ -132,9 +132,12 @@ def test_offline_launcher_on_cpu():
                          "--requests", "4", "--max-new", "3",
                          "--microbatch", "2"])
     assert stats.tokens_out == 4 * 3
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        tserve.main(["--arch", "rwkv6-3b", "--smoke", "--device", "cpu",
-                     "--temperature", "0.7"])
+    # sampled offline serving (queue 1 item 5) runs
+    hot = tserve.main(["--arch", "rwkv6-3b", "--smoke", "--device", "cpu",
+                       "--requests", "4", "--max-new", "3",
+                       "--microbatch", "2", "--temperature", "0.7",
+                       "--top-p", "0.9", "--top-k", "16", "--seed", "5"])
+    assert hot.tokens_out == 4 * 3
     with pytest.raises(NotImplementedError, match="queue 1 item 8"):
         tserve.main(["--arch", "ling-lite", "--smoke", "--device", "cpu"])
 

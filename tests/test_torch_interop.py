@@ -91,7 +91,7 @@ def test_full_size_init_shapes_match_reference_specs():
     assert all(t.device.type == "meta" for _, t in _leaves(port))
 
 
-@pytest.mark.parametrize("arch", ["ling-lite", "rwkv6-3b"])
+@pytest.mark.parametrize("arch", ["ling-lite", "rwkv6-3b", "h2o-danube-1.8b"])
 def test_config_copies_match_reference(arch):
     for get in ("get_config", "get_smoke_config"):
         ours = dataclasses.asdict(getattr(tbase, get)(arch))

@@ -329,16 +329,27 @@ def test_poisson_load_and_cli_on_cpu(smoke, capsys):
 
 
 def test_unported_knobs_raise(smoke):
+    """SLO shedding (queue 1 item 7) still raises; the sampling,
+    speculation and policy knobs of items 5 and 6 now serve."""
     tc, params = smoke
-    for kw in (dict(temperature=0.7), dict(spec_k=2),
-               dict(policy="decode-priority"), dict(max_queue=2)):
-        with pytest.raises(NotImplementedError, match="slice"):
+    for kw in (dict(slo=object()), dict(overload="slo")):
+        with pytest.raises(NotImplementedError, match="item 7"):
             OnlineConfig(max_slots=2, max_context=32, **kw)
-    eng = OnlineEngine(tapi.Runner(tc, device="cpu"), params,
-                       OnlineConfig(**GEO))
-    with pytest.raises(NotImplementedError, match="sampling"):
-        eng.submit(OnlineRequest(rid=0, prompt=np.ones(3, np.int32),
-                                 max_new=2, temperature=1.0))
+    runner = tapi.Runner(tc, device="cpu")
+    for kw in (dict(temperature=0.7), dict(policy="decode-priority"),
+               dict(max_queue=2), dict(tenant_budgets={"a": 64})):
+        eng = OnlineEngine(runner, params, OnlineConfig(**dict(GEO, **kw)))
+        assert eng.submit(OnlineRequest(rid=0, prompt=np.ones(3, np.int32),
+                                        max_new=2, tenant="a"))
+        eng.run(max_ticks=50)
+        assert len(eng.reqs[0].out) == 2
+    with pytest.raises(ValueError, match="drafter"):
+        OnlineEngine(runner, params, OnlineConfig(**dict(GEO, spec_k=2)))
+    eng = OnlineEngine(runner, params, OnlineConfig(**GEO))
+    eng.submit(OnlineRequest(rid=0, prompt=np.ones(3, np.int32), max_new=2,
+                             temperature=1.0, seed=3))
+    eng.run(max_ticks=50)
+    assert all(0 <= t < tc.vocab_size for t in eng.reqs[0].out)
 
 
 def test_cuda_entry_points_need_a_card():
