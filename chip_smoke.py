@@ -93,6 +93,21 @@ Phases, each failing loudly (non-zero exit, no result line):
      torch.cuda.set_sync_debug_mode("error"); finite losses, a reported
      commit, the launch counts per step (K1 2*L*accum, K2 6*L*accum,
      the weight gradient 3*L*accum) and peak memory under 80 GB;
+  8b. checkpoint and exact resume: Ling-Lite at full width cut to 1
+     layer (1.09 B parameters; a 13.09 GB checkpoint of fp32 params and
+     moments), the batch-size warmup (microbatch 2, 2 -> 8 sequences
+     over 4 steps: accum 1, 1, 2, 2, 4, 4) and the router warmup active
+     (threefry noise every step), debug guards on; run A trains 6 steps
+     checkpointing at 3 and 6 into a temporary directory (removed after;
+     the phase fails, naming the bytes, if the disk lacks them) and is
+     freed; a fresh Trainer B restores "latest" (step_6, equal to A's
+     final state bit for bit), then step_3 (the accum stage carried) and
+     trains to 6: its losses, grad norms, params, moments and guard state
+     must be A's bit for bit, and the launches per step phase 8's
+     formula at each step's accum.  If B parts from A, two uninterrupted
+     runs are compared to tell the step from the resume.  Prints the
+     saves' fetch and write seconds and GB/s, the restores' seconds and
+     GB/s, the warmup noise's ms per step and the step times;
   9. the `kernels` JSON line, the card line, and the result line.
 """
 from __future__ import annotations
@@ -1316,11 +1331,7 @@ def train(card):
               f"skipped={r['skipped']} max_expert_frac="
               f"{r['router/max_expert_frac']:.3f}")
     per_step = {n: v / steps for n, v in launches.items()}
-    want = {"fused_moe_ffn": 2 * cfg.n_layers * accum,
-            "grouped_matmul_aligned": 6 * cfg.n_layers * accum,
-            "grouped_matmul_wgrad": 3 * cfg.n_layers * accum,
-            "paged_attn_scores_max": 0, "paged_attn_accumulate": 0,
-            "normhead_matmul": 0, "wkv6": 0, "rwkv_decay": 0}
+    want = step_launches(cfg, [accum])
     tok_s = B * S * accum / step_s
     print(f"[train] step times {[round(t, 3) for t in times]}s; median of "
           f"the last 2 {step_s:.3f}s (device time {dev_ms:.1f}ms); "
@@ -1340,6 +1351,199 @@ def train(card):
     if not peak < 80e9:
         fail(f"training peak memory {peak / 1e9:.2f} GB >= 80 GB")
     return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 8b: checkpoint and exact resume mid-warmup
+# ---------------------------------------------------------------------------
+
+
+def step_launches(cfg, accums) -> dict:
+    """Phase 8's launches per step, summed over steps at these accums."""
+    n = sum(accums) * cfg.n_layers
+    return {"fused_moe_ffn": 2 * n, "grouped_matmul_aligned": 6 * n,
+            "grouped_matmul_wgrad": 3 * n, "paged_attn_scores_max": 0,
+            "paged_attn_accumulate": 0, "normhead_matmul": 0, "wkv6": 0,
+            "rwkv_decay": 0}
+
+
+def train_resume(card):
+    """Run A trains Ling-Lite (full width, 1 layer) 6 steps through the
+    batch-size warmup with the router warmup active, checkpointing at 3
+    and 6; a fresh Trainer B restores step_3 and trains to 6.  B's losses,
+    params, moments and guard state must be A's bit for bit."""
+    import dataclasses
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch import api
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.pipeline import DataPipeline, PipelineConfig
+    from repro_torch.kernels import build
+    from repro_torch.models import model as M
+    from repro_torch.models import prng
+    from repro_torch.optim import adamw
+    from repro_torch.optim.schedule import AccumWarmup
+    from repro_torch.training.trainer import TrainConfig, Trainer
+    cfg = dataclasses.replace(get_config("ling-lite"), n_layers=1)
+    B, S, steps, every = 2, 1024, 6, 3
+    bw = AccumWarmup(microbatch=B, start=2, end=8, warmup_steps=4,
+                     increments=2)
+    accums = [bw.accum_for(i) for i in range(steps)]
+    n_par = sum(t.numel() for t in adamw.leaves(
+        M.init_model(cfg, device="meta", masters=True)))
+    ck_bytes = 12 * n_par                 # fp32 params and two moments
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_ckpt_"))
+
+    def make(ckpt_dir=True, every_=0):
+        return Trainer(
+            api.Runner(cfg, device="cuda"),
+            DataPipeline(PipelineConfig(vocab_size=cfg.vocab_size,
+                                        seq_len=S, batch_size=B, seed=0)),
+            TrainConfig(n_steps=steps, bs_warmup=bw, log_every=1, seed=0,
+                        debug_guards=True,
+                        checkpoint_dir=str(root) if ckpt_dir else None,
+                        checkpoint_every=every_))
+
+    def run(trainer, saves=None):
+        """Step by step to `steps`; host-clock seconds per step (each
+        ends synchronized; a checkpoint step includes its save's fetch)."""
+        times = []
+        for k in range(trainer.step + 1, steps + 1):
+            t0 = time.perf_counter()
+            trainer.train(k)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            if saves is not None and k % every == 0:
+                saves.append(trainer.pcache.last_save)
+        return times
+
+    def state(trainer):
+        return (adamw.leaves(trainer.params)
+                + adamw.leaves(trainer.opt_state)
+                + adamw.leaves(trainer.guard_state))
+
+    def ndiff(xs, ys) -> int:
+        return sum(int((x.view(torch.int32) != y.view(torch.int32)).sum())
+                   for x, y in zip(xs, ys))
+
+    try:
+        free = shutil.disk_usage(root).free
+        need = 2 * ck_bytes + (1 << 30)
+        print(f"[resume] ling-lite d={cfg.d_model} layers=1 (of 28): "
+              f"{n_par / 1e9:.3f}B params, a checkpoint of "
+              f"{ck_bytes / 1e9:.2f}GB (fp32 params, m, v); {root} has "
+              f"{free / 1e9:.1f}GB free; seq={S} microbatch={B} accum "
+              f"{accums} router_warmup_steps={cfg.moe.router_warmup_steps}")
+        if free < need:
+            fail(f"phase 8b: {root} has {free / 1e9:.2f} GB free; two "
+                 f"checkpoints need {need / 1e9:.2f} GB")
+        # the warmup noise: the step's key schedule and draws alone
+        key = prng.prng_key(0, "cuda")
+        T = B * S
+
+        def draws(accum):
+            rng = prng.fold_in(prng.fold_in(key, 1), 0)
+            for k in range(accum):
+                M.warmup_noise(cfg, prng.fold_in(rng, k) if accum > 1
+                               else rng, 1, T)
+        noise_ms = {a: cuda_ms(lambda: draws(a), iters=10)
+                    for a in sorted(set(accums))}
+
+        # run A: 6 steps, checkpoints at 3 and 6
+        a = make(every_=every)
+        saves = []
+        build.reset_launches()
+        try:
+            times_a = run(a, saves)
+        finally:
+            a.close()                     # waits for the writers
+        launches_a = dict(build.LAUNCHES)
+        hist_a = [(r["loss"], r["grad_norm"]) for r in a.history]
+        final_a = [t.detach().clone() for t in state(a)]
+        del a
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # run B: a fresh Trainer restores "latest", then step_3
+        b = make()
+        t0 = time.perf_counter()
+        latest = b.restore("latest")
+        torch.cuda.synchronize()
+        latest_s = time.perf_counter() - t0
+        n_latest = ndiff(final_a, state(b))
+        t0 = time.perf_counter()
+        b.restore(f"step_{every}")
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        load_s = b.pcache.last_load["seconds"]
+        stage = b._accum
+        build.reset_launches()
+        try:
+            times_b = run(b)
+        finally:
+            b.close()
+        launches_b = dict(build.LAUNCHES)
+        hist_b = [(r["loss"], r["grad_norm"]) for r in b.history]
+        n_diff = ndiff(final_a, state(b))
+        del b
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    for i, (k, (loss, gn)) in enumerate(zip(accums, hist_a)):
+        print(f"[resume] A step={i} accum={k} loss={loss:.6f} "
+              f"grad_norm={gn:.4f} {times_a[i]:.3f}s"
+              + (f" (with the step_{i + 1} save's fetch)"
+                 if (i + 1) % every == 0 else ""))
+    for i, (loss, gn) in enumerate(hist_b):
+        print(f"[resume] B step={every + i} loss={loss:.6f} "
+              f"grad_norm={gn:.4f} {times_b[i]:.3f}s")
+    for name, s in zip(("step_3", "step_6"), saves):
+        print(f"[resume] save {name}: {s['bytes'] / 1e9:.2f}GB fetch "
+              f"{s['fetch_s']:.2f}s ({s['bytes'] / s['fetch_s'] / 1e9:.2f}"
+              f"GB/s) write {s['write_s']:.2f}s "
+              f"({s['bytes'] / s['write_s'] / 1e9:.2f}GB/s, background)")
+    print(f"[resume] restore latest={latest}: {latest_s:.2f}s "
+          f"({ck_bytes / latest_s / 1e9:.2f}GB/s), {n_latest} elements "
+          f"apart from A's final state; restore step_{every}: "
+          f"{restore_s:.2f}s ({ck_bytes / restore_s / 1e9:.2f}GB/s; the "
+          f"load from disk to the card {load_s:.2f}s); stage carried "
+          f"{stage}")
+    print(f"[resume] warmup noise (keys and draws, {cfg.n_layers} layer(s) "
+          f"of ({T}, {cfg.moe.n_experts})) per step: " + ", ".join(f"accum {k} {v:.3f}ms"
+                                   for k, v in noise_ms.items())
+          + f"; B's launches {launches_b}; [{card}]")
+    failed = []
+    if latest != f"step_{steps}" or n_latest:
+        failed.append(f"restore('latest') gave {latest} with {n_latest} "
+                      f"elements apart from A's final state")
+    if stage != bw.accum_for(every):
+        failed.append(f"accum stage {stage} != {bw.accum_for(every)}")
+    if launches_a != step_launches(cfg, accums) or \
+            launches_b != step_launches(cfg, accums[every:]):
+        failed.append(f"launches A {launches_a} B {launches_b}, expected "
+                      f"{step_launches(cfg, accums)} and "
+                      f"{step_launches(cfg, accums[every:])}")
+    if hist_b != hist_a[every:] or n_diff:
+        failed.append(f"B parts from A: losses {hist_b} vs "
+                      f"{hist_a[every:]}, {n_diff} state elements")
+        # tell the step apart from the resume: two uninterrupted runs
+        runs = []
+        for _ in range(2):
+            c = make(ckpt_dir=False)
+            try:
+                run(c)
+            finally:
+                c.close()
+            runs.append([t.detach().clone() for t in state(c)])
+            del c
+        print(f"[resume] two uninterrupted runs differ in "
+              f"{ndiff(*runs)} state elements")
+    if failed:
+        fail("phase 8b: " + "; ".join(failed))
+    return {"a": launches_a, "b": launches_b}
 
 
 def end_to_end(cfg, params, gen):
@@ -1495,6 +1699,11 @@ def main():
 
     # -- 8. training --------------------------------------------------------
     train_launches = train(card)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 8b. checkpoint and exact resume ---------------------------------------
+    resume_launches = train_resume(card)
 
     # -- 9. results ---------------------------------------------------------
     # (source, TPU kernel it replaces, the row's shape, the path whose
@@ -1526,7 +1735,9 @@ def main():
                            "src/repro/models/rwkv6.py:112", "prefill",
                            "rwkv_serve")}
     launches = {"serve": serve_launches, "spec": spec_launches,
-                "rwkv_serve": rwkv_launches, "train": train_launches}
+                "rwkv_serve": rwkv_launches, "train": train_launches,
+                "resume_a": resume_launches["a"],
+                "resume_b": resume_launches["b"]}
     rows = []
     for name, shapes in results.items():
         src_path, replaces, main_shape, path = meta[name]

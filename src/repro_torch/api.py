@@ -24,6 +24,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core import spikes as spikes_lib
 from repro_torch.models import layers as L
 from repro_torch.models import model as M
+from repro_torch.models import prng
 from repro_torch.optim import adamw
 
 
@@ -64,7 +65,7 @@ class Runner:
                         *,
                         spike_guard: Optional[spikes_lib.SpikeConfig] = None):
         """The train step ``(params, opt_state, guard_state, batch, step,
-        seed, lr) -> (params, opt_state, guard_state, metrics)``.
+        rng, lr) -> (params, opt_state, guard_state, metrics)``.
 
         params are fp32 masters (`init_train_params`); batch leaves are
         (B, S) token ids for one microbatch, or (accum, B, S) for accum
@@ -74,13 +75,16 @@ class Runner:
         `spike_guard` is given (``metrics["commit"]`` is then 1.0 or 0.0)
         and applies AdamW in place with the commit gate; params,
         opt_state and guard_state are updated in place and returned.
-        Microbatch k's router-warmup noise is seeded from
-        ``noise_seed(seed, step, k)``.  Metrics stay on the device;
-        nothing in the step reads a device value on the host."""
+        `rng` is the step's threefry key (`models.prng`; the Trainer
+        passes ``fold_in(prng_key(seed), step)``) and the router-warmup
+        noise follows the reference's key schedule: the step folds in the
+        dp index (0 at tp=1), then, only when accum > 1, microbatch k's
+        index.  Metrics stay on the device; nothing in the step reads a
+        device value on the host."""
         cfg, flags = self.cfg, self.flags
 
         def step_fn(params, opt_state, guard_state, batch, step: int,
-                    seed: int, lr: float):
+                    rng: torch.Tensor, lr: float):
             leaves = adamw.leaves(params)
             for p in leaves:
                 p.requires_grad_(True)
@@ -90,11 +94,12 @@ class Runner:
             micro = ([batch] if accum == 1 else
                      [{k: v[i] for k, v in batch.items()}
                       for i in range(accum)])
+            rng = prng.fold_in(rng, 0)          # the dp index
             losses, mets = [], []
             for k, mb in enumerate(micro):
-                loss, m = M.loss_fn(cfg, params, mb, step=step,
-                                    seed=M.noise_seed(seed, step, k),
-                                    flags=flags)
+                loss, m = M.loss_fn(
+                    cfg, params, mb, step=step, flags=flags,
+                    rng=prng.fold_in(rng, k) if accum > 1 else rng)
                 loss.backward()      # sums into p.grad, in fp32
                 losses.append(loss.detach())
                 mets.append({n: v.detach() for n, v in m.items()})

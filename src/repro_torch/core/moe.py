@@ -122,7 +122,12 @@ class FusedFFN(torch.autograd.Function):
     w3 share one dtype).  The grad of x follows the reference's vjp of
     `take(x, tok).astype(f32)`:
     each gathered row's grad is cast to x's dtype, then the rows are
-    scatter-added in that dtype."""
+    scatter-added in that dtype.  The scatter is `index_put_` with
+    accumulate: on the CPU it adds each token's rows in slot order,
+    rounding after each add; on a card it sorts the rows by token first,
+    so every run gives the same bits (`index_add_` adds by atomics in no
+    fixed order there, and a resumed run would part from the unbroken
+    one)."""
 
     @staticmethod
     def forward(ctx, act, x, w1, w2, w3, tok, gate, group_sizes):
@@ -137,7 +142,8 @@ class FusedFFN(torch.autograd.Function):
         dxs, dw1, dw2, dw3, dgate = fused_ffn_backward(
             ctx.act, x, w1, w2, w3, tok, gate, group_sizes, g,
             w_dtype=w1.dtype)
-        dx = torch.zeros_like(x).index_add_(0, tok, dxs.to(x.dtype))
+        dx = torch.zeros_like(x).index_put_((tok,), dxs.to(x.dtype),
+                                            accumulate=True)
         return (None, dx, dw1, dw2, dw3, None, dgate.to(gate.dtype), None)
 
 

@@ -5,10 +5,10 @@ Eq. (1); for training also the Switch balance loss, the router z-loss
 
 The warmup is split in two: `stochastic_warmup_logits` is the pure mix of
 the learned logits with synthesized ones, given the noise `eps`, and
-`warmup_noise` draws `eps` from an explicit `torch.Generator`.  The
-reference draws it from a threefry key, so a seeded run of the port
-routes differently from the reference while the warmup is active, and
-identically once alpha reaches 1.
+`warmup_noise` draws `eps` from a threefry key as the reference's
+`jax.random.normal` does (`models.prng.normal`: JAX's keys and uniforms
+bit for bit, its `erf_inv` within a few ulps), so a seeded run routes as
+the reference's does except at near-exact ties of the noised logits.
 """
 from __future__ import annotations
 
@@ -17,17 +17,19 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from repro_torch.models import prng
+
 
 def init_router(cfg, init) -> Dict[str, torch.Tensor]:
     return {"wr": init.normal((cfg.d_model, cfg.moe.n_experts),
                               getattr(torch, cfg.param_dtype))}
 
 
-def warmup_noise(shape, generator: torch.Generator,
-                 device) -> torch.Tensor:
-    """eps ~ N(0, 1) fp32 for `stochastic_warmup_logits`."""
-    return torch.randn(shape, generator=generator, dtype=torch.float32,
-                       device=device)
+def warmup_noise(keys: torch.Tensor, shape) -> torch.Tensor:
+    """eps ~ N(0, 1) fp32 for `stochastic_warmup_logits`: keys (..., 2)
+    threefry keys -> (..., *shape), one draw per key, on the keys'
+    device."""
+    return prng.normal(keys, shape)
 
 
 def stochastic_warmup_logits(logits: torch.Tensor, step: int,

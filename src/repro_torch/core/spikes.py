@@ -8,15 +8,20 @@ Two cooperating halves:
     flag, so the commit-or-discard of §3.4.4 is a `torch.where` on the
     device — nothing is read on the host per step;
   * the **host-side `SpikeDetector`** keeps the policy: narrow/wide
-    classification and the LR-halving window, fed from drained metrics
-    via `ingest` (the spiking batch itself goes to the data pipeline's
-    retry lane, as the reference's trainer sends it).
+    classification, the retry queue and the LR-halving window.  The
+    trainer feeds it from drained metrics via `ingest` (the spiking batch
+    itself goes to the data pipeline's retry lane, as the reference's
+    trainer sends it); the per-step `observe` entry point, which decides
+    the skip itself, remains for synchronous callers.  Its state goes
+    into checkpoints (`state_dict` / `load_state_dict`).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Optional
+from collections import deque
+from typing import Any, Deque, Dict, List, Optional
 
+import numpy as np
 import torch
 
 
@@ -114,11 +119,13 @@ class SpikeEvent:
     step: int
     loss: float
     kind: str                        # "narrow" | "wide"
-    action: str                      # "skip+retry" | "skip+lr"
+    action: str                      # "skip" | "skip+retry" | "skip+lr"
 
 
 class SpikeDetector:
-    """Host-side spike policy over drained (step, loss, skipped)."""
+    # `lr_reduced_until` is part of the public contract: the trainer reads
+    # it (via `lr_scale_for`) before the first observe/ingest call, so it
+    # must exist — explicitly initialized — from construction.
     lr_reduced_until: int
 
     def __init__(self, cfg: SpikeConfig = SpikeConfig()):
@@ -129,13 +136,17 @@ class SpikeDetector:
         self.consecutive = 0
         self.lr_reduced_until = -1
         self.events: List[SpikeEvent] = []
+        self.retry_queue: Deque[Any] = deque()
 
+    # -- LR policy ------------------------------------------------------------
     def lr_scale_for(self, step: int) -> float:
-        """`lr_reduce_factor` inside the window a wide spike opened, else
-        1.0.  Safe to call before any observation."""
+        """LR multiplier for `step`: `lr_reduce_factor` while inside the
+        reduction window opened by a wide spike, 1.0 otherwise.  Safe to
+        call before any observation (the window starts closed)."""
         return (self.cfg.lr_reduce_factor
                 if step <= self.lr_reduced_until else 1.0)
 
+    # -- statistics -----------------------------------------------------------
     def _update_stats(self, loss: float):
         d = self.cfg.ema_decay
         if self.mean is None:
@@ -145,9 +156,18 @@ class SpikeDetector:
             self.mean += (1 - d) * delta
             self.var = d * self.var + (1 - d) * delta * delta
 
-    def _record(self, step: int, loss: float,
-                skipped: bool) -> Dict[str, Any]:
-        """Narrow/wide classification and the LR window."""
+    def is_spike(self, loss: float) -> bool:
+        if self.mean is None or self.n < self.cfg.warmup_steps:
+            return False
+        std = max(np.sqrt(self.var), 1e-3)
+        return (loss > self.mean + self.cfg.sigma_threshold * std
+                or loss - self.mean > self.cfg.abs_threshold)
+
+    # -- shared policy block ----------------------------------------------------
+    def _record(self, step: int, loss: float, skipped: bool,
+                batch: Any = None) -> Dict[str, Any]:
+        """Narrow/wide classification, sample-retry queueing, LR-halving
+        window, event log — everything downstream of the skip decision."""
         if not skipped:
             self.consecutive = 0
             self._update_stats(loss)
@@ -155,16 +175,65 @@ class SpikeDetector:
         self.consecutive += 1
         wide = self.consecutive >= self.cfg.wide_after
         action = "skip+retry"
+        if batch is not None:
+            self.retry_queue.append(batch)      # re-inject later (§3.4.4)
         if wide:
+            # persistent spike: also reduce LR for a window of steps
             self.lr_reduced_until = step + self.cfg.lr_reduce_steps
             action = "skip+lr"
         self.events.append(SpikeEvent(step, loss, "wide" if wide else
                                       "narrow", action))
+        # spiking losses do NOT update the running stats
         return {"skip": True, "kind": "wide" if wide else "narrow"}
 
-    def ingest(self, step: int, loss: float,
-               skipped: bool) -> Dict[str, Any]:
-        """Record one drained step whose commit/discard already happened on
-        the device (`guard_commit`)."""
+    # -- synchronous entry: detector decides the skip itself ------------------
+    def observe(self, step: int, loss: float, batch: Any = None
+                ) -> Dict[str, Any]:
+        """Returns {'skip': bool, 'lr_scale': float, 'kind': str|None}."""
         self.n += 1
-        return self._record(step, loss, skipped)
+        spike = self.is_spike(loss)
+        out = self._record(step, loss, spike, batch)
+        return {**out, "lr_scale": self.lr_scale_for(step)}
+
+    # -- async entry: the skip decision was already made on device -----------
+    def ingest(self, step: int, loss: float, skipped: bool,
+               batch: Any = None) -> Dict[str, Any]:
+        """Record one drained step whose commit/discard already happened on
+        device (`guard_commit`).  Mirrors `observe` minus the skip
+        decision itself."""
+        self.n += 1
+        return self._record(step, loss, skipped, batch)
+
+    def pop_retry(self) -> Optional[Any]:
+        """Pull a saved batch for random re-injection."""
+        if self.retry_queue:
+            return self.retry_queue.popleft()
+        return None
+
+    # -- checkpoint resume ----------------------------------------------------
+    def state_dict(self) -> Dict[str, Any]:
+        return {"mean": self.mean, "var": self.var, "n": self.n,
+                "consecutive": self.consecutive,
+                "lr_reduced_until": self.lr_reduced_until,
+                "events": list(self.events),
+                "retry_queue": list(self.retry_queue)}
+
+    def load_state_dict(self, s: Dict[str, Any]):
+        self.mean = s["mean"]
+        self.var = s["var"]
+        self.n = s["n"]
+        self.consecutive = s["consecutive"]
+        self.lr_reduced_until = s["lr_reduced_until"]
+        self.events = list(s["events"])
+        self.retry_queue = deque(s["retry_queue"])
+
+
+def inject_synthetic_spikes(losses: np.ndarray, steps: List[int],
+                            magnitude: float = 3.0) -> np.ndarray:
+    """Test/benchmark helper: overlay spikes on a loss curve."""
+    out = losses.copy()
+    for s in steps:
+        for j, decay in enumerate([1.0, 0.6, 0.3]):
+            if s + j < len(out):
+                out[s + j] += magnitude * decay
+    return out

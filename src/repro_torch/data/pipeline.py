@@ -14,17 +14,18 @@ batches as the reference's).
     warmup stage changed in between.
 
 Each synthetic domain is a distinct Zipfian token distribution with
-domain-specific n-gram structure.  The reference's live mixture
-adjustment and its checkpoint state (`set_mixture`, `state_dict`) are
-not yet ported: nothing in the port calls them.
+domain-specific n-gram structure.  `set_mixture` adjusts the mixture
+live; `state_dict` / `load_state_dict` and the `Prefetcher`'s `preload`
+and `paused` let a checkpoint continue the stream exactly.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import hashlib
 import threading
 from collections import deque
-from typing import Callable, Deque, Dict, List, Optional, \
+from typing import Any, Callable, Deque, Dict, Iterator, List, Optional, \
     Sequence, Tuple
 
 import numpy as np
@@ -127,6 +128,13 @@ class DataPipeline:
         self.retry_queue: Deque[Tuple[int, Dict[str, np.ndarray]]] = deque()
         self.stats = {"docs": 0, "dedup_dropped": 0, "retry_injected": 0}
         self._lock = threading.RLock()
+
+    def set_mixture(self, weights: Dict[str, float]):
+        """Adjust the data mixture live (§3.4.1 'adjustments to the mix')."""
+        with self._lock:
+            w = np.array([weights.get(d.spec.name, d.spec.weight)
+                          * d.spec.quality for d in self.domains])
+            self.probs = w / w.sum()
 
     def _fill(self, n_tokens: int):
         parts = [self.buffer]
@@ -237,6 +245,38 @@ class DataPipeline:
                 micros.append(self._fresh_batch())
             return self._stack_micro(micros)
 
+    # -- checkpoint resume (exact stream continuation) ----------------------
+    def state_dict(self) -> Dict[str, Any]:
+        with self._lock:
+            return {
+                "rng": self.rng.get_state(),
+                "buffer": self.buffer.copy(),
+                "retry_queue": list(self.retry_queue),
+                "stats": dict(self.stats),
+                "dedup_seen": (set(self.dedup.seen) if self.dedup else None),
+                "dedup_dropped": (self.dedup.dropped if self.dedup else 0),
+                "domain_rngs": [d.rng.get_state() for d in self.domains],
+                "probs": self.probs.copy(),
+            }
+
+    def load_state_dict(self, s: Dict[str, Any]):
+        with self._lock:
+            self.rng.set_state(s["rng"])
+            self.buffer = s["buffer"].copy()
+            self.retry_queue = deque(s["retry_queue"])
+            self.stats = dict(s["stats"])
+            if self.dedup is not None and s["dedup_seen"] is not None:
+                self.dedup.seen = set(s["dedup_seen"])
+                self.dedup.dropped = s["dedup_dropped"]
+            for d, st in zip(self.domains, s["domain_rngs"]):
+                d.rng.set_state(st)
+            self.probs = s["probs"].copy()
+
+    def batches(self, n: int, bs_schedule=None) -> Iterator[Dict]:
+        for i in range(n):
+            bs = bs_schedule(i) if bs_schedule else None
+            yield self.next_batch(bs)
+
 class Prefetcher:
     """Background-thread batch prefetch: host packing for step i+1..i+depth
     runs while the device executes step i (jax dispatch is async, so the
@@ -286,6 +326,15 @@ class Prefetcher:
             b = self._q.popleft()
         self._space.release()
         return b
+
+    @contextlib.contextmanager
+    def paused(self):
+        """Context manager quiescing the producer; yields the queued
+        (prefetched but unconsumed) batches.  Call the pipeline's
+        `state_dict()` inside the block so checkpointed pipeline state and
+        pending batches are mutually consistent."""
+        with self.lock:
+            yield list(self._q)
 
     def stop(self):
         """Blocks until the producer thread has fully exited — callers

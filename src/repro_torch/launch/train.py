@@ -9,12 +9,19 @@
     PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \
         --steps 4
 
+    # checkpoint every 2 steps, then resume from the newest checkpoint
+    PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \
+        --steps 4 --checkpoint-dir /tmp/ck --checkpoint-every 2
+    PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \
+        --steps 6 --checkpoint-dir /tmp/ck --checkpoint-every 2 --resume
+
 Builds a Runner at tp=1, the synthetic `DataPipeline`, and the `Trainer`
 (AdamW + WSD schedule + accumulation or batch-size warmup + the device
-spike guard), trains from fp32 masters drawn from
-`torch.Generator(device).manual_seed(0)`, and prints the XPUTimer span
-summary.  The reference's multi-device, EDiT, checkpoint and trace flags
-are accepted and refused: those paths are not yet ported.
+spike guard, PCache checkpoints), trains from fp32 masters drawn from
+`torch.Generator(device).manual_seed(0)` or resumes from the newest
+checkpoint, and prints the XPUTimer span summary.  The reference's
+multi-device, EDiT and trace flags are accepted and refused: those paths
+are not yet ported.
 """
 from __future__ import annotations
 
@@ -29,8 +36,7 @@ from repro_torch.models import model as M
 from repro_torch.optim.schedule import AccumWarmup, WSDSchedule
 from repro_torch.training.trainer import TrainConfig, Trainer
 
-NOT_PORTED = ("dp", "tp", "edit_workers", "checkpoint_dir",
-              "checkpoint_every", "resume", "trace_out")
+NOT_PORTED = ("dp", "tp", "edit_workers", "trace_out")
 
 
 def main(argv=None):
@@ -60,13 +66,15 @@ def main(argv=None):
     ap.add_argument("--report", default=None, help="write history JSON here")
     ap.add_argument("--device", default="cuda",
                     help="cuda (the kernels) or cpu (plain PyTorch)")
+    ap.add_argument("--checkpoint-dir", default=None)
+    ap.add_argument("--checkpoint-every", type=int, default=0)
+    ap.add_argument("--resume", action="store_true",
+                    help="resume from the newest checkpoint in "
+                         "--checkpoint-dir")
     # the reference's flags for paths that are not yet ported
     ap.add_argument("--dp", type=int, default=None)
     ap.add_argument("--tp", type=int, default=None)
     ap.add_argument("--edit-workers", type=int, default=None)
-    ap.add_argument("--checkpoint-dir", default=None)
-    ap.add_argument("--checkpoint-every", type=int, default=None)
-    ap.add_argument("--resume", action="store_true")
     ap.add_argument("--trace-out", default=None)
     args = ap.parse_args(argv)
 
@@ -74,7 +82,9 @@ def main(argv=None):
         v = getattr(args, name)
         if v and not (name in ("dp", "tp") and v == 1):
             ap.error(f"--{name.replace('_', '-')} is not yet ported to "
-                     f"repro_torch (tp=1, one device, no checkpoints)")
+                     f"repro_torch (tp=1, one device, no EDiT, no trace)")
+    if args.resume and not args.checkpoint_dir:
+        ap.error("--resume needs --checkpoint-dir")
     bs_warmup = None
     if args.bs_warmup:
         try:
@@ -96,9 +106,14 @@ def main(argv=None):
                                 total_steps=max(args.steps, 1)),
         spike=spikes_lib.SpikeConfig(
             gnorm_sigma_threshold=args.spike_gnorm_sigma),
-        accum_steps=args.accum, bs_warmup=bs_warmup)
+        accum_steps=args.accum, bs_warmup=bs_warmup,
+        checkpoint_dir=args.checkpoint_dir,
+        checkpoint_every=args.checkpoint_every)
     trainer = Trainer(runner, pipe, tcfg)
     try:
+        if args.resume:
+            name = trainer.restore("latest")
+            print(f"[train] resumed from {name} at step {trainer.step}")
         history = trainer.train()
     finally:
         trainer.close()

@@ -20,6 +20,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.nn.attention import SDPBackend, sdpa_kernel
 
 from repro_torch.kernels import grouped_matmul as _gm
 from repro_torch.kernels import ops as kops
@@ -192,10 +193,14 @@ def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     flash attention in pure JAX (not a Pallas kernel) with fp32 scores,
     fp32 probabilities and an fp32 PV product; here the same math is
     PyTorch's `scaled_dot_product_attention` on fp32 upcasts of the
-    operands, so the two differ by fp32 summation order."""
-    out = F.scaled_dot_product_attention(
-        q.float().transpose(1, 2), k.float().transpose(1, 2),
-        v.float().transpose(1, 2), is_causal=causal)
+    operands, so the two differ by fp32 summation order.  It runs on
+    SDPA's math backend: the backend PyTorch picks for fp32 on a card
+    (memory-efficient attention) sums dq by atomics in no fixed order, so
+    two runs of a step would differ and no resume could be exact."""
+    with sdpa_kernel(SDPBackend.MATH):
+        out = F.scaled_dot_product_attention(
+            q.float().transpose(1, 2), k.float().transpose(1, 2),
+            v.float().transpose(1, 2), is_causal=causal)
     return out.transpose(1, 2).to(q.dtype)
 
 

@@ -23,7 +23,6 @@ import dataclasses
 import functools
 from typing import Any, Dict, Optional
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
@@ -140,11 +139,20 @@ def choose_block(s: int, target: int = 1024) -> int:
     return max(b for b in range(1, target + 1) if s % b == 0)
 
 
-def noise_seed(seed: int, step: int, microbatch: int) -> int:
-    """The seed of one microbatch's router-warmup noise, a pure function
-    of (seed, step, microbatch)."""
-    return int(np.random.SeedSequence([seed, step, microbatch])
-               .generate_state(1)[0])
+def warmup_noise(cfg: ModelConfig, rng, step, T: int):
+    """Each layer's router-warmup noise for T tokens, as the reference
+    draws it: the layer keys are `split(rng, n_layers)` and layer i's eps
+    is `normal(keys[i], (T, n_experts))`, all layers in one draw: (L, T,
+    E) fp32.  None where no warmup mix applies (no rng, no MoE, no
+    warmup, or step past it, where alpha = 1 gives the learned logits
+    whatever eps is)."""
+    m = cfg.moe
+    if (rng is None or _ffn_kind(cfg, cfg.n_layers - 1) != "moe"
+            or m.router_warmup_steps <= 0 or step is None
+            or step >= m.router_warmup_steps):
+        return None
+    return router_lib.warmup_noise(prng.split(rng, cfg.n_layers),
+                                   (T, m.n_experts))
 
 
 def _rwkv_block(cfg: ModelConfig, params, x, *, B: int, S: int):
@@ -201,24 +209,20 @@ def _stack(trees):
 
 
 def _run_blocks(cfg: ModelConfig, params, x, *, B: int, S: int, step,
-                seed, train: bool, flags: RunFlags, want_cache: bool):
+                rng, train: bool, flags: RunFlags, want_cache: bool):
     """The layer loop.  In training with `flags.remat` every block runs
-    under torch.utils.checkpoint and is recomputed in the backward.  Each
-    layer's warmup noise is drawn here, outside the checkpointed block,
-    from one generator seeded with `seed`: a draw inside the block would
-    be drawn anew in the recompute and route differently from the
-    forward.  Returns (x, aux summed over layers, metrics averaged over
-    layers, caches stacked over layers or None)."""
+    under torch.utils.checkpoint and is recomputed in the backward.  The
+    warmup noise (`warmup_noise`) is drawn here, outside the checkpointed
+    blocks, so the recompute routes as the forward did.  Returns (x, aux
+    summed over layers, metrics averaged over layers, caches stacked over
+    layers or None)."""
     kind = cfg.block_pattern[0]
     ffn = _ffn_kind(cfg, cfg.n_layers - 1)
-    gen = None
-    if seed is not None and ffn == "moe" and cfg.moe.router_warmup_steps > 0:
-        gen = torch.Generator(device=x.device).manual_seed(seed)
+    noise = warmup_noise(cfg, rng, step, x.shape[0]) if train else None
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     metrics_all, caches = [], []
     for i in range(cfg.n_layers):
-        eps = (router_lib.warmup_noise((x.shape[0], cfg.moe.n_experts), gen,
-                                       x.device) if gen is not None else None)
+        eps = noise[i] if noise is not None else None
         fn = functools.partial(block_forward, cfg, B=B, S=S, kind=kind,
                                ffn=ffn, step=step, train=train, flags=flags,
                                want_cache=want_cache)
@@ -237,11 +241,12 @@ def _run_blocks(cfg: ModelConfig, params, x, *, B: int, S: int, step,
     return x, aux, metrics, (_stack(caches) if want_cache else None)
 
 
-def forward(cfg: ModelConfig, params, batch, *, step=None, seed=None,
+def forward(cfg: ModelConfig, params, batch, *, step=None, rng=None,
             train: bool = True, flags: RunFlags = DEFAULT_FLAGS,
             want_cache: bool = False):
     """batch["tokens"] (B, S) -> (x_final (T, d), aux, metrics, caches).
-    `seed` seeds the router-warmup noise (`noise_seed`); None draws none.
+    `rng`, a threefry key (`models.prng`), draws the router-warmup noise
+    (`warmup_noise`); None draws none.
     With `want_cache` (inference, rwkv blocks) caches is the stacked
     decode cache the prompt leaves behind (`init_caches`' layout), else
     None."""
@@ -249,7 +254,7 @@ def forward(cfg: ModelConfig, params, batch, *, step=None, seed=None,
     B, S = tokens.shape
     x = emb.embed_tokens(cfg, params["embed"], tokens.reshape(-1))
     x, aux, metrics, caches = _run_blocks(
-        cfg, params, x, B=B, S=S, step=step, seed=seed, train=train,
+        cfg, params, x, B=B, S=S, step=step, rng=rng, train=train,
         flags=flags, want_cache=want_cache)
     return L.apply_norm(cfg, params["final_norm"], x), aux, metrics, caches
 
@@ -269,14 +274,14 @@ def _chunk_xent(cfg: ModelConfig, embed, xc, lc):
     return torch.sum(torch.where(lc >= 0, lse - correct, 0.0))
 
 
-def loss_fn(cfg: ModelConfig, params, batch, *, step=None, seed=None,
+def loss_fn(cfg: ModelConfig, params, batch, *, step=None, rng=None,
             flags: RunFlags = DEFAULT_FLAGS):
     """Training loss: chunked NormHead cross entropy + MoE aux losses.
     Each chunk of `flags.loss_chunk` tokens is checkpointed under
     `flags.remat`, so its (chunk, V) fp32 logits live only inside it.
     Returns (loss, metrics)."""
     x, aux, block_metrics, _ = forward(cfg, params, batch, step=step,
-                                       seed=seed, flags=flags)
+                                       rng=rng, flags=flags)
     labels = batch["labels"].reshape(-1)
     T = x.shape[0]
     chunk = choose_block(T, flags.loss_chunk)

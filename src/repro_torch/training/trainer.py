@@ -15,9 +15,14 @@ Division of labour, as in the reference:
     a pending list and are read in one transfer every `log_every` steps
     (`_drain`), feeding the `SpikeDetector`'s narrow/wide classification,
     the sample-retry queue and the LR-halving window; `DataPipeline`
-    batches are packed ahead on a background thread.
+    batches are packed ahead on a background thread; PCache saves the
+    params, moments and guard state with background writers, and
+    `restore` resumes the run (the pipeline's stream, the batches packed
+    ahead, the detector and the accum stage) exactly.
 
-Checkpoints (save / restore) are not yet ported.
+Step i's router-warmup noise comes from the threefry key
+``fold_in(prng_key(seed), i)``, as in the reference, so a resumed run
+draws what the unbroken run drew.
 """
 from __future__ import annotations
 
@@ -29,9 +34,11 @@ from typing import Any, Dict, List, Optional
 import torch
 
 from repro_torch import api
+from repro_torch.checkpoint.pcache import PCache
 from repro_torch.core import spikes as spikes_lib
 from repro_torch.core.spikes import SpikeConfig, SpikeDetector
 from repro_torch.data.pipeline import DataPipeline, Prefetcher
+from repro_torch.models import prng
 from repro_torch.optim import adamw
 from repro_torch.optim.schedule import AccumWarmup, WSDSchedule
 from repro_torch.telemetry.metrics import MetricsRegistry
@@ -51,6 +58,8 @@ class TrainConfig:
     bs_warmup: Optional[AccumWarmup] = None   # §3.4.1 scheduled accumulation
     prefetch_depth: int = 2            # batches packed ahead of the device
     log_every: int = 10                # metrics-drain (host read) period
+    checkpoint_every: int = 0          # 0 = off
+    checkpoint_dir: Optional[str] = None
     seed: int = 0
     # run every step dispatch under torch.cuda.set_sync_debug_mode("error")
     # so any device->host sync inside it raises
@@ -86,12 +95,19 @@ class Trainer:
         self.opt_state = adamw.init_opt_state(self.params)
         self.guard_state = spikes_lib.init_guard_state(cfg.spike,
                                                        self.device)
+        self.rng = prng.prng_key(cfg.seed, self.device)
         self.step = 0                  # next step index to execute
+        # the accum stage the run is in: the last step's, or after
+        # `restore` the checkpoint's stage for the next step
+        self._accum = self._accum_for(0)
         self.history: List[Dict[str, float]] = []
         # one record per dispatched-but-undrained step: (step, lr,
         # device metrics, accum, host batch for the retry lane)
         self._pending: List[Any] = []
         self._prefetcher: Optional[Prefetcher] = None
+        self._preload: List[Dict] = []     # restored batches packed ahead
+        self.pcache = (PCache(cfg.checkpoint_dir) if cfg.checkpoint_dir
+                       else None)
 
     # -- data ----------------------------------------------------------------
     def _accum_for(self, step: int) -> int:
@@ -102,13 +118,17 @@ class Trainer:
 
     def _ensure_prefetcher(self):
         if self._prefetcher is None:
-            # the producer packs step `step + k`'s macrobatch at the
-            # granularity the warmup schedules for that step
-            produce_step = itertools.count(self.step)
+            # the producer packs for step `step + len(preload) + k`: the
+            # restored batches cover the steps in between, so each packed
+            # macrobatch lands at the granularity the warmup schedules
+            # for the step that will consume it
+            produce_step = itertools.count(self.step + len(self._preload))
             self._prefetcher = Prefetcher(
                 lambda: self.pipeline.next_macrobatch(
                     self._accum_for(next(produce_step))),
-                depth=max(1, self.cfg.prefetch_depth))
+                depth=max(1, self.cfg.prefetch_depth),
+                preload=self._preload)
+            self._preload = []
 
     def _to_device(self, batch) -> Dict[str, torch.Tensor]:
         """Host batch -> int64 tensors on the device; from pinned memory
@@ -124,7 +144,8 @@ class Trainer:
     # -- main loop -----------------------------------------------------------
     def train(self, n_steps: Optional[int] = None) -> List[Dict[str, float]]:
         """Run until the global step counter reaches `n_steps` (default
-        `cfg.n_steps`)."""
+        `cfg.n_steps`): after `restore`, the rest of the original
+        schedule."""
         cfg = self.cfg
         end = cfg.n_steps if n_steps is None else n_steps
         if self.step >= end:
@@ -132,7 +153,7 @@ class Trainer:
         self._ensure_prefetcher()
         while self.step < end:
             i = self.step
-            accum = self._accum_for(i)
+            accum = self._accum = self._accum_for(i)
             with self.timer.span("data"):
                 batch = self._prefetcher.get()
                 dbatch = self._to_device(batch)
@@ -145,13 +166,19 @@ class Trainer:
                 (self.params, self.opt_state, self.guard_state,
                  metrics) = self.step_fn(
                     self.params, self.opt_state, self.guard_state, dbatch,
-                    i, cfg.seed, lr)
+                    i, prng.fold_in(self.rng, i), lr)
             self._pending.append((i, lr, metrics, accum, batch))
             self.step += 1
+            ckpt = bool(self.pcache is not None and cfg.checkpoint_every
+                        and self.step % cfg.checkpoint_every == 0)
             # log_every=0 means no periodic logging, not no policy: drain
             # per step so spike retry / LR-halving never starve
-            if self.step % (cfg.log_every or 1) == 0 or self.step >= end:
+            if (self.step % (cfg.log_every or 1) == 0 or ckpt
+                    or self.step >= end):
                 self._drain()
+            if ckpt:
+                with self.timer.span("checkpoint"):
+                    self.save(f"step_{self.step}")
         return self.history
 
     def _step_guard(self):
@@ -210,18 +237,80 @@ class Trainer:
 
     # -- checkpointing ---------------------------------------------------------
     def save(self, name: str) -> str:
-        raise NotImplementedError("checkpoints are not yet ported to "
-                                  "repro_torch")
+        """Checkpoint: the params, moments and guard state are copied to
+        host memory now (PCache waits for the copy, since the step
+        updates them in place) and written by its background writers,
+        beside a host sidecar (step, accum stage, pipeline stream with
+        the batches packed ahead, detector) so `restore` continues the
+        run exactly."""
+        if self.pcache is None:
+            raise ValueError("TrainConfig.checkpoint_dir is unset")
+        self.pcache.wait()             # one background save in flight
+        if self._prefetcher is not None:
+            with self._prefetcher.paused() as pending:
+                pipe_state = self.pipeline.state_dict()
+                prefetched = pending
+        else:
+            # restore() may have staged batches without a live prefetcher
+            # yet; dropping them would skip stream positions
+            pipe_state = self.pipeline.state_dict()
+            prefetched = list(self._preload)
+        self.pcache.save(name, self._state_tree(), block=False)
+        self.pcache.save_host(name, {
+            "step": self.step,
+            "accum_stage": self._accum_for(self.step),
+            "pipeline": pipe_state,
+            "prefetched": prefetched,
+            "detector": self.detector.state_dict(),
+        })
+        return name
+
+    def _state_tree(self) -> Dict[str, Any]:
+        return {"params": self.params, "opt": self.opt_state,
+                "guard": self.guard_state}
 
     def restore(self, name: str = "latest") -> str:
-        raise NotImplementedError("checkpoints are not yet ported to "
-                                  "repro_torch")
-
-    def close(self):
-        """Stop the prefetch thread."""
+        """Resume from a PCache checkpoint: the saved values go into the
+        trainer's tensors (which the step updates in place), the data
+        stream continues from its saved position (the batches that were
+        packed ahead first), and the spike policy and the accum stage
+        carry over."""
+        if self.pcache is None:
+            raise ValueError("TrainConfig.checkpoint_dir is unset")
+        self.pcache.wait()
+        if name == "latest":
+            found = self.pcache.latest()
+            if found is None:
+                raise FileNotFoundError(
+                    f"no complete checkpoint in {self.pcache.root}")
+            name = found
+        # quiesce the producer before touching pipeline state: its thread
+        # mutates the pipeline's rng and buffer
         if self._prefetcher is not None:
             self._prefetcher.stop()
             self._prefetcher = None
+        like = self._state_tree()
+        loaded = self.pcache.load(name, like)
+        with torch.no_grad():
+            for dst, src in zip(adamw.leaves(like), adamw.leaves(loaded)):
+                dst.copy_(src)
+        del loaded
+        host = self.pcache.load_host(name)
+        self.step = host["step"]
+        self._accum = host["accum_stage"]
+        self.pipeline.load_state_dict(host["pipeline"])
+        self.detector.load_state_dict(host["detector"])
+        self._preload = list(host["prefetched"])
+        self._pending.clear()
+        return name
+
+    def close(self):
+        """Stop the prefetch thread and wait for the checkpoint writers."""
+        if self._prefetcher is not None:
+            self._prefetcher.stop()
+            self._prefetcher = None
+        if self.pcache is not None:
+            self.pcache.wait()
 
 
 @contextlib.contextmanager

@@ -35,6 +35,7 @@ from repro_torch.core import moe as TMOE
 from repro_torch.core import router as TR
 from repro_torch.models import layers as TL
 from repro_torch.models import model as TM
+from repro_torch.models import prng
 from repro_torch.optim import adamw as TA
 
 DTYPES = ["float32", "bfloat16"]
@@ -272,15 +273,16 @@ def test_remat_on_off_same_grads_while_warmup_is_active():
                                generator=torch.Generator().manual_seed(1))
         for p in TA.leaves(params):
             p.requires_grad_()
-        loss, _ = TM.loss_fn(cfg, params, batch, step=1, seed=123,
+        loss, _ = TM.loss_fn(cfg, params, batch, step=1,
+                             rng=prng.prng_key(123),
                              flags=TM.RunFlags(remat=remat))
         loss.backward()
         grads.append([p.grad for p in TA.leaves(params)])
     for a, b in zip(*grads):
         assert torch.equal(a, b)
-    # and the warmup is really active: another noise seed routes otherwise
+    # and the warmup is really active: another noise key routes otherwise
     params = TM.init_model(cfg, device="cpu", masters=True,
                            generator=torch.Generator().manual_seed(1))
-    l1, _ = TM.loss_fn(cfg, params, batch, step=1, seed=123)
-    l2, _ = TM.loss_fn(cfg, params, batch, step=1, seed=124)
+    l1, _ = TM.loss_fn(cfg, params, batch, step=1, rng=prng.prng_key(123))
+    l2, _ = TM.loss_fn(cfg, params, batch, step=1, rng=prng.prng_key(124))
     assert float(l1) != float(l2)
