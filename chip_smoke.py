@@ -15,7 +15,7 @@ Phases, each failing loudly (non-zero exit, no result line):
      (every kernel's `ms`: the wrapper from an idle queue, host dispatch
      included):
      K1 fused MoE FFN (T=8 decode, T=64 prefill, T=40 a k=4 verify pass,
-     T=2048 training, routing
+     T=2048 training, T=4088 phase 6c's scoring call, routing
      from a random router; the path each shape takes, the wrapper's time
      and the C entry's alone, split by kernel with torch.profiler), K3/K4
      paged attention (PA_CASES: decode B=8 Q=1 with 2 inactive slots and
@@ -32,7 +32,8 @@ Phases, each failing loudly (non-zero exit, no result line):
      each with its count of bf16 wgmma passes and, for a form with an
      fp32 operand, an fp32 `torch._grouped_mm` as its yardstick where
      this build takes one (else bf16); K5 fused NormHead logits at
-     Ling-Lite's fp32 head (x bf16, T=8, T=1 and T=40) and rwkv6-3b's
+     Ling-Lite's fp32 head (x bf16, T=8, T=1, T=40 and T=4088, phase
+     6c's scoring call, in 64 passes over W) and rwkv6-3b's
      (T=8, T=64
      in one pass over W, T=65 in two), each also timed on the card with
      the queue held, by its host dispatch alone, and against one fp32
@@ -69,6 +70,30 @@ Phases, each failing loudly (non-zero exit, no result line):
      draft accepted), and sampled at 0.8; each run's tokens/s, TTFT and
      ITL p50/p99, ticks per token and acceptance, and one sampling call
      at 8 and 40 rows of the vocabulary (CUDA events);
+  6c. dense KV-cache decode, offline Flood serving, scoring and the
+     serving telemetry on phase 5's model: 8 of phase 5's prompts cut to
+     64 tokens, `make_prefill` into caches of 512 positions and 32
+     greedy `make_decode_step` ticks (K1 28 and K5 1 launches per
+     prefill, K1, K3 and K4 28 and K5 1 per tick); the same prompts fed
+     token by token through the ticks and through an OnlineEngine (8
+     slots, context 512, page 16, chunk 64): the greedy streams must be
+     equal bit for bit (how far the prefill's last logits part from the
+     ticks' is printed, not held); the Flood engine through
+     `build_model_engine` (16 requests x 32 new tokens, micro-batch 8,
+     dense caches of 32 positions, which the shared position counter
+     passes) at temperature 0 (equal to the engine on the greedy step)
+     and 0.8; `make_score_fn` on 8 sequences of 512 tokens (finite,
+     negative, equal to the sums of its tokens' log p, each of which is
+     held within SCORE_TOL of the largest logit from the plain modes':
+     ragged MoE, the plain K5) and the eval harness (content and label perplexity evaluation,
+     generation evaluation through a greedy decode built from
+     `make_prefill` and the ticks; 4 items each, accuracies and ms per
+     item); an engine
+     with overload="slo" and a TTFT deadline below phase 5's tick p50,
+     armed by one request, then 16 submitted at once: at least one shed,
+     serve_tokens_total equal to the tokens emitted, admitted + shed
+     equal to submitted, and a Chrome trace written and its events
+     counted;
   7. rwkv6 serving: Ling-Lite freed, full-width rwkv6-3b (32 layers, bf16
      weights from torch.Generator(device="cuda").manual_seed(0)):
      `make_prefill` on 8 prompts of 512 tokens (numpy seed 0), then 32
@@ -137,6 +162,12 @@ PA_CASES = {
     "prefill": dict(B=1, Q=64, ctx=[192], base=128, n_pages=8 * 32 + 1)}
 
 
+# phase 6c's bar on each scored token's log p against the plain modes, as
+# a share of the largest plain logit: a log p moves by at most twice its
+# logits' largest error, held to 2^-5 of the largest logit as phase 6
+# holds the teacher-forced logits
+SCORE_TOL = 2 * 2.0 ** -5
+
 # phase 7's bounds with fp32 activations, shares of the largest logit
 # (about ten times the largest reading; PERF.md, Findings)
 RWKV_FP32_TOL = {"prefill vs ticks": 7.5e-4, "kernels vs plain": 4.5e-4}
@@ -147,6 +178,7 @@ RWKV_FP32_TOL = {"prefill vs ticks": 7.5e-4, "kernels vs plain": 4.5e-4}
 K5_CASES = {"ling head T=8": ("ling-lite", 8),
             "ling head T=1": ("ling-lite", 1),
             "ling head T=40": ("ling-lite", 40),
+            "ling head T=4088": ("ling-lite", 4088),
             "rwkv6 head T=8": ("rwkv6-3b", 8),
             "rwkv6 head T=64": ("rwkv6-3b", 64),
             "rwkv6 head T=65": ("rwkv6-3b", 65)}
@@ -911,6 +943,11 @@ def serve(cfg, params):
           f"{rep['itl_p50_ms']:.2f}/{rep['itl_p99_ms']:.2f}ms "
           f"wall={rep['wall_s']:.2f}s preempts={rep['preemptions']} "
           f"max_memory_allocated={torch.cuda.max_memory_allocated() / 2**30:.2f}GiB")
+    tick = eng.registry.get("serve_tick_ms")
+    print(f"[serve] telemetry on: serve_tick_ms p50={tick.percentile(50):.2f}"
+          f"ms mean={tick.sum / max(tick.count, 1):.2f}ms over {tick.count} "
+          f"ticks (window {tick.window_count()}), request log "
+          f"{eng.rlog.counts()}")
     if rep["tokens_out"] != n_req * max_new:
         fail(f"served {rep['tokens_out']} tokens, expected {n_req * max_new}")
     for name, n in launches.items():
@@ -919,6 +956,7 @@ def serve(cfg, params):
         if n != want:
             fail(f"{name} launched {n} times in serving, expected {want} "
                  f"({cfg.n_layers} layers, {calls})")
+    rep["tick_p50_ms"] = tick.percentile(50)
     return rep, launches
 
 
@@ -1074,6 +1112,308 @@ def serve_sampled(cfg, params, base, card):
         print(f"[sample] one sampling call at {T} x {cfg.vocab_size}: "
               f"{ms:.4f}ms [{card}]")
     return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 6c: dense decode, Flood on Ling-Lite, scoring, telemetry
+# ---------------------------------------------------------------------------
+
+
+def _expect(label, got, want):
+    """Fail unless the launch counts `got` equal `want` (missing = 0)."""
+    names = set(got) | set(want)
+    if any(got.get(n, 0) != want.get(n, 0) for n in names):
+        fail(f"phase 6c: {label} launches {got}, expected {want}")
+
+
+def _flood(cfg, fns, label, card, n_req=16, max_new=32, micro=8):
+    """Run the Flood engine over `fns`; (token lists, head calls)."""
+    import numpy as np
+    import torch
+    from repro_torch.serving.flood import FloodEngine, GenRequest
+    from repro_torch.serving.segment_cache import SegmentCache
+    embed_fn, stage_fns, head_fn = fns
+    calls = []
+
+    def head(x, reqs):
+        calls.append(len(reqs))
+        return head_fn(x, reqs)
+
+    rs = np.random.RandomState(0)
+    reqs = [GenRequest(rid=i, prompt=rs.randint(0, cfg.vocab_size, 8)
+                       .astype(np.int32), max_new=max_new)
+            for i in range(n_req)]
+    eng = FloodEngine(stage_fns, head, embed_fn,
+                      cache=SegmentCache(max_tokens=1 << 16,
+                                         initial_segment=32,
+                                         extend_chunk=32), microbatch=micro)
+    eng.submit(reqs)
+    stats = eng.run()
+    torch.cuda.synchronize()
+    print(f"[dense] Flood engine {label}: {n_req} requests x {max_new} new "
+          f"tokens, micro-batch {micro}, 2 stages: tokens={stats.tokens_out}"
+          f" wall={stats.wall_s:.2f}s tok/s={stats.tokens_per_s:.1f} "
+          f"head calls={len(calls)} [{card}]")
+    if stats.tokens_out != n_req * max_new or not all(
+            len(r.out) == max_new for r in reqs):
+        fail(f"phase 6c: Flood engine {label} emitted {stats.tokens_out} "
+             f"tokens, expected {n_req * max_new}")
+    return [r.out for r in reqs], len(calls)
+
+
+def dense_serve(cfg, params, base, card):
+    """Phase 6c on phase 5's model: dense prefill + ticks against the
+    online engine, the Flood engine on Ling-Lite, scoring and the eval
+    harness, and the SLO-shedding engine's telemetry.  Returns the
+    launches of the dense prefill + ticks, of one Flood run and of one
+    scoring call."""
+    import json as json_
+    import tempfile
+
+    import numpy as np
+    import torch
+    from repro_torch import api
+    from repro_torch.evals import harness as H
+    from repro_torch.kernels import build
+    from repro_torch.kernels import normhead as nh
+    from repro_torch.kernels import ops as kops
+    from repro_torch.launch.serve import build_model_engine
+    from repro_torch.models import embedding as emb
+    from repro_torch.models import model as M
+    from repro_torch.serving.online import (OnlineConfig, OnlineEngine,
+                                            OnlineRequest)
+    from repro_torch.telemetry import SLOConfig, write_chrome_trace
+    L_ = cfg.n_layers
+    B, P, S, ticks = 8, 64, 512, 32
+    runner = api.Runner(cfg, device="cuda")
+    prompts = np.stack([np.asarray(p[:P], np.int32)
+                        for p in base["prompts"][:B]])
+    pt = torch.from_numpy(prompts).long().cuda()
+    prefill, decode = runner.make_prefill(seq_len=S), runner.make_decode_step()
+    tok, caches = prefill(params, {"tokens": pt})       # warm-up
+    decode(params, caches, tok, P)
+    del caches
+    torch.cuda.synchronize()
+
+    # 1. prefill into 512-position caches, 32 greedy ticks; launches
+    build.reset_launches()
+    t0 = time.perf_counter()
+    tok, caches = prefill(params, {"tokens": pt})
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    after_prefill = dict(build.LAUNCHES)
+    for pos in range(P, P + ticks):
+        tok, caches = decode(params, caches, tok, pos)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    dense_launches = dict(build.LAUNCHES)
+    print(f"[dense] prefill B={B} S={P} into caches of {S}: "
+          f"{1e3 * (t1 - t0):.2f}ms; {ticks} ticks: "
+          f"{1e3 * (t2 - t1) / ticks:.2f}ms per tick; launches after the "
+          f"prefill {after_prefill}, after the ticks {dense_launches} "
+          f"[{card}]")
+    _expect("prefill", after_prefill,
+            {"fused_moe_ffn": L_, "normhead_matmul": 1})
+    _expect("prefill + ticks", dense_launches,
+            {"fused_moe_ffn": L_ * (1 + ticks),
+             "paged_attn_scores_max": L_ * ticks,
+             "paged_attn_accumulate": L_ * ticks,
+             "normhead_matmul": 1 + ticks})
+    del caches
+
+    # 2. token by token through the ticks vs the online engine (hard), and
+    # the prefill's last logits against the ticks' (printed)
+    with torch.no_grad():
+        la, _ = M.prefill_logits(cfg, params, {"tokens": pt})
+        caches = runner.init_caches(B, S)
+        for pos in range(P):
+            lb, caches = M.decode_logits(cfg, params, caches, pt[:, pos], pos)
+    gap = (la - lb).abs().max().item() / la.abs().max().item()
+    agree = int((la.argmax(-1) == lb.argmax(-1)).sum().item())
+    print(f"[dense] prefill vs {P} ticks, last prompt position: logit gap "
+          f"{gap:.3e} of the largest logit, first token agrees on {agree} "
+          f"of {B}")
+    tok = lb.argmax(-1).to(torch.int32)
+    out = [tok]
+    for pos in range(P, P + ticks - 1):
+        tok, caches = decode(params, caches, tok, pos)
+        out.append(tok)
+    dense = torch.stack(out, 1).cpu().numpy().tolist()
+    del caches
+    eng = OnlineEngine(runner, params, OnlineConfig(
+        max_slots=8, max_context=S, page_size=16, prefill_chunk=64))
+    eng.submit_many([OnlineRequest(rid=i, prompt=prompts[i], max_new=ticks)
+                     for i in range(B)])
+    eng.run(max_ticks=10_000)
+    online = [list(eng.reqs[i].out) for i in range(B)]
+    same = sum(a == b for a, b in zip(dense, online))
+    print(f"[dense] {B} prompts x {ticks} greedy tokens: dense ticks equal "
+          f"the online engine's streams on {same} of {B}")
+    if dense != online:
+        fail(f"phase 6c: dense decode streams differ from the online "
+             f"engine's ({B - same} of {B})")
+    del eng
+
+    # 3. the Flood engine on Ling-Lite: a shared position counter passing
+    # the caches' length (the overflow rule), temperature 0 on the sampled
+    # step against the greedy step, and 0.8
+    seq = 32
+    build.reset_launches()
+    cold, n_calls = _flood(cfg, build_model_engine(runner, params, 2, 8, seq),
+                           "temperature 0", card)
+    flood_launches = dict(build.LAUNCHES)
+    print(f"[dense] Flood: the shared position counter reaches seq_len="
+          f"{seq} at head call {seq + 1} of {n_calls}; launches "
+          f"{flood_launches}")
+    if n_calls <= seq:
+        fail(f"phase 6c: {n_calls} head calls never pass seq_len={seq}")
+    _expect("Flood", flood_launches,
+            {"fused_moe_ffn": L_ * n_calls,
+             "paged_attn_scores_max": L_ * n_calls,
+             "paged_attn_accumulate": L_ * n_calls,
+             "normhead_matmul": n_calls})
+    greedy_step = runner.make_decode_step()
+    greedy_runner = types.SimpleNamespace(
+        device=runner.device, init_caches=runner.init_caches,
+        make_decode_step=lambda sample: (
+            lambda p, c, t, pos, *knobs: greedy_step(p, c, t, pos)))
+    if _flood(cfg, build_model_engine(greedy_runner, params, 2, 8, seq),
+              "on the greedy step", card)[0] != cold:
+        fail("phase 6c: Flood at temperature 0 differs from the greedy step")
+    _flood(cfg, build_model_engine(runner, params, 2, 8, seq,
+                                   temperature=0.8, seed=0),
+           "temperature 0.8", card)
+
+    # 4. scoring: the kernels against the plain modes, then the harness
+    n_seq, s_len = 8, 512
+    seqs = np.random.RandomState(3).randint(0, cfg.vocab_size,
+                                            (n_seq, s_len))
+    mask = np.ones((n_seq, s_len), np.float32)
+    score = runner.make_score_fn()
+    score(params, seqs, mask)                      # warm-up
+    torch.cuda.synchronize()
+    build.reset_launches()
+    t0 = time.perf_counter()
+    got = score(params, seqs, mask)
+    torch.cuda.synchronize()
+    score_ms = 1e3 * (time.perf_counter() - t0)
+    score_launches = dict(build.LAUNCHES)
+    _expect("scoring", score_launches,
+            {"fused_moe_ffn": L_, "normhead_matmul": 1})
+    # per token: each log p(token_t | tokens_<t) through the kernels and
+    # through the plain modes (ragged MoE, plain K5), on the forward and
+    # head that make_score_fn runs
+    tt = torch.from_numpy(seqs).long().cuda()
+
+    def token_logp(flags):
+        with torch.no_grad():
+            x, _, _, _ = M.forward(cfg, params, {"tokens": tt[:, :-1]},
+                                   train=False, flags=flags)
+            lg = emb.serve_logits(cfg, params["embed"], x)
+            del x
+            lg = lg.reshape(n_seq, s_len - 1, -1)[..., :cfg.vocab_size]
+            lp = torch.log_softmax(lg, dim=-1).gather(
+                -1, tt[:, 1:, None])[..., 0]
+            return lp, lg.abs().max().item()
+
+    lp, _ = token_logp(runner.flags)
+    saved = kops.normhead_logits
+    kops.normhead_logits = nh.normhead_matmul_ref
+    try:
+        plain = api.Runner(cfg, flags=M.RunFlags(moe_dispatch="ragged",
+                                                 paged_attn="gathered"),
+                           device="cuda")
+        want = plain.make_score_fn()(params, seqs, mask)
+        lp_plain, top = token_logp(plain.flags)
+    finally:
+        kops.normhead_logits = saved
+    torch.cuda.synchronize()
+    tok_err = (lp - lp_plain).abs().max().item()
+    tok_tol = SCORE_TOL * top
+    # make_score_fn against the sum of its own per-token log-probs: the
+    # same logits, fp32 log-sum-exp and summation in another order
+    sum_err = (got - lp.sum(-1)).abs().max().item()
+    sum_tol = 1e-5 * (s_len - 1) * lp.abs().max().item()
+    err = (got - want).abs().max().item()
+    print(f"[dense] make_score_fn {n_seq} x {s_len}: {score_ms:.2f}ms "
+          f"(launches {score_launches}); scores {got.cpu().numpy().round(2)}"
+          f"; per token against the plain modes max_abs_err={tok_err:.4e} "
+          f"nats (tolerance {tok_tol:.4e}: {SCORE_TOL:g} x largest logit "
+          f"{top:.4f}), mean {(lp - lp_plain).abs().mean().item():.4e}; "
+          f"per sequence {err:.4e}; scores against their per-token sums "
+          f"{sum_err:.4e} (tolerance {sum_tol:.4e}) [{card}]")
+    if not (bool(torch.isfinite(got).all()) and bool((got < 0).all())):
+        fail(f"phase 6c: scores {got.tolist()} not finite and negative")
+    if not tok_err <= tok_tol:
+        fail(f"phase 6c: a token's log p is {tok_err} nats from the plain "
+             f"modes' (tolerance {tok_tol})")
+    if not sum_err <= sum_tol:
+        fail(f"phase 6c: make_score_fn's scores are {sum_err} from the sums "
+             f"of their tokens' log p (tolerance {sum_tol})")
+    del lp, lp_plain
+
+    def score_fn(t, m):
+        return float(score(params, t[None], m[None])[0])
+
+    def decode_fn(prompt, max_new):
+        n = len(prompt)
+        cap = -(-(n + max_new) // 16) * 16
+        tok, c = runner.make_prefill(seq_len=cap)(
+            params, {"tokens": torch.from_numpy(prompt[None]).long().cuda()})
+        out = [tok]
+        for pos in range(n, n + max_new - 1):
+            tok, c = decode(params, c, tok, pos)
+            out.append(tok)
+        return torch.cat(out).cpu().numpy()
+
+    n_items = 4
+    items = H.make_mc_dataset(n_items, cfg.vocab_size)
+    gens = H.make_gen_dataset(n_items, cfg.vocab_size)
+    for label, fn in (
+            ("ppl_eval_content", lambda: H.ppl_eval_content(items, score_fn)),
+            ("ppl_eval_label", lambda: H.ppl_eval_label(
+                items, score_fn, label_tokens=[1, 2, 3, 4])),
+            ("gen_eval", lambda: H.gen_eval(gens, decode_fn, max_new=8))):
+        t0 = time.perf_counter()
+        rep = fn()
+        ms = 1e3 * (time.perf_counter() - t0) / n_items
+        print(f"[dense] harness {label} over {n_items} items: accuracy "
+              f"{rep['accuracy']:.3f} (random weights: chance), "
+              f"{ms:.1f}ms per item [{card}]")
+
+    # 5. telemetry: SLO shedding with a deadline below phase 5's tick p50
+    deadline = 0.5 * base["tick_p50_ms"]
+    eng = OnlineEngine(runner, params, OnlineConfig(
+        max_slots=8, max_context=S, page_size=16, prefill_chunk=64,
+        overload="slo", slo=SLOConfig(ttft_p99_ms=deadline)))
+    # one request arms the gate (it needs 8 tick samples in its window)
+    eng.submit(OnlineRequest(rid=100, prompt=prompts[0], max_new=9))
+    eng.run(max_ticks=1000)
+    took = [eng.submit(OnlineRequest(rid=i, prompt=np.asarray(p, np.int32),
+                                     max_new=32))
+            for i, p in enumerate(base["prompts"])]
+    eng.run(max_ticks=10_000)
+    reg = eng.registry
+    val = lambda name: reg.get(name).value
+    emitted = sum(len(r.out) for r in eng.reqs.values())
+    submitted = 1 + len(took)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "serve_trace.json"
+        n_ev = write_chrome_trace(path, timer=eng.timer,
+                                  request_log=eng.rlog, registry=reg)
+        n_read = len(json_.loads(path.read_text())["traceEvents"])
+    print(f"[dense] SLO engine, deadline {deadline:.2f}ms (half phase 5's "
+          f"tick p50): submitted {submitted}, admitted "
+          f"{val('serve_admitted_total'):g}, shed {val('serve_shed_total'):g}"
+          f", tokens {val('serve_tokens_total'):g} (emitted {emitted}); "
+          f"slo {eng.slo.snapshot()}; request log {eng.rlog.counts()}; "
+          f"Chrome trace {n_ev} events ({n_read} read back)")
+    if not (val("serve_shed_total") >= 1
+            and val("serve_tokens_total") == emitted
+            and val("serve_admitted_total") + val("serve_shed_total")
+            == submitted and n_ev == n_read > 0):
+        fail("phase 6c: the SLO engine's counters disagree with its run")
+    return dense_launches, flood_launches, score_launches
 
 
 # ---------------------------------------------------------------------------
@@ -1645,7 +1985,8 @@ def main():
     gen = torch.Generator(device="cuda").manual_seed(1234)
     k1 = {"decode": check_k1(cfg, 8, gen), "prefill": check_k1(cfg, 64, gen),
           "verify": check_k1(cfg, 40, gen),
-          "train": check_k1(cfg, 2048, gen)}
+          "train": check_k1(cfg, 2048, gen),
+          "score": check_k1(cfg, 4088, gen)}
     torch.cuda.empty_cache()
     k3, k4 = {}, {}
     for label, kw in PA_CASES.items():
@@ -1688,6 +2029,12 @@ def main():
 
     # -- 6b. sampling and speculative decoding -------------------------------
     spec_launches = serve_sampled(cfg, params, base, card)
+
+    # -- 6c. dense decode, Flood on Ling-Lite, scoring, telemetry ----------
+    t0 = time.perf_counter()
+    dense_launches, flood_launches, score_launches = dense_serve(
+        cfg, params, base, card)
+    print(f"[dense] phase 6c took {time.perf_counter() - t0:.1f}s")
 
     # -- 7. rwkv6 serving ---------------------------------------------------
     del params          # 31 GiB of bf16 serving weights
@@ -1735,7 +2082,8 @@ def main():
                            "src/repro/models/rwkv6.py:112", "prefill",
                            "rwkv_serve")}
     launches = {"serve": serve_launches, "spec": spec_launches,
-                "rwkv_serve": rwkv_launches, "train": train_launches,
+                "dense": dense_launches, "flood_ling": flood_launches,
+                "score": score_launches, "rwkv_serve": rwkv_launches, "train": train_launches,
                 "resume_a": resume_launches["a"],
                 "resume_b": resume_launches["b"]}
     rows = []

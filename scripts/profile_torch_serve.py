@@ -13,8 +13,17 @@ once, skips the first 16 ticks (all 8 slots are decoding by then while
 prefill chunks continue), then
 
   * times 12 prefill chunks and decode ticks on the host clock
-    (each ends in torch.cuda.synchronize), and
+    (each ends in torch.cuda.synchronize), then 12 whole engine ticks
+    (admission, a chunk and a decode tick, and the engine's telemetry),
+    and
   * traces the same kind of window with torch.profiler.
+
+With `--dense`, Ling-Lite's dense KV-cache decode on the same model right
+after: the Runner's greedy prefill of 8 prompts of 128 tokens into caches
+of 512 positions, then decode ticks over the 8 sequences (K3/K4 over the
+caches' page view); after two warm-up ticks it times 12 ticks on the host
+clock and traces 12 more, for the same device-busy and per-kernel split
+as the paged ticks beside it.
 
 rwkv6-3b dense serving (full width, 32 layers): the Runner's greedy
 prefill of 8 prompts of 512 tokens and decode ticks over the 8
@@ -27,7 +36,7 @@ the port (K1..K6, the rwkv6 decay, dense GEMMs, everything else), and
 the device's busy time and idle share of the window's wall time.
 
     python3 scripts/profile_torch_serve.py [--only ling-lite|rwkv6-3b]
-                                           [--src DIR]
+                                           [--dense] [--src DIR]
 
 `--only` runs one of the two paths; `--src` runs the port found in DIR
 (for instance an unpacked parent commit's `src`), so that two versions
@@ -46,6 +55,7 @@ from pathlib import Path
 
 SKIP, TICKS = 16, 12
 RWKV_B, RWKV_S, RWKV_TICKS = 8, 512, 8
+DENSE_B, DENSE_P, DENSE_S = 8, 128, 512
 
 GROUPS = (("K1 fused_moe_ffn", ("moe_up", "moe_down", "moe_combine")),
           ("K5 normhead_matmul", ("normhead_kernel",)),
@@ -108,7 +118,7 @@ def trace(label: str, window):
         print(f"[profile]   {ms:9.3f} ms  x{n:<6d} {name[:90]}")
 
 
-def ling_online():
+def ling_online(dense: bool):
     import numpy as np
     import torch
     from repro_torch import api
@@ -133,7 +143,7 @@ def ling_online():
     pre, dec = [], []
     for _ in range(TICKS):
         eng.ticks += 1
-        eng._admit()
+        eng._admit(time.perf_counter())
         n0 = eng.step_calls["prefill"]
         t0 = time.perf_counter()
         eng._prefill_tick()
@@ -149,11 +159,58 @@ def ling_online():
     print(f"[host] ling-lite: prefill chunk median {med(pre):.2f} ms over "
           f"{len(pre)}; decode tick median {med(dec):.2f} ms over "
           f"{len(dec)} (active slots now {int(eng.active.sum())})")
+    whole = []
+    for _ in range(TICKS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.tick()
+        torch.cuda.synchronize()
+        whole.append(1e3 * (time.perf_counter() - t0))
+    print(f"[host] ling-lite: engine tick median {med(whole):.2f} ms over "
+          f"{len(whole)}")
 
     def window():
         for _ in range(TICKS):
             eng.tick()
     trace(f"ling-lite, {TICKS} ticks", window)
+    if dense:
+        del eng
+        torch.cuda.empty_cache()
+        ling_dense(cfg, runner, params)
+
+
+def ling_dense(cfg, runner, params):
+    """Ling-Lite's dense ticks at B=8 over 512-position caches."""
+    import numpy as np
+    import torch
+    prompts = torch.from_numpy(np.random.RandomState(1).randint(
+        0, cfg.vocab_size, (DENSE_B, DENSE_P))).cuda()
+    prefill = runner.make_prefill(seq_len=DENSE_S)
+    decode = runner.make_decode_step()
+    tok, caches = prefill(params, {"tokens": prompts})
+    state = {"tok": tok, "pos": DENSE_P}
+
+    def tick():
+        state["tok"], _ = decode(params, caches, state["tok"], state["pos"])
+        state["pos"] += 1
+
+    tick()
+    tick()                                           # warm-up
+    times = []
+    for _ in range(TICKS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tick()
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    print(f"[host] ling-lite dense: decode tick median "
+          f"{float(np.median(times)):.2f} ms over {TICKS} (B={DENSE_B}, "
+          f"positions {DENSE_P}-{state['pos']} of {DENSE_S})")
+
+    def window():
+        for _ in range(TICKS):
+            tick()
+    trace(f"ling-lite dense, {TICKS} ticks", window)
 
 
 def rwkv_dense():
@@ -193,6 +250,9 @@ def rwkv_dense():
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--only", choices=("ling-lite", "rwkv6-3b"))
+    ap.add_argument("--dense", action="store_true",
+                    help="also profile Ling-Lite's dense decode ticks "
+                         "after the paged ones, on the same model")
     ap.add_argument("--src", default=str(Path(__file__).resolve()
                                          .parents[1] / "src"))
     args = ap.parse_args()
@@ -207,7 +267,7 @@ def main():
                          text=True, timeout=60).stdout.strip())
     print(f"[profile] port from {Path(repro_torch.__file__).parent}")
     if args.only != "rwkv6-3b":
-        ling_online()
+        ling_online(args.dense)
         gc.collect()
         torch.cuda.empty_cache()
     if args.only != "ling-lite":

@@ -1,8 +1,10 @@
 """High-level runner for the port (counterpart of `repro.api.Runner`) at
 tp=1: parameter init, the train step, the greedy prefill and the dense
-decode step with their caches (rwkv models), paged KV pools, and the
-paged serving steps (all-attn models: decode, prefill, and speculative
-decoding's draft and verify), greedy or sampled, as plain callables.
+decode step with their caches (KV caches of attention models, the state
+of rwkv models), sequence scoring for the eval harness, paged KV pools,
+and the paged serving steps (all-attn models: decode, prefill, and
+speculative decoding's draft and verify), greedy or sampled, as plain
+callables.
 
 Entry points run on the card: `device` defaults to "cuda", and asking
 for it without one raises.  Pass device="cpu" for the plain PyTorch path
@@ -22,6 +24,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import spikes as spikes_lib
+from repro_torch.models import embedding as emb
 from repro_torch.models import layers as L
 from repro_torch.models import model as M
 from repro_torch.models import prng
@@ -131,40 +134,81 @@ class Runner:
     # the reference's name; PyTorch runs eagerly, so nothing is compiled
     jit_train_step = make_train_step
 
-    # -- prefill and dense decode (rwkv models) -------------------------------
-    def init_caches(self, batch: int):
+    # -- prefill and dense decode -------------------------------------------
+    def init_caches(self, batch: int, seq_len: Optional[int] = None):
         """Zeroed dense decode caches for `batch` sequences (leading layer
-        dim; see `models.model.init_caches`)."""
-        return M.init_caches(self.cfg, batch, self.device)
+        dim; see `models.model.init_caches`).  An attention model needs
+        `seq_len`, a multiple of 16 (`layers.init_decode_cache`); rwkv
+        ignores it."""
+        return M.init_caches(self.cfg, batch, self.device, seq_len)
 
-    def make_prefill(self):
+    def make_prefill(self, seq_len: Optional[int] = None):
         """Greedy prefill: ``(params, batch) -> (next (B,) int32,
         caches)`` with batch["tokens"] (B, S); caches hold what the
-        prompt leaves behind, in `init_caches`' layout."""
+        prompt leaves behind, in `init_caches`' layout.  An attention
+        model's caches hold S positions, or `seq_len` (the prompt's rows,
+        then zeros) when given, ready for `make_decode_step` at pos S."""
         cfg, flags = self.cfg, self.flags
 
         @torch.no_grad()
         def fn(params, batch):
-            return M.prefill(cfg, params, batch, flags)
+            return M.prefill(cfg, params, batch, flags, seq_len)
         return fn
 
     def make_decode_step(self, sample: bool = False):
         """Dense decode step: ``(params, caches, token (B,), pos) -> (next
-        (B,) int32, caches)``; caches update in place.  With ``sample``
-        it takes four more (B,) tensors ``(seeds, temperature, top_p,
-        top_k)`` and draws under the online path's (seed, pos, stream)
-        key schedule (bit for bit greedy at temperature <= 0)."""
-        cfg = self.cfg
+        (B,) int32, caches)``; caches update in place; pos (an int) is
+        the position every sequence writes.  With
+        ``sample`` it takes four more (B,) tensors ``(seeds, temperature,
+        top_p, top_k)`` and draws under the online path's (seed, pos,
+        stream) key schedule (bit for bit greedy at temperature <= 0)."""
+        cfg, flags = self.cfg, self.flags
 
         if sample:
             @torch.no_grad()
             def fn(params, caches, token, pos, seeds, temp, top_p, top_k):
                 return M.decode_step(cfg, params, caches, token, pos,
-                                     sample=(seeds, temp, top_p, top_k))
+                                     sample=(seeds, temp, top_p, top_k),
+                                     flags=flags)
         else:
             @torch.no_grad()
             def fn(params, caches, token, pos):
-                return M.decode_step(cfg, params, caches, token, pos)
+                return M.decode_step(cfg, params, caches, token, pos,
+                                     flags=flags)
+        return fn
+
+    # -- sequence scoring (evaluation harness) ---------------------------------
+    def make_score_fn(self):
+        """``(params, tokens (B, S), mask (B, S)) -> (B,) fp32``: each
+        sequence's sum of log p(token_t | tokens_<t) over the positions t
+        >= 1 where mask > 0 (perplexity-based evaluation,
+        `evals.harness`).  The forward is the prefill's (train=False: the
+        serving router); the logits come from the NormHead on K5
+        (`embedding.serve_logits`), vocabulary padding is masked to -1e30
+        and the log-sum-exp is fp32, as the reference's.  Any (B, S) is
+        taken (the reference fixes both for its shard_map)."""
+        cfg, flags, dev = self.cfg, self.flags, self.device
+
+        @torch.no_grad()
+        def fn(params, tokens, mask):
+            tokens = torch.as_tensor(tokens, device=dev).long()
+            mask = torch.as_tensor(mask, device=dev)
+            labels = torch.where(mask[:, 1:] > 0, tokens[:, 1:], -1)
+            x, _, _, _ = M.forward(cfg, params, {"tokens": tokens[:, :-1]},
+                                   train=False, flags=flags)
+            logits = emb.serve_logits(cfg, params["embed"], x)
+            vp = logits.shape[-1]
+            gid = torch.arange(vp, device=dev)
+            logits = torch.where(gid[None, :] < cfg.vocab_size, logits,
+                                 -1e30)
+            m = logits.max(dim=-1).values
+            lse = m + torch.log(torch.exp(logits - m[:, None]).sum(dim=-1))
+            lab = labels.reshape(-1)
+            picked = torch.gather(logits, 1,
+                                  lab.clamp(0, vp - 1)[:, None])[:, 0]
+            corr = torch.where(lab < vp, picked, 0.0)
+            tok_lp = torch.where(lab >= 0, corr - lse, 0.0)
+            return tok_lp.reshape(tokens.shape[0], -1).sum(dim=-1)
         return fn
 
     # -- paged serving (all-attn models) --------------------------------------

@@ -10,6 +10,11 @@ modes.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-3b \
         --smoke --device cpu --requests 4 --max-new 8
 
+    # offline Ling-Lite (the reference's default arch): dense KV caches
+    # of --seq positions
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch ling-lite \
+        --smoke --device cpu
+
     # online, on the card: full Ling-Lite, random weights
     PYTHONPATH=src python -m repro_torch.launch.serve --online \
         --slots 8 --prefill-chunk 64 --seq 512 --prompt-len 128 \
@@ -26,24 +31,38 @@ modes.
         --spec-k 4 --draft-layers 1 --policy decode-priority \
         --max-queue 8 --overload shed --tenant-budgets a:256,b:256
 
+    # SLO shedding, a Prometheus scrape and a Chrome trace of the run
+    PYTHONPATH=src python -m repro_torch.launch.serve --online --smoke \
+        --device cpu --overload slo --slo-ttft-ms 50 --metrics-port 0 \
+        --trace-out /tmp/serve_trace.json
+
 Offline builds a Runner with random weights (`Runner.init_params(0)`)
 and drives the FloodEngine (segment KV cache, S+1 in-flight
-micro-batches) on the sampled dense decode step (rwkv models);
+micro-batches) on the sampled dense decode step (dense KV caches of
+`--seq` positions for attention models, the state of rwkv models);
 `--baseline` runs the synchronous global-batch engine instead.  Online
 builds an `OnlineEngine` over a paged KV pool (all-attn models), eats
 the first-call costs (kernel build, allocator warm-up) with a small
 warm-up load, then reports one Poisson load per `--rates` entry: tok/s,
-TTFT and inter-token latency percentiles.
+TTFT and inter-token latency percentiles.  `--metrics-port` serves the
+engine's registry as a Prometheus scrape while it runs and
+`--trace-out` writes its Chrome trace (scheduler phases, slots,
+counter tracks) at the end.  The reference's `--tp` is the one flag not
+taken: multi-device is not yet ported.
 """
 from __future__ import annotations
 
 import argparse
+import json
+import time
+from typing import Optional
 
 import numpy as np
 import torch
 
 from repro_torch import api
 from repro_torch.configs.base import get_config, get_smoke_config
+from repro_torch.models import model as M
 from repro_torch.serving.draft import (ConfigDrafter, SelfDrafter,
                                        adapt_drafter_config)
 from repro_torch.serving.flood import (FloodEngine, GenRequest,
@@ -51,26 +70,31 @@ from repro_torch.serving.flood import (FloodEngine, GenRequest,
 from repro_torch.serving.online import (OnlineConfig, OnlineEngine,
                                         run_poisson_load)
 from repro_torch.serving.segment_cache import SegmentCache
+from repro_torch.telemetry import MetricsServer, SLOConfig, write_chrome_trace
 
 
 def build_model_engine(runner, params, n_stages: int, batch: int,
+                       seq_len: Optional[int] = None,
                        temperature: float = 0.0, top_p: float = 1.0,
                        top_k: int = 0, seed: int = 0):
     """Real-model Flood engine on the sampled dense decode step (the
     reference's `build_model_engine`, which draws its parameters inside;
-    this one takes them, and needs no cache length: rwkv state does not
-    grow).  Returns (embed_fn, stage_fns, head_fn).
+    this one takes them).  `seq_len` is the dense KV caches' length, a
+    multiple of 16 (attention models; rwkv state does not grow and
+    ignores it).  Returns (embed_fn, stage_fns, head_fn).
 
     Reproduces the reference as written: the stages pass activations
     through and the head runs the whole model's decode step; each request
     feeds its last output token, or its last prompt token before it has
     one; one cache and one position counter are shared by every in-flight
-    micro-batch; and request rid draws under seed (seed + rid) % 2**31
-    with the online engine's (seed, position, stream) keys (temperature
-    0 is the greedy token bit for bit)."""
+    micro-batch, and once the counter passes seq_len nothing more is
+    written and every cached position is attended (the reference's
+    overflow branch); and request rid draws under seed (seed + rid) %
+    2**31 with the online engine's (seed, position, stream) keys
+    (temperature 0 is the greedy token bit for bit)."""
     decode = runner.make_decode_step(sample=True)
     dev = runner.device
-    state = {"caches": runner.init_caches(batch), "pos": 0}
+    state = {"caches": runner.init_caches(batch, seq_len), "pos": 0}
     knobs = (torch.full((batch,), temperature, dtype=torch.float32,
                         device=dev),
              torch.full((batch,), top_p, dtype=torch.float32, device=dev),
@@ -127,10 +151,15 @@ def parse_tenant_budgets(spec):
     return out
 
 
+def run_flags(args) -> M.RunFlags:
+    return M.RunFlags(moe_dispatch=args.moe_dispatch,
+                      paged_attn=args.paged_attn)
+
+
 def run_offline(cfg, args):
     """The Flood engine (or `--baseline`) over `--requests` random prompts
     of `--prompt-len` tokens (numpy seed 0).  Returns the PipelineStats."""
-    runner = api.Runner(cfg, device=args.device)
+    runner = api.Runner(cfg, flags=run_flags(args), device=args.device)
     params = runner.init_params(0)
     rs = np.random.RandomState(0)
     reqs = [GenRequest(rid=i,
@@ -139,7 +168,7 @@ def run_offline(cfg, args):
                        max_new=args.max_new)
             for i in range(args.requests)]
     embed_fn, stage_fns, head_fn = build_model_engine(
-        runner, params, args.stages, args.microbatch,
+        runner, params, args.stages, args.microbatch, args.seq,
         temperature=args.temperature, top_p=args.top_p, top_k=args.top_k,
         seed=args.seed)
     if args.baseline:
@@ -159,9 +188,18 @@ def run_offline(cfg, args):
 
 
 def run_online(cfg, args) -> list:
-    runner = api.Runner(cfg, device=args.device)
+    """Online continuous batching under a Poisson load at each rate;
+    returns the load reports."""
+    runner = api.Runner(cfg, flags=run_flags(args), device=args.device)
     params = runner.init_params(0)
     budgets = parse_tenant_budgets(args.tenant_budgets)
+    slo = None
+    if args.overload == "slo":
+        if args.slo_ttft_ms is None:
+            raise SystemExit("--overload slo requires --slo-ttft-ms "
+                             "(and optionally --slo-itl-ms)")
+        slo = SLOConfig(ttft_p99_ms=args.slo_ttft_ms,
+                        itl_p99_ms=args.slo_itl_ms)
     ocfg = OnlineConfig(max_slots=args.slots, max_context=args.seq,
                         page_size=args.page_size, n_pages=args.pages,
                         prefill_chunk=args.prefill_chunk,
@@ -170,9 +208,17 @@ def run_online(cfg, args) -> list:
                         spec_k=args.spec_k,
                         radix_cache=not args.no_radix_cache,
                         policy=args.policy, max_queue=args.max_queue,
-                        overload=args.overload, tenant_budgets=budgets)
+                        overload=args.overload, tenant_budgets=budgets,
+                        slo=slo)
     eng = OnlineEngine(runner, params, ocfg,
                        drafter=make_drafter(cfg, args))
+    server = None
+    if args.metrics_port is not None:
+        # a point-in-time Prometheus scrape on a background daemon thread;
+        # port 0 binds an ephemeral port
+        server = MetricsServer(eng.registry, port=args.metrics_port)
+        print(f"[online] metrics -> "
+              f"http://127.0.0.1:{server.start()}/metrics")
     run_poisson_load(eng, rate=100.0, n_requests=2,
                      prompt_len=args.prompt_len, max_new=2,
                      vocab_size=cfg.vocab_size, seed=7)
@@ -182,7 +228,9 @@ def run_online(cfg, args) -> list:
         rep = run_poisson_load(eng, rate=rate, n_requests=args.requests,
                                prompt_len=args.prompt_len,
                                max_new=args.max_new,
-                               vocab_size=cfg.vocab_size, tenants=tenants)
+                               vocab_size=cfg.vocab_size,
+                               shared_prefix_len=args.shared_prefix_len,
+                               tenants=tenants)
         print(f"[online] rate={rate:g}/s tok/s={rep['tok_s']:.1f} "
               f"ttft p50/p99={rep['ttft_p50_ms']:.0f}/"
               f"{rep['ttft_p99_ms']:.0f}ms itl p50/p99="
@@ -191,7 +239,38 @@ def run_online(cfg, args) -> list:
               f"acc={rep['acceptance_rate']:.2f} "
               f"ticks/tok={rep['decode_ticks_per_token']:.2f} "
               f"prefix_hit_rate={rep['prefix_hit_rate']:.2f}")
+        if rep["slo"] is not None:
+            print(f"[online] slo {rep['slo']}")
         reports.append(rep)
+    if args.report:
+        with open(args.report, "w") as f:
+            json.dump({"bench": "online continuous-batching serving (paged "
+                                "KV), PyTorch port",
+                       "arch": cfg.arch_id + (" smoke" if args.smoke else ""),
+                       "device": str(runner.device),
+                       "engine": {"max_slots": ocfg.max_slots,
+                                  "page_size": ocfg.page_size,
+                                  "n_pages": ocfg.pool_pages(),
+                                  "prefill_chunk": ocfg.prefill_chunk,
+                                  "max_context": ocfg.max_context,
+                                  "moe_dispatch": args.moe_dispatch,
+                                  "paged_attn": args.paged_attn},
+                       "rates": [{k: v for k, v in r.items()
+                                  if k not in ("prompts", "outputs")}
+                                 for r in reports]}, f, indent=1)
+        print(f"[online] report -> {args.report}")
+    if args.trace_out:
+        n = write_chrome_trace(args.trace_out, timer=eng.timer,
+                               request_log=eng.rlog, registry=eng.registry)
+        print(f"[online] trace ({n} events) -> {args.trace_out} "
+              f"(open at https://ui.perfetto.dev)")
+    if server is not None:
+        if args.metrics_hold > 0:
+            # keep /metrics up after the loads drain, for a scrape of the
+            # finished run
+            print(f"[online] holding /metrics for {args.metrics_hold:g}s")
+            time.sleep(args.metrics_hold)
+        server.stop()
     return reports
 
 
@@ -202,7 +281,7 @@ def main(argv=None):
     ap.add_argument("--online", action="store_true",
                     help="continuous-batching engine + Poisson load "
                          "generator (all-attn models); without it the "
-                         "offline Flood engine (rwkv models)")
+                         "offline Flood engine")
     ap.add_argument("--microbatch", type=int, default=4,
                     help="offline: requests per micro-batch")
     ap.add_argument("--stages", type=int, default=2,
@@ -237,8 +316,26 @@ def main(argv=None):
     ap.add_argument("--overload", default="defer",
                     choices=["defer", "shed", "slo"],
                     help="online: full-queue response: 'defer' retries "
-                         "later, 'shed' drops the request ('slo' is not "
-                         "ported yet and raises)")
+                         "later, 'shed' drops the request; 'slo' sheds "
+                         "whenever the windowed latency view says admitting "
+                         "would breach --slo-ttft-ms/--slo-itl-ms")
+    ap.add_argument("--slo-ttft-ms", type=float, default=None,
+                    help="online: windowed p99 TTFT deadline for "
+                         "--overload slo (milliseconds)")
+    ap.add_argument("--slo-itl-ms", type=float, default=None,
+                    help="online: optional windowed p99 inter-token "
+                         "latency deadline for --overload slo")
+    ap.add_argument("--metrics-port", type=int, default=None,
+                    help="online: serve a Prometheus text scrape at "
+                         "http://127.0.0.1:PORT/metrics on a background "
+                         "thread (0 = ephemeral port)")
+    ap.add_argument("--metrics-hold", type=float, default=0.0,
+                    help="online: keep /metrics up for SECONDS after the "
+                         "loads finish")
+    ap.add_argument("--trace-out", default=None,
+                    help="online: write a Chrome trace-event JSON of the "
+                         "run (scheduler phases, slots, counter tracks), "
+                         "viewable at https://ui.perfetto.dev")
     ap.add_argument("--tenant-budgets", default=None,
                     help="online: per-tenant admitted-token caps as "
                          "'name:tokens,name:tokens'; the load generator "
@@ -256,13 +353,27 @@ def main(argv=None):
     ap.add_argument("--prefill-chunk", type=int, default=8,
                     help="prompt tokens prefilled per tick")
     ap.add_argument("--seq", type=int, default=128,
-                    help="max context (prompt + generation) per request")
+                    help="online: max context (prompt + generation) per "
+                         "request; offline: the dense KV caches' length")
     ap.add_argument("--requests", type=int, default=16)
     ap.add_argument("--prompt-len", type=int, default=8)
     ap.add_argument("--max-new", type=int, default=16)
     ap.add_argument("--rates", default="4,16",
                     help="comma-separated Poisson arrival rates (req/s), one "
                          "load run each")
+    ap.add_argument("--shared-prefix-len", type=int, default=0,
+                    help="online: tokens of shared system prompt per "
+                         "request (0 = disjoint prompts)")
+    ap.add_argument("--report", default=None,
+                    help="online: write the load reports as JSON here")
+    ap.add_argument("--moe-dispatch", default="auto",
+                    choices=["auto", "fused", "ragged", "ep"],
+                    help="MoE dispatch: fused (K1) or the plain ragged "
+                         "composition; 'ep' is 'fused' at tp=1")
+    ap.add_argument("--paged-attn", default="auto",
+                    choices=["auto", "fused", "gathered"],
+                    help="paged and dense attention: 'fused' (K3/K4, the "
+                         "default) or the 'gathered' plain combine")
     ap.add_argument("--device", default="cuda",
                     help="cuda (the kernels) or cpu (plain PyTorch)")
     args = ap.parse_args(argv)

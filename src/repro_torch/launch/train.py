@@ -19,9 +19,10 @@ Builds a Runner at tp=1, the synthetic `DataPipeline`, and the `Trainer`
 (AdamW + WSD schedule + accumulation or batch-size warmup + the device
 spike guard, PCache checkpoints), trains from fp32 masters drawn from
 `torch.Generator(device).manual_seed(0)` or resumes from the newest
-checkpoint, and prints the XPUTimer span summary.  The reference's
-multi-device, EDiT and trace flags are accepted and refused: those paths
-are not yet ported.
+checkpoint, and prints the XPUTimer span summary; `--trace-out` writes
+the run's Chrome trace (the trainer's spans and the registry's series).
+The reference's multi-device and EDiT flags are accepted and refused:
+those paths are not yet ported.
 """
 from __future__ import annotations
 
@@ -34,9 +35,10 @@ from repro_torch.core import spikes as spikes_lib
 from repro_torch.data.pipeline import DataPipeline, PipelineConfig
 from repro_torch.models import model as M
 from repro_torch.optim.schedule import AccumWarmup, WSDSchedule
+from repro_torch.telemetry import write_chrome_trace
 from repro_torch.training.trainer import TrainConfig, Trainer
 
-NOT_PORTED = ("dp", "tp", "edit_workers", "trace_out")
+NOT_PORTED = ("dp", "tp", "edit_workers")
 
 
 def main(argv=None):
@@ -75,14 +77,17 @@ def main(argv=None):
     ap.add_argument("--dp", type=int, default=None)
     ap.add_argument("--tp", type=int, default=None)
     ap.add_argument("--edit-workers", type=int, default=None)
-    ap.add_argument("--trace-out", default=None)
+    ap.add_argument("--trace-out", default=None,
+                    help="write a Chrome trace-event JSON of the run "
+                         "(XPUTimer spans + registry series), viewable at "
+                         "https://ui.perfetto.dev")
     args = ap.parse_args(argv)
 
     for name in NOT_PORTED:
         v = getattr(args, name)
         if v and not (name in ("dp", "tp") and v == 1):
             ap.error(f"--{name.replace('_', '-')} is not yet ported to "
-                     f"repro_torch (tp=1, one device, no EDiT, no trace)")
+                     f"repro_torch (tp=1, one device, no EDiT)")
     if args.resume and not args.checkpoint_dir:
         ap.error("--resume needs --checkpoint-dir")
     bs_warmup = None
@@ -118,6 +123,11 @@ def main(argv=None):
     finally:
         trainer.close()
     print(json.dumps(trainer.timer.diagnose()["spans"], indent=1))
+    if args.trace_out:
+        n = write_chrome_trace(args.trace_out, timer=trainer.timer,
+                               registry=trainer.registry)
+        print(f"[train] trace ({n} events) -> {args.trace_out} "
+              f"(open at https://ui.perfetto.dev)")
     if args.report:
         with open(args.report, "w") as f:
             json.dump(history, f, indent=1)

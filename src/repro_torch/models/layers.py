@@ -205,10 +205,13 @@ def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def apply_attention(cfg, params: Params, x: torch.Tensor, *,
-                    causal: bool = True) -> torch.Tensor:
-    """Training attention: x (B, S, d) -> (B, S, d) in the compute dtype.
-    QKV projections, RoPE at positions 0..S-1, causal GQA attention (query
-    head h reads kv head h // (H / KV)), output projection."""
+                    causal: bool = True, return_cache: bool = False):
+    """Training and prefill attention: x (B, S, d) -> (B, S, d) in the
+    compute dtype.  QKV projections, RoPE at positions 0..S-1, causal GQA
+    attention (query head h reads kv head h // (H / KV)), output
+    projection.  With `return_cache` (prefill) it returns (out, {"k",
+    "v"}): the keys after RoPE and the values, (B, S, KV, hd) in the
+    compute dtype, the dense decode cache's layout."""
     ad = AttnDims.build(cfg)
     cdt = dtype_of(cfg.compute_dtype)
     B, S, _ = x.shape
@@ -225,7 +228,10 @@ def apply_attention(cfg, params: Params, x: torch.Tensor, *,
         // max(ad.n_heads // ad.n_kv, 1)
     kv_idx = kv_idx.clamp_max(ad.n_kv - 1)
     out = attention_core(q, k[:, :, kv_idx], v[:, :, kv_idx], causal=causal)
-    return out.reshape(B, S, ad.local_heads * hd) @ params["wo"].to(cdt)
+    out = out.reshape(B, S, ad.local_heads * hd) @ params["wo"].to(cdt)
+    if return_cache:
+        return out, {"k": k, "v": v}
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -443,3 +449,122 @@ def paged_verify_attention(cfg, params: Params, x: torch.Tensor,
                                  paged_attn=paged_attn)
     out = attn.reshape(B * Q, ad.local_heads * hd) @ params["wo"].to(cdt)
     return out, pool
+
+
+# ---------------------------------------------------------------------------
+# Dense KV-cache decode (offline serving, generation-based evaluation)
+# ---------------------------------------------------------------------------
+#
+# A layer's cache is (B, S, KV, hd) in the compute dtype, row s holding the
+# key (after RoPE) and value of position s, as the reference's
+# `init_decode_cache` lays it out at tp=1.  A decode tick writes the new
+# token's row and attends through the paged path's core over a page view
+# of the cache: the contiguous cache read as (B*S/ps, ps, KV, hd) pages,
+# slot b's logical page i being physical page b*S/ps + i, and the mask
+# kpos <= pos.  The reference computes the same function with the paged
+# path's gathered combine (`_decode_scores_combine`), so that dense and
+# paged decode agree by construction; here "fused" (the default) runs K3
+# and K4 over the view, so a dense tick and an online tick at the same
+# context capacity (max_context == S) do the same arithmetic on the card.
+# K3/K4 read validity from the mask alone: the view's page 0 holds real
+# rows and is no scratch page.
+
+DENSE_PAGE = 16     # the view's page size (K3/K4 take pages of <= 32)
+
+DENSE_UNPORTED = ("sliding-window and cross-attention decode caches are "
+                  "not yet ported to repro_torch (ROADMAP queue 1 item 10)")
+
+
+def init_decode_cache(cfg, batch: int, seq_len: int, device,
+                      window: Optional[int] = None) -> Dict[str, torch.Tensor]:
+    """Zeroed dense KV cache for one attention layer, (batch, seq_len, KV,
+    hd) k and v in the compute dtype.  seq_len must be a multiple of
+    DENSE_PAGE (16), the page size of the view a tick attends through: a
+    cache of another length raises rather than being rounded up, since
+    the reference's overflow rule (every cached position valid once pos
+    >= seq_len) would then have to tell padding rows from real ones."""
+    if window:
+        raise NotImplementedError(DENSE_UNPORTED)
+    _check_dense_len(seq_len)
+    cdt = dtype_of(cfg.compute_dtype)
+    shape = (batch, seq_len, cfg.n_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=cdt, device=device),
+            "v": torch.zeros(shape, dtype=cdt, device=device)}
+
+
+def _check_dense_len(seq_len: int):
+    if seq_len < 1 or seq_len % DENSE_PAGE:
+        raise ValueError(f"dense decode caches hold a multiple of "
+                         f"{DENSE_PAGE} positions (the page size of the "
+                         f"view K3/K4 attend through); got {seq_len}")
+
+
+def expand_cache_from_prefill(prefill_cache, seq_len: Optional[int] = None):
+    """Prefill emits (..., B, S_prompt, KV, hd) caches already in decode
+    layout; with `seq_len` the position axis (the third from the end) is
+    padded with zero rows to seq_len, which the decode mask never reads
+    before they are written."""
+    if seq_len is None:
+        return prefill_cache
+    if isinstance(prefill_cache, dict):
+        return {k: expand_cache_from_prefill(v, seq_len)
+                for k, v in prefill_cache.items()}
+    s = prefill_cache.shape[-3]
+    if s > seq_len:
+        raise ValueError(f"prompt of {s} positions exceeds the cache's "
+                         f"seq_len={seq_len}")
+    return F.pad(prefill_cache, (0, 0, 0, 0, 0, seq_len - s))
+
+
+def dense_page_view(batch: int, seq_len: int, pos: int, device):
+    """The page view of a (batch, seq_len) dense cache for a tick writing
+    position `pos` (shared by every sequence):
+    (table (batch, seq_len/16) int32, valid (batch, 1, seq_len) bool).
+    valid is kpos <= pos, so once pos >= seq_len every cached position is
+    valid (the reference's overflow branch).  Identical across layers:
+    the model builds it once per tick."""
+    _check_dense_len(seq_len)
+    n_lp = seq_len // DENSE_PAGE
+    table = torch.arange(batch * n_lp, dtype=torch.int32,
+                         device=device).reshape(batch, n_lp)
+    kpos = torch.arange(seq_len, device=device)
+    valid = (kpos <= pos)[None, None, :].expand(batch, 1, seq_len)
+    return table, valid.contiguous()
+
+
+def _dense_write(cache, k_new, v_new, pos: int, cdt):
+    """Write row `pos` of every sequence's cache in place, only where
+    pos < seq_len (the reference's `owns`; past the end nothing is
+    written)."""
+    if 0 <= pos < cache["k"].shape[1]:
+        cache["k"][:, pos] = k_new.to(cdt)
+        cache["v"][:, pos] = v_new.to(cdt)
+
+
+def decode_attention(cfg, params: Params, x: torch.Tensor,
+                     cache: Dict[str, torch.Tensor], pos: int, *,
+                     window: Optional[int] = None, cross: bool = False,
+                     paged_attn: str = "auto", view=None):
+    """Single-token decode against a dense cache.  x (B, d); cache k/v (B,
+    S, KV, hd), updated in place; pos the position every sequence writes.
+    Projections and RoPE as the paged steps
+    (`_qkv`), the new row written where pos < S, then attention over the
+    cache's page view (`dense_page_view`, or `view` built once per tick)
+    through `_paged_attention_core`.  Returns (out (B, d), cache)."""
+    if window or cross:
+        raise NotImplementedError(DENSE_UNPORTED)
+    ad = AttnDims.build(cfg)
+    cdt = dtype_of(cfg.compute_dtype)
+    B = x.shape[0]
+    _, S, KV, hd = cache["k"].shape
+    pos_b = torch.full((B,), pos, dtype=torch.long, device=x.device)
+    q, k_new, v_new = _qkv(cfg, ad, params, x, pos_b, cdt)
+    _dense_write(cache, k_new, v_new, pos, cdt)
+    table, valid = (view if view is not None
+                    else dense_page_view(B, S, pos, x.device))
+    pool = {name: cache[name].view(B * S // DENSE_PAGE, DENSE_PAGE, KV, hd)
+            for name in ("k", "v")}
+    attn = _paged_attention_core(cfg, ad, q[:, None], pool, table, valid,
+                                 cdt, paged_attn=paged_attn)[:, 0]
+    out = attn.reshape(B, ad.local_heads * hd) @ params["wo"].to(cdt)
+    return out, cache

@@ -1,16 +1,17 @@
 """Model assembly at tp=1 (counterpart of `repro.models.model`):
 parameter init; the forward (training, and the prefill with caches) and
-the loss (`forward`, `loss_fn`); dense decode caches and the greedy
-`prefill` / `decode_step` (rwkv blocks); paged KV pools and the fixed
-shape serving steps of attention models — one paged decode tick over
-every slot, one chunked-prefill chunk for one request, and speculative
-decoding's draft proposals and verify pass.  Every decode, prefill and
-verify step may sample (temperature / top-k / top-p under the
-reference's (seed, position, stream) threefry keys).
+the loss (`forward`, `loss_fn`); dense decode caches and the `prefill` /
+`decode_step` (KV caches of "attn" blocks, the state of "rwkv" blocks);
+paged KV pools and the fixed shape serving steps of attention models —
+one paged decode tick over every slot, one chunked-prefill chunk for one
+request, and speculative decoding's draft proposals and verify pass.
+Every decode, prefill and verify step may sample (temperature / top-k /
+top-p under the reference's (seed, position, stream) threefry keys).
 
-Two block kinds are ported: "attn" (training, and paged serving of
-all-attn models) and "rwkv" (prefill and dense decode).  Other kinds and
-mixed patterns raise NotImplementedError naming their ROADMAP item.
+Two block kinds are ported: "attn" (training, prefill and dense decode,
+and paged serving of all-attn models) and "rwkv" (prefill and dense
+decode).  Other kinds and mixed patterns raise NotImplementedError
+naming their ROADMAP item.
 
 Parameters keep the reference's nested-dict keys with a leading layer
 dim on every `blocks` leaf; a Python loop over layers replaces
@@ -63,9 +64,6 @@ def _ffn_kind(cfg: ModelConfig, layer: int) -> str:
 
 
 # ROADMAP queue 1 items that port what is still missing here
-DENSE_ATTN_DECODE = ("dense decode of 'attn' blocks (a KV cache from the "
-                     "forward, init_caches, decode_step) is not yet ported "
-                     "to repro_torch (ROADMAP queue 1 item 8)")
 RWKV_TRAINING = ("rwkv6 training (the chunked wkv6 formulation and a K6 "
                  "backward) is not yet ported to repro_torch (ROADMAP "
                  "queue 1 item 11)")
@@ -176,7 +174,9 @@ def block_forward(cfg: ModelConfig, params, x, eps, *, B: int, S: int,
                   flags: RunFlags = DEFAULT_FLAGS, want_cache: bool = False):
     """One block: x (T, d) -> (x, aux, metrics, cache or None).  eps
     (T, E) is the layer's router-warmup noise, or None.  "attn" blocks run
-    for training; "rwkv" blocks for inference, where `want_cache` returns
+    for training and, with `train=False`, for inference (the MoE on the
+    serving router), where `want_cache` returns {"self": {"k", "v"}};
+    "rwkv" blocks run for inference, where `want_cache` returns
     {"rwkv": {"wkv", "last_x"}, "cmix_prev"}."""
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
     if kind == "rwkv":
@@ -184,21 +184,27 @@ def block_forward(cfg: ModelConfig, params, x, eps, *, B: int, S: int,
             raise NotImplementedError(RWKV_TRAINING)
         x, cache = _rwkv_block(cfg, params, x, B=B, S=S)
         return x, zero, {}, (cache if want_cache else None)
-    if want_cache or not train:
-        raise NotImplementedError(DENSE_ATTN_DECODE)
     d = cfg.d_model
     h = L.apply_norm(cfg, params["norm1"], x)
-    x = x + L.apply_attention(cfg, params["attn"],
-                              h.reshape(B, S, d)).reshape(B * S, d)
+    out = L.apply_attention(cfg, params["attn"], h.reshape(B, S, d),
+                            return_cache=want_cache)
+    cache = None
+    if want_cache:
+        out, kv = out
+        cache = {"self": kv}
+    x = x + out.reshape(B * S, d)
     h = L.apply_norm(cfg, params["norm2"], x)
-    if ffn == "moe":
+    aux, metrics = zero, {}
+    if ffn == "moe" and train:
         partial, aux, metrics = moe_lib.moe_ffn(
             cfg, params["moe"], h, dispatch=flags.moe_dispatch, train=True,
             step=step, eps=eps)
+    elif ffn == "moe":
+        partial, metrics = moe_lib.moe_ffn(cfg, params["moe"], h,
+                                           dispatch=flags.moe_dispatch)
     else:
         partial = L.apply_mlp(cfg, params["mlp"], h)
-        aux, metrics = zero, {}
-    return x + partial, aux, metrics, None
+    return x + partial, aux, metrics, cache
 
 
 def _stack(trees):
@@ -247,9 +253,9 @@ def forward(cfg: ModelConfig, params, batch, *, step=None, rng=None,
     """batch["tokens"] (B, S) -> (x_final (T, d), aux, metrics, caches).
     `rng`, a threefry key (`models.prng`), draws the router-warmup noise
     (`warmup_noise`); None draws none.
-    With `want_cache` (inference, rwkv blocks) caches is the stacked
-    decode cache the prompt leaves behind (`init_caches`' layout), else
-    None."""
+    With `want_cache` (inference) caches is the stacked decode cache the
+    prompt leaves behind (`init_caches`' layout, attention caches S
+    positions long), else None."""
     tokens = batch["tokens"]
     B, S = tokens.shape
     x = emb.embed_tokens(cfg, params["embed"], tokens.reshape(-1))
@@ -296,34 +302,49 @@ def loss_fn(cfg: ModelConfig, params, batch, *, step=None, rng=None,
     return ce + aux, {"loss/ce": ce, "loss/aux": aux, **block_metrics}
 
 
-# ---- prefill and dense decode (rwkv blocks) --------------------------------
+# ---- prefill and dense decode ----------------------------------------------
 
 
-def init_block_cache(cfg: ModelConfig, kind: str, batch: int,
-                     device) -> Dict[str, Any]:
-    """One layer's zeroed decode cache: the wkv state and the last normed
-    inputs of the time mix and the channel mix."""
-    if kind != "rwkv":
-        raise NotImplementedError(DENSE_ATTN_DECODE)
+def init_block_cache(cfg: ModelConfig, kind: str, batch: int, device,
+                     seq_len: Optional[int] = None) -> Dict[str, Any]:
+    """One layer's zeroed decode cache: for "attn" the KV cache of
+    `seq_len` positions ({"self": {"k", "v"}}, `layers.init_decode_cache`);
+    for "rwkv" the wkv state and the last normed inputs of the time mix
+    and the channel mix (no length: the state does not grow)."""
+    if kind == "attn":
+        if seq_len is None:
+            raise ValueError("an attention model's decode cache needs "
+                             "seq_len")
+        return {"self": L.init_decode_cache(cfg, batch, seq_len, device)}
     return {"rwkv": rwkv_lib.init_decode_state(cfg, batch, device),
             "cmix_prev": torch.zeros((batch, cfg.d_model),
                                      dtype=L.dtype_of(cfg.compute_dtype),
                                      device=device)}
 
 
-def init_caches(cfg: ModelConfig, batch: int, device):
-    """Zeroed dense decode caches with a leading layer dim (rwkv state
-    does not grow with the context, so there is no cache length)."""
+def init_caches(cfg: ModelConfig, batch: int, device,
+                seq_len: Optional[int] = None):
+    """Zeroed dense decode caches with a leading layer dim; `seq_len` is
+    the KV caches' length (attention models), ignored by rwkv."""
     check_ported_blocks(cfg)
-    one = init_block_cache(cfg, cfg.block_pattern[0], batch, device)
+    one = init_block_cache(cfg, cfg.block_pattern[0], batch, device, seq_len)
     return _stack([one] * cfg.n_layers)
 
 
-def block_decode(cfg: ModelConfig, params, x, cache, *, kind: str):
+def block_decode(cfg: ModelConfig, params, x, cache, pos=None, *, kind: str,
+                 ffn: str = "moe", flags: RunFlags = DEFAULT_FLAGS,
+                 view=None):
     """One layer of the decode tick: x (B, d); `cache` the layer's views
-    into the stacked caches, updated in place.  Returns (x, cache)."""
-    if kind != "rwkv":
-        raise NotImplementedError(DENSE_ATTN_DECODE)
+    into the stacked caches, updated in place; `pos` the position every
+    sequence writes (attention; rwkv carries it in its state) and `view`
+    the tick's page view of the KV cache (`layers.dense_page_view`).
+    Returns (x, cache)."""
+    if kind == "attn":
+        h = L.apply_norm(cfg, params["norm1"], x)
+        partial, _ = L.decode_attention(
+            cfg, params["attn"], h, cache["self"], pos,
+            paged_attn=flags.paged_attn, view=view)
+        return _block_ffn(cfg, params, x + partial, ffn, flags), cache
     h = L.apply_norm(cfg, params["norm1"], x)
     partial, _ = rwkv_lib.time_mix_decode(cfg, params["tmix"], h,
                                           cache["rwkv"])
@@ -336,43 +357,59 @@ def block_decode(cfg: ModelConfig, params, x, cache, *, kind: str):
 
 
 def prefill_logits(cfg: ModelConfig, params, batch,
-                   flags: RunFlags = DEFAULT_FLAGS):
+                   flags: RunFlags = DEFAULT_FLAGS,
+                   seq_len: Optional[int] = None):
     """The prompt batch ["tokens"] (B, S) -> (logits (B, Vp) fp32 at each
-    sequence's last token, caches)."""
+    sequence's last token, caches).  Attention caches hold the prompt's S
+    positions, or `seq_len` (zero rows after the prompt's) when given."""
     x, _, _, caches = forward(cfg, params, batch, train=False, flags=flags,
                               want_cache=True)
+    if "self" in caches:
+        caches = L.expand_cache_from_prefill(caches, seq_len)
     B, S = batch["tokens"].shape
     last = x.reshape(B, S, -1)[:, -1]
     return emb.serve_logits(cfg, params["embed"], last), caches
 
 
 def prefill(cfg: ModelConfig, params, batch,
-            flags: RunFlags = DEFAULT_FLAGS):
+            flags: RunFlags = DEFAULT_FLAGS, seq_len: Optional[int] = None):
     """Greedy prefill: (first generated token (B,) int32, caches)."""
-    logits, caches = prefill_logits(cfg, params, batch, flags)
+    logits, caches = prefill_logits(cfg, params, batch, flags, seq_len)
     return emb.sharded_argmax(logits).to(torch.int32), caches
 
 
-def decode_logits(cfg: ModelConfig, params, caches, token):
+def decode_logits(cfg: ModelConfig, params, caches, token, pos=None,
+                  flags: RunFlags = DEFAULT_FLAGS):
     """One token per sequence -> (logits (B, Vp) fp32, caches); the
-    caches update in place."""
+    caches update in place.  Attention models read `pos`, the position
+    every sequence writes (an int)."""
     x = emb.embed_tokens(cfg, params["embed"], token)          # (B, d)
     kind = cfg.block_pattern[0]
+    ffn = _ffn_kind(cfg, cfg.n_layers - 1)
+    view = None
+    if kind == "attn":
+        if pos is None:
+            raise ValueError("an attention model's decode tick needs pos")
+        B, S = caches["self"]["k"].shape[1:3]
+        view = L.dense_page_view(B, S, pos, x.device)
     for i in range(cfg.n_layers):
         x, _ = block_decode(cfg, layer_params(params["blocks"], i), x,
-                            layer_params(caches, i), kind=kind)
+                            layer_params(caches, i), pos, kind=kind,
+                            ffn=ffn, flags=flags, view=view)
     x = L.apply_norm(cfg, params["final_norm"], x)
     return emb.serve_logits(cfg, params["embed"], x), caches
 
 
-def decode_step(cfg: ModelConfig, params, caches, token, pos, sample=None):
+def decode_step(cfg: ModelConfig, params, caches, token, pos, sample=None,
+                flags: RunFlags = DEFAULT_FLAGS):
     """One decode step: token (B,) -> (next (B,) int32, caches).  `pos`,
-    the position being written, is the reference's argument: rwkv blocks
-    carry their position in the state and do not read it (nor any
+    the position being written (shared by every sequence), is the
+    reference's argument: attention blocks write and attend by it; rwkv
+    blocks carry their position in the state and do not read it (nor any
     RunFlags knob), but a sampled step keys its draws by it.  Greedy by
     default; `sample=(seeds, temperature, top_p, top_k)`, (B,) each,
     draws under the online paged path's (seed, pos, stream) schedule."""
-    logits, caches = decode_logits(cfg, params, caches, token)
+    logits, caches = decode_logits(cfg, params, caches, token, pos, flags)
     if sample is None:
         return emb.sharded_argmax(logits).to(torch.int32), caches
     seeds, temp, top_p, top_k = sample

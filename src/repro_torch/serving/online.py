@@ -34,9 +34,18 @@
 * **The radix prefix cache** (`radix_cache=True`, the default): matching
   KV pages attach at admission by content; full pages publish into the
   trie when prefill completes, on release and on preemption.
-
-SLO shedding (`overload="slo"`, `slo`) and the serving telemetry are a
-later slice: asking for them raises NotImplementedError.
+* **Telemetry**: every engine owns a `telemetry.MetricsRegistry`
+  (TTFT/ITL/tick histograms, churn counters, occupancy gauges and
+  per-tick counter-track series), a `telemetry.RequestLog` of each
+  request's lifecycle (enqueue -> admit -> prefill chunks -> first token
+  -> decode -> preempt/requeue -> complete/shed, with ticks and
+  timestamps) and an `XPUTimer` spanning the scheduler phases of every
+  tick, exportable to Perfetto with `telemetry.write_chrome_trace`.  All
+  of it reads host scalars the scheduler already holds: it adds no
+  device-to-host read.  `overload="slo"` closes the loop: a
+  `telemetry.SLOTracker` over the windowed histograms sheds a request at
+  submit time when admitting it would breach the configured TTFT/ITL p99
+  deadlines.
 """
 from __future__ import annotations
 
@@ -51,18 +60,13 @@ import torch
 from repro_torch.models import layers as L
 from repro_torch.models import model as M
 from repro_torch.serving.segment_cache import PageAllocator
+from repro_torch.telemetry.metrics import MetricsRegistry
+from repro_torch.telemetry.request_log import RequestLog
+from repro_torch.telemetry.slo import SLOConfig, SLOTracker
+from repro_torch.telemetry.xputimer import XPUTimer
 
 POLICIES = ("fcfs", "decode-priority", "prefill-priority")
 OVERLOAD = ("defer", "shed", "slo")
-
-_LATER = {
-    "slo": "SLO-aware shedding (serving telemetry, ROADMAP queue 1 item 7)",
-}
-
-
-def _not_yet(knob: str):
-    raise NotImplementedError(f"{knob} is not ported yet: it arrives with "
-                              f"the {_LATER[knob]} slice")
 
 
 @dataclasses.dataclass
@@ -76,9 +80,11 @@ class OnlineConfig:
     (seed + rid) % 2**31.  `spec_k > 0` turns on speculative decoding (a
     drafter is then required) and adds spec_k positions of page-table
     slack, since the verify pass writes k+1 candidate rows before the
-    host commits.  `policy`, `max_queue` + `overload` ("defer" |
-    "shed") and `tenant_budgets` (admitted prompt+max_new tokens per
-    tenant) are host bookkeeping.  `overload="slo"` and `slo` raise."""
+    host commits.  `policy`, `max_queue` + `overload` ("defer" | "shed"
+    | "slo") and `tenant_budgets` (admitted prompt+max_new tokens per
+    tenant) are host bookkeeping.  `overload="slo"` sheds at submit time
+    when the `slo` deadlines (a `telemetry.SLOConfig`) would be breached;
+    `trace_ring` sizes the request lifecycle log."""
     max_slots: int
     max_context: int
     page_size: int = 16
@@ -95,11 +101,8 @@ class OnlineConfig:
     max_queue: Optional[int] = None
     overload: str = "defer"
     tenant_budgets: Optional[Dict[str, int]] = None
-    slo: Optional[Any] = None
-
-    def __post_init__(self):
-        if self.slo is not None or self.overload == "slo":
-            _not_yet("slo")
+    slo: Optional[SLOConfig] = None
+    trace_ring: int = 65536
 
     @property
     def max_pages(self) -> int:
@@ -116,6 +119,8 @@ class OnlineRequest:
     rid: int
     prompt: np.ndarray
     max_new: int
+    prefix_key: Optional[str] = None
+    prefix_len: int = 0              # tokens to auto-publish under prefix_key
     tenant: Optional[str] = None     # admission-budget accounting key
     arrival_t: float = 0.0
     # sampling overrides (None: the OnlineConfig default); the seed is
@@ -126,7 +131,9 @@ class OnlineRequest:
     seed: Optional[int] = None
     out: List[int] = dataclasses.field(default_factory=list)
     state: str = "queued"            # queued | prefill | decode | done | shed
+    admit_t: Optional[float] = None
     first_token_t: Optional[float] = None
+    finish_t: Optional[float] = None
     token_times: List[float] = dataclasses.field(default_factory=list)
     n_preempted: int = 0
     n_decode_ticks: int = 0          # decode or spec ticks this slot rode
@@ -142,9 +149,14 @@ class OnlineRequest:
 class OnlineEngine:
     """Continuous-batching scheduler around the fixed-shape paged steps.
     `step_calls` counts the steps run (prefill chunks, decode ticks, and
-    in spec mode draft and verify passes)."""
+    in spec mode draft and verify passes).  `registry`, `request_log` and
+    `timer` default to fresh ones; `registry`, `rlog` and `timer` hold
+    them."""
 
-    def __init__(self, runner, params, cfg: OnlineConfig, drafter=None):
+    def __init__(self, runner, params, cfg: OnlineConfig, drafter=None,
+                 registry: Optional[MetricsRegistry] = None,
+                 request_log: Optional[RequestLog] = None,
+                 timer: Optional[XPUTimer] = None):
         M.check_paged_support(runner.cfg)
         n_pages = cfg.pool_pages()
         if n_pages - 1 < cfg.max_pages:
@@ -158,6 +170,10 @@ class OnlineEngine:
             raise ValueError(f"overload={cfg.overload!r} not in {OVERLOAD}")
         if cfg.max_queue is not None and cfg.max_queue < 1:
             raise ValueError(f"max_queue={cfg.max_queue} must be >= 1")
+        if cfg.overload == "slo" and cfg.slo is None:
+            raise ValueError(
+                'overload="slo" needs deadlines: set OnlineConfig.slo to a '
+                "telemetry.SLOConfig(ttft_p99_ms=...)")
         self.cfg = cfg
         self.runner = runner
         self.params = params
@@ -219,6 +235,56 @@ class OnlineEngine:
         self.step_calls = {"prefill": 0, "decode": 0, "draft": 0,
                            "verify": 0}
 
+        # -- telemetry: host scalars the scheduler already holds ----------
+        self.registry = registry if registry is not None else MetricsRegistry()
+        self.rlog = (request_log if request_log is not None
+                     else RequestLog(cfg.trace_ring))
+        self.timer = (timer if timer is not None
+                      else XPUTimer(registry=self.registry))
+        if self.timer.registry is None:
+            self.timer.registry = self.registry
+        # the SLOTracker first: it sizes the shared latency histograms'
+        # windows (get-or-create below then returns the same children)
+        self.slo = (SLOTracker(cfg.slo, self.registry)
+                    if cfg.slo is not None else None)
+        reg = self.registry
+        self._m_ttft = reg.histogram(
+            "serve_ttft_ms", "time to first token (admitted requests)")
+        self._m_itl = reg.histogram(
+            "serve_itl_ms", "inter-token latency (decode steps)")
+        self._m_tick = reg.histogram(
+            "serve_tick_ms", "engine tick wall time")
+        self._m_enq = reg.counter(
+            "serve_enqueued_total", "requests accepted into the queue")
+        self._m_admit = reg.counter(
+            "serve_admitted_total", "requests bound to a slot")
+        self._m_done = reg.counter(
+            "serve_completed_total", "requests finished")
+        self._m_shed = reg.counter(
+            "serve_shed_total", "requests rejected by the admission gate")
+        self._m_preempt = reg.counter(
+            "serve_preemptions_total", "slot preempt-and-requeue events")
+        self._m_tokens = reg.counter(
+            "serve_tokens_total", "tokens emitted across all requests")
+        self._m_evict = reg.counter(
+            "serve_cache_evictions_total", "radix-cache pages evicted")
+        self._g_queue = reg.gauge("serve_queue_depth", "arrival queue depth")
+        self._g_pages = reg.gauge(
+            "serve_pages_in_use", "KV pool pages held (requests+cache)")
+        self._g_slots = reg.gauge("serve_slots_active", "occupied slots")
+        # per-tick samples -> Perfetto counter tracks (trace_export)
+        self._s_pages = reg.series("page_pool_occupancy")
+        self._s_queue = reg.series("queue_depth")
+        self._s_radix = reg.series("radix_hit_rate")
+        self._s_accept = reg.series("spec_acceptance") if self.spec else None
+        self._admitted_tokens = 0        # prefill tokens ever admitted
+        self.alloc.on_evict = self._on_evict
+
+    def _on_evict(self, page: int):
+        """PageAllocator hook: one radix-cache page evicted."""
+        self._m_evict.inc()
+        self.rlog.record("evict", -1, tick=self.ticks, arg=page)
+
     def _dev(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(a).to(self.device)
 
@@ -233,8 +299,10 @@ class OnlineEngine:
         """Enqueue a request.  With a bounded queue (`max_queue`) a full
         queue trips the saturation gate: "shed" marks the request shed
         and drops it (counted in `n_shed`), "defer" returns False without
-        touching it, for the caller to retry.  Returns True when
-        enqueued."""
+        touching it, for the caller to retry.  With ``overload="slo"`` the
+        SLOTracker also sheds whenever its windowed latency view says this
+        request could not meet the deadlines (a full queue sheds too).
+        Returns True when enqueued."""
         total = len(req.prompt) + req.max_new
         if total > self.cfg.max_context:
             raise ValueError(f"request {req.rid}: prompt+max_new={total} "
@@ -250,15 +318,38 @@ class OnlineEngine:
                              f"among live requests")
         if req.arrival_t <= 0.0:
             req.arrival_t = time.perf_counter()
+        if self.cfg.overload == "slo":
+            queued_tokens = (sum(len(self.reqs[q].prompt)
+                                 for q in self.queue) + len(req.prompt))
+            if self.slo.should_shed(queued_tokens,
+                                    self.cfg.prefill_chunk) is not None:
+                return self._shed(req)
         if (self.cfg.max_queue is not None
                 and len(self.queue) >= self.cfg.max_queue):
-            if self.cfg.overload == "shed":
-                req.state = "shed"
-                self.n_shed += 1
+            if self.cfg.overload in ("shed", "slo"):
+                return self._shed(req)
             return False
         self.reqs[req.rid] = req
         self.queue.append(req.rid)
+        self._m_enq.inc()
+        self.rlog.record("enqueue", req.rid, tick=self.ticks)
         return True
+
+    def _shed(self, req: OnlineRequest) -> bool:
+        req.state = "shed"
+        self.n_shed += 1
+        self._m_shed.inc()
+        if self.slo is not None:
+            self.slo.on_shed()
+        self.rlog.record("shed", req.rid, tick=self.ticks)
+        return False
+
+    def register_prefix(self, rid: int, key: str, n_tokens: int):
+        """Publish a live request's leading full pages for prefix reuse;
+        later submissions carrying `prefix_key=key` skip prefilling the
+        shared tokens (with the radix cache off; their prompt must start
+        with the same tokens)."""
+        self.alloc.register_prefix(rid, key, n_tokens)
 
     def submit_many(self, reqs: Sequence[OnlineRequest]):
         for r in reqs:
@@ -300,7 +391,7 @@ class OnlineEngine:
             return cand
         return None
 
-    def _admit(self):
+    def _admit(self, now: float):
         budgets = self.cfg.tenant_budgets or {}
         usage = self._tenant_usage() if budgets else {}
         skipped: List[int] = []
@@ -318,10 +409,16 @@ class OnlineEngine:
                                      np.asarray(r.out[:-1], np.int32)])
                      if r.out else np.asarray(r.prompt, np.int32)
                      ).astype(np.int32)
-            shared = self.alloc.admit(
-                rid, tokens=r.fed if self.cfg.radix_cache else None)
+            if self.cfg.radix_cache:
+                shared = self.alloc.admit(rid, tokens=r.fed)
+            else:
+                # the keyed attach, capped at the original prompt: shared
+                # pages must never receive this request's writes
+                shared = self.alloc.admit(rid, prefix_key=r.prefix_key,
+                                          prompt_len=len(r.prompt))
             r.prefill_pos = min(shared, max(len(r.fed) - 1, 0))
             r.state = "prefill"
+            r.admit_t = now
             self.slot_rid[slot] = rid
             self.slot_seq[slot] = self._seq
             self._seq += 1
@@ -340,6 +437,10 @@ class OnlineEngine:
             self.topps[slot] = r.top_p if r.top_p is not None else cfg.top_p
             self.topks[slot] = r.top_k if r.top_k is not None else cfg.top_k
             self.admission_log.append(rid)
+            self._m_admit.inc()
+            self._admitted_tokens += len(r.fed)
+            self.rlog.record("admit", rid, slot=slot, tick=self.ticks,
+                             arg=len(r.fed))
         # over-budget holds return to the queue head in FCFS order
         for cand in reversed(skipped):
             self.queue.appendleft(cand)
@@ -366,7 +467,7 @@ class OnlineEngine:
                if r.out else np.asarray(r.prompt, np.int32))
         return seq[:written].astype(np.int32)
 
-    def _finish(self, slot: int):
+    def _finish(self, slot: int, now: float):
         rid = int(self.slot_rid[slot])
         r = self.reqs[rid]
         if self.cfg.radix_cache:
@@ -374,7 +475,11 @@ class OnlineEngine:
         else:
             self.alloc.release(rid)
         r.state = "done"
+        r.finish_t = now
         r.fed = None
+        self._m_done.inc()
+        self.rlog.record("complete", rid, slot=slot, tick=self.ticks,
+                         arg=len(r.out))
         self._clear_slot(slot)
 
     def _preempt_slot(self, slot: int):
@@ -392,6 +497,9 @@ class OnlineEngine:
         self.queue.appendleft(rid)
         self._clear_slot(slot)
         self.n_preemptions += 1
+        self._m_preempt.inc()
+        self.rlog.record("preempt", rid, slot=slot, tick=self.ticks)
+        self.rlog.record("requeue", rid, tick=self.ticks)
 
     def _make_room(self, rid: int, n_tokens: int,
                    allow_preempt: bool = True) -> bool:
@@ -454,6 +562,8 @@ class OnlineEngine:
                                             chunk_d, r.prefill_pos, n_valid,
                                             table_d)
         r.prefill_pos += n_valid
+        self.rlog.record("prefill_chunk", rid, slot=slot, tick=self.ticks,
+                         arg=n_valid)
         if r.prefill_pos < len(r.fed):
             return True                 # more chunks to go
         # prompt (+ replayed tokens) fully written: enter decode state
@@ -461,15 +571,26 @@ class OnlineEngine:
         self.lens[slot] = len(r.fed)
         self.active[slot] = True
         r.state = "decode"
+        self.rlog.record("prefill_done", rid, slot=slot, tick=self.ticks,
+                         arg=len(r.fed))
         if self.cfg.radix_cache:
             self.alloc.publish_radix(rid, r.fed)
+        elif (r.prefix_key and r.prefix_len > 0
+                and r.prefix_key not in self.alloc.prefix_index):
+            # keyed auto-publish: the first request to finish its prefill
+            self.alloc.register_prefix(rid, r.prefix_key,
+                                       min(r.prefix_len, len(r.prompt)))
         if not r.out:
             tok = int(nxt)      # one device->host read per finished prefill
             r.out.append(tok)
             r.first_token_t = t
             r.token_times.append(t)
+            self._m_tokens.inc()
+            self.rlog.record("first_token", rid, slot=slot, tick=self.ticks)
+            if r.arrival_t > 0.0:
+                self._m_ttft.observe((t - r.arrival_t) * 1e3)
             if len(r.out) >= r.max_new or tok == self.cfg.eos_id:
-                self._finish(slot)
+                self._finish(slot, t)
                 return True
         self.tok[slot] = r.out[-1]
         return True
@@ -505,16 +626,22 @@ class OnlineEngine:
         t = time.perf_counter()
         for slot in np.flatnonzero(self.active):
             slot = int(slot)
-            r = self.reqs[int(self.slot_rid[slot])]
+            rid = int(self.slot_rid[slot])
+            r = self.reqs[rid]
             # nxt is host data since the drain above
             tok = int(nxt[slot])  # flopcheck: disable=FC-HOSTSYNC
+            if r.token_times:
+                self._m_itl.observe((t - r.token_times[-1]) * 1e3)
             r.out.append(tok)
             r.token_times.append(t)
             r.n_decode_ticks += 1
             self.lens[slot] += 1
             self.tok[slot] = tok
+            self._m_tokens.inc()
+            self.rlog.record("decode", rid, slot=slot, tick=self.ticks,
+                             arg=1)
             if len(r.out) >= r.max_new or tok == self.cfg.eos_id:
-                self._finish(slot)
+                self._finish(slot, t)
 
     # -- speculative decode (propose -> verify -> commit) ----------------------
     def _spec_tick(self):
@@ -549,6 +676,8 @@ class OnlineEngine:
             self.spec_proposed += K
             self.spec_accepted += na
             r.n_decode_ticks += 1
+            if r.token_times:
+                self._m_itl.observe((t - r.token_times[-1]) * 1e3)
             # emit the accepted drafts + the residual/bonus token, cut
             # short by max_new / eos as the plain decode path is
             done = False
@@ -561,8 +690,11 @@ class OnlineEngine:
                 if len(r.out) >= r.max_new or tok_ == self.cfg.eos_id:
                     done = True
                     break
+            self._m_tokens.inc(kept)
+            self.rlog.record("decode", rid, slot=slot, tick=self.ticks,
+                             arg=kept)
             if done:
-                self._finish(slot)
+                self._finish(slot, t)
                 continue
             # commit: the pending token + na accepted drafts are written KV
             # (kept == na + 1 rows from the old len); the new pending
@@ -584,7 +716,7 @@ class OnlineEngine:
     def idle(self) -> bool:
         return not self.queue and not self._busy_slots()
 
-    def tick(self):
+    def tick(self, now: Optional[float] = None):
         """One engine step under the active policy:
 
         * ``fcfs``: admission -> one prefill chunk -> one decode (or
@@ -596,20 +728,54 @@ class OnlineEngine:
           decoders for room if needed, then the decode tick: the head
           request reaches its first token within a tick of admission.
 
-        All three drive the same steps."""
+        All three drive the same steps.  `now` (the caller's clock, for
+        admission timestamps) defaults to the present; the tick's phases
+        are XPUTimer spans, its wall time a `serve_tick_ms` observation."""
+        now = time.perf_counter() if now is None else now
         self.ticks += 1
-        self._admit()
+        t_start = time.perf_counter()
+        step_span = "spec" if self.spec else "decode"
         step = self._spec_tick if self.spec else self._decode_tick
-        if self.policy == "decode-priority":
-            step()
-            self._prefill_tick()
-        elif self.policy == "prefill-priority":
-            while self._prefill_tick():
-                pass
-            step()
-        else:                            # fcfs
-            self._prefill_tick()
-            step()
+        with self.timer.span("tick"):
+            with self.timer.span("admit"):
+                self._admit(now)
+            if self.policy == "decode-priority":
+                with self.timer.span(step_span):
+                    step()
+                with self.timer.span("prefill"):
+                    self._prefill_tick()
+            elif self.policy == "prefill-priority":
+                with self.timer.span("prefill"):
+                    while self._prefill_tick():
+                        pass
+                with self.timer.span(step_span):
+                    step()
+            else:                            # fcfs
+                with self.timer.span("prefill"):
+                    self._prefill_tick()
+                with self.timer.span(step_span):
+                    step()
+        self._m_tick.observe((time.perf_counter() - t_start) * 1e3)
+        self._sample_counters()
+
+    def _sample_counters(self):
+        """Per-tick host-scalar samples -> gauges and Perfetto counter
+        tracks: allocator free-list length, queue length, cumulative
+        stats, nothing on the device."""
+        t_us = int(time.perf_counter() * 1e6)
+        in_use = self.alloc.pages_in_use
+        self._g_pages.set(in_use)
+        self._s_pages.sample(in_use, t_us)
+        depth = len(self.queue)
+        self._g_queue.set(depth)
+        self._s_queue.sample(depth, t_us)
+        self._g_slots.set(int((self.slot_rid >= 0).sum()))
+        hit_rate = (self.alloc.stats["radix_hit_tokens"]
+                    / max(self._admitted_tokens, 1))
+        self._s_radix.sample(hit_rate, t_us)
+        if self._s_accept is not None:
+            self._s_accept.sample(
+                self.spec_accepted / max(self.spec_proposed, 1), t_us)
 
     def run(self, max_ticks: int = 100_000):
         """Drive ticks until every submitted request is done."""
@@ -635,6 +801,8 @@ def run_poisson_load(engine: OnlineEngine, *, rate: float, n_requests: int,
                      prompt_len: Union[int, Tuple[int, int]], max_new: int,
                      vocab_size: int, seed: int = 0,
                      max_ticks: int = 1_000_000,
+                     shared_prefix_len: int = 0,
+                     prefix_key: Optional[str] = None,
                      tenants: Optional[Sequence[str]] = None
                      ) -> Dict[str, Any]:
     """Open-loop Poisson arrivals at `rate` req/s against a live engine.
@@ -646,16 +814,30 @@ def run_poisson_load(engine: OnlineEngine, *, rate: float, n_requests: int,
     and each request's prompt and output tokens (empty when shed).
     With an int `prompt_len` the prompts are drawn exactly as the
     reference's load generator draws them; a (lo, hi) pair draws each
-    prompt's length uniformly from [lo, hi] after that.  A bounded queue
+    prompt's length uniformly from [lo, hi] after that.  With an int
+    `prompt_len` and ``shared_prefix_len > 0`` every prompt starts with
+    the same `shared_prefix_len`-token system prompt (the chat-serving
+    hot-prefix shape): the radix cache attaches it by content, and with
+    the cache off the keyed prefix registry (`prefix_key`) carries it.  A bounded queue
     may defer (the submission is retried) or shed (the request is
-    dropped); `tenants` are dealt to the requests round robin.  The radix
+    dropped, as is one the SLO gate refuses); `tenants` are dealt to the
+    requests round robin.  The radix
     cache is flushed before returning, so repeated loads start cold."""
     rs = np.random.RandomState(seed)
     gaps = rs.exponential(1.0 / rate, size=n_requests)
     arrivals = np.cumsum(gaps)
+    use_key = False
     if isinstance(prompt_len, int):
-        prompts = [rs.randint(0, vocab_size, prompt_len).astype(np.int32)
-                   for _ in range(n_requests)]
+        shared_prefix_len = min(shared_prefix_len, prompt_len)
+        use_key = shared_prefix_len > 0 and not engine.cfg.radix_cache
+        if use_key and prefix_key is None:
+            prefix_key = f"poisson-load-{seed}"
+        shared = rs.randint(0, vocab_size, shared_prefix_len).astype(np.int32)
+        prompts = [np.concatenate([shared, rs.randint(
+            0, vocab_size, prompt_len - shared_prefix_len).astype(np.int32)])
+            for _ in range(n_requests)]
+    elif shared_prefix_len:
+        raise ValueError("shared_prefix_len takes an int prompt_len")
     else:
         lo, hi = prompt_len
         prompts = [rs.randint(0, vocab_size, n).astype(np.int32)
@@ -668,6 +850,8 @@ def run_poisson_load(engine: OnlineEngine, *, rate: float, n_requests: int,
     shed0, skips0 = engine.n_shed, engine.n_budget_skips
     proposed0, accepted0 = engine.spec_proposed, engine.spec_accepted
     reqs = [OnlineRequest(rid=base + i, prompt=prompts[i], max_new=max_new,
+                          prefix_key=(prefix_key if use_key else None),
+                          prefix_len=(shared_prefix_len if use_key else 0),
                           tenant=(tenants[i % len(tenants)] if tenants
                                   else None))
             for i in range(n_requests)]
@@ -691,12 +875,14 @@ def run_poisson_load(engine: OnlineEngine, *, rate: float, n_requests: int,
         if engine.idle and submitted < n_requests:
             time.sleep(min(arrivals[submitted] - (now - t0), 0.01))
             continue
-        engine.tick()
+        engine.tick(now)
     t_end = time.perf_counter()
 
     served = [r for r in reqs if r.state != "shed"]
     assert all(r.done for r in served)
     engine.pop_done()              # keep the engine bounded across loads
+    if use_key and prefix_key in engine.alloc.prefix_index:
+        engine.alloc.drop_prefix(prefix_key)
     engine.alloc.flush_radix()     # repeated loads start cache-cold
     ttft = [r.first_token_t - r.arrival_t for r in served]
     itl: List[float] = []
@@ -712,6 +898,7 @@ def run_poisson_load(engine: OnlineEngine, *, rate: float, n_requests: int,
         "rate_req_s": rate,
         "n_requests": n_requests,
         "prompt_len": [len(p) for p in prompts],
+        "shared_prefix_len": shared_prefix_len,
         "max_new": max_new,
         "policy": engine.policy,
         "radix_cache": engine.cfg.radix_cache,
@@ -738,6 +925,10 @@ def run_poisson_load(engine: OnlineEngine, *, rate: float, n_requests: int,
                               - hit_tok0),
         "cache_evictions": engine.alloc.stats["evictions"] - evict0,
         "allocator": dict(engine.alloc.stats),
+        "overload": engine.cfg.overload,
+        # the SLO gate's windowed view at the end of the run (TTFT above
+        # covers admitted requests only, the deadline's population)
+        "slo": engine.slo.snapshot() if engine.slo is not None else None,
         "prompts": [p.tolist() for p in prompts],
         "outputs": [list(r.out) for r in reqs],
     }

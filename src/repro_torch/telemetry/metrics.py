@@ -1,20 +1,37 @@
-"""Labeled metrics registry: counters, gauges, fixed-bucket histograms
-(own copy of the part of `repro.telemetry.metrics` the trainer and
-`XPUTimer` use).
+"""Labeled metrics registry: counters, gauges, fixed-bucket histograms,
+bounded series (own copy of `repro.telemetry.metrics`).
 
-Zero-host-sync contract: every method on every metric accepts plain
-host-side Python/numpy scalars only.  Passing a `torch.Tensor` is a bug
-(reading a CUDA tensor as a float waits for the device), and
-`_as_host_float` rejects any tensor, so the contract holds structurally.
-Histograms keep fixed buckets plus a bounded window of raw observations
-for windowed percentiles.  All mutation is guarded by a per-metric lock.
+One ``MetricsRegistry`` per engine or trainer holds every metric family;
+``XPUTimer`` publishes span durations into it and the ``OnlineEngine``
+feeds TTFT/ITL/tick-time histograms plus queue/page counters.
+
+Zero-host-sync contract
+-----------------------
+Every method on every metric accepts **plain host-side Python/numpy
+scalars only**: values the caller already holds on the host (loop
+counters, ``time.perf_counter()`` deltas, allocator bookkeeping ints).
+Passing a ``torch.Tensor`` is a bug: reading a CUDA tensor as a float
+waits for the device on the hot path.  ``_as_host_float`` rejects every
+tensor, whatever its device, so the contract holds structurally.
+
+Histograms keep two representations:
+
+* fixed cumulative-style buckets (Prometheus exposition needs
+  ``_bucket{le=...}`` counts, ``_sum`` and ``_count``), and
+* a bounded sliding window of raw observations for *windowed*
+  percentile snapshots (``percentile(99)``), which is what the
+  ``SLOTracker`` consumes: an SLO gate must react to the last N
+  requests, not the lifetime distribution.
+
+All mutation is guarded by a per-metric lock: spans close on the
+Prefetcher/exporter threads while the engine loop observes tick times.
 """
 from __future__ import annotations
 
 import bisect
 import threading
 from collections import deque
-from typing import Dict, Iterable, Tuple
+from typing import Dict, Iterable, List, Tuple
 
 import torch
 
@@ -22,12 +39,13 @@ __all__ = [
     "Counter",
     "Gauge",
     "Histogram",
+    "Series",
     "MetricsRegistry",
     "DEFAULT_MS_BUCKETS",
 ]
 
 # Latency buckets in milliseconds, from sub-millisecond spans through
-# steps of seconds.
+# TTFTs of seconds.
 DEFAULT_MS_BUCKETS = (
     0.5, 1.0, 2.5, 5.0, 10.0, 25.0, 50.0, 100.0,
     250.0, 500.0, 1000.0, 2500.0, 5000.0, 10000.0,
@@ -53,6 +71,12 @@ def _fmt_labels(key: Tuple[Tuple[str, str], ...]) -> str:
         return ""
     inner = ",".join(f'{k}="{v}"' for k, v in key)
     return "{" + inner + "}"
+
+
+def _fmt_value(v: float) -> str:
+    if v == int(v) and abs(v) < 1e15:
+        return str(int(v))
+    return repr(v)
 
 
 class Counter:
@@ -85,6 +109,12 @@ class Gauge:
         v = _as_host_float(v)
         with self._lock:
             self.value = v
+
+    def add(self, n) -> None:
+        n = _as_host_float(n)
+        with self._lock:
+            self.value += n
+
 
 class Histogram:
     """Fixed-bucket histogram plus a bounded window of raw observations.
@@ -131,6 +161,61 @@ class Histogram:
         frac = rank - lo
         return xs[lo] * (1.0 - frac) + xs[hi] * frac
 
+    def window_count(self) -> int:
+        with self._lock:
+            return len(self.window)
+
+    def cumulative(self) -> List[Tuple[float, int]]:
+        """[(le, cumulative_count), ...] ending with (+inf, count)."""
+        with self._lock:
+            counts = list(self.counts)
+        out, running = [], 0
+        for le, c in zip(self.buckets, counts):
+            running += c
+            out.append((le, running))
+        out.append((float("inf"), running + counts[-1]))
+        return out
+
+
+class Series:
+    """Bounded time series of (t_us, value) samples for trace counter
+    tracks (page-pool occupancy, queue depth, radix hit rate, spec
+    acceptance).  Not exposed in Prometheus text — scrapes see the
+    matching Gauge; the series feeds ``trace_export`` "C" events."""
+
+    __slots__ = ("name", "t_us", "values", "head", "_lock")
+
+    def __init__(self, name: str, capacity: int = 4096):
+        self.name = name
+        cap = max(int(capacity), 1)
+        self.t_us = [0] * cap
+        self.values = [0.0] * cap
+        self.head = 0
+        self._lock = threading.Lock()
+
+    def sample(self, v, t_us: int) -> None:
+        v = _as_host_float(v)
+        with self._lock:
+            i = self.head % len(self.values)
+            self.t_us[i] = int(t_us)
+            self.values[i] = v
+            self.head += 1
+
+    def points(self) -> List[Tuple[int, float]]:
+        """Valid samples in chronological order."""
+        with self._lock:
+            n = len(self.values)
+            if self.head <= n:
+                idx = range(self.head)
+            else:
+                start = self.head % n
+                idx = list(range(start, n)) + list(range(start))
+            return [(self.t_us[i], self.values[i]) for i in idx]
+
+    def __len__(self) -> int:
+        return min(self.head, len(self.values))
+
+
 class MetricsRegistry:
     """Get-or-create registry of labeled metric families.
 
@@ -173,13 +258,34 @@ class MetricsRegistry:
         return self._child("histogram", name, help,
                            lambda: Histogram(buckets, window), labels)
 
+    def series(self, name: str, capacity: int = 4096, **labels) -> Series:
+        return self._child("series", name, "",
+                           lambda: Series(name, capacity), labels)
+
+    def get(self, name: str, **labels):
+        """Existing child or None — never creates."""
+        with self._lock:
+            fam = self._families.get(name)
+            if fam is None:
+                return None
+            return fam[2].get(_label_key(labels))
+
+    def all_series(self) -> List[Tuple[str, Tuple[Tuple[str, str], ...], Series]]:
+        with self._lock:
+            return [(name, key, child)
+                    for name, (kind, _h, children) in self._families.items()
+                    if kind == "series"
+                    for key, child in children.items()]
+
     def snapshot(self) -> Dict[str, Dict]:
-        """Plain-dict snapshot (JSON-friendly) of every metric."""
+        """Plain-dict snapshot (JSON-friendly) of every non-series metric."""
         out: Dict[str, Dict] = {}
         with self._lock:
             items = [(n, k, h, dict(c))
                      for n, (k, h, c) in self._families.items()]
         for name, kind, _help, children in items:
+            if kind == "series":
+                continue
             fam_out = out.setdefault(name, {"type": kind, "values": {}})
             for key, child in children.items():
                 label_s = _fmt_labels(key) or "{}"
@@ -193,3 +299,31 @@ class MetricsRegistry:
                 else:
                     fam_out["values"][label_s] = child.value
         return out
+
+    def render_prometheus(self) -> str:
+        """Prometheus text exposition (version 0.0.4) of the registry."""
+        lines: List[str] = []
+        with self._lock:
+            items = [(n, k, h, dict(c))
+                     for n, (k, h, c) in sorted(self._families.items())]
+        for name, kind, help_, children in items:
+            if kind == "series":
+                continue
+            if help_:
+                lines.append(f"# HELP {name} {help_}")
+            lines.append(f"# TYPE {name} {kind}")
+            for key, child in sorted(children.items()):
+                if kind == "histogram":
+                    for le, cum in child.cumulative():
+                        le_s = "+Inf" if le == float("inf") else _fmt_value(le)
+                        lkey = key + (("le", le_s),)
+                        lines.append(
+                            f"{name}_bucket{_fmt_labels(lkey)} {cum}")
+                    lines.append(
+                        f"{name}_sum{_fmt_labels(key)} {_fmt_value(child.sum)}")
+                    lines.append(
+                        f"{name}_count{_fmt_labels(key)} {child.count}")
+                else:
+                    lines.append(
+                        f"{name}{_fmt_labels(key)} {_fmt_value(child.value)}")
+        return "\n".join(lines) + "\n"

@@ -183,6 +183,19 @@ class XPUTimer:
         return len(self.ring) if self.wrapped else min(self.head,
                                                        len(self.ring))
 
+    def records(self) -> np.ndarray:
+        """Copy of the valid ring region in chronological order."""
+        with self._lock:
+            if not self.wrapped:
+                return self.ring[: self.head].copy()
+            start = self.head % len(self.ring)
+            return np.concatenate([self.ring[start:], self.ring[:start]])
+
+    def span_names(self) -> List[str]:
+        """sid -> name mapping (index == sid)."""
+        with self._lock:
+            return list(self._names)
+
     # -- memory accounting (Fig. 4 comparison) --------------------------------
     def memory_bytes(self) -> int:
         return max(self.n_records, 1) * self.ring.itemsize \

@@ -6,7 +6,9 @@ temperature 0, where the reference's sampled decode step is the argmax.
 Both engines reproduce the reference's quirks as written (each request
 feeds its last token; one cache and one position counter are shared by
 every in-flight micro-batch), so the lists match request for request.
-Plus the launcher's offline mode on the CPU and what it refuses, and the
+Ling-Lite's engine (dense KV caches) gives the reference's lists in fp32,
+also once the shared position counter passes the caches' length.  Plus
+the launcher's offline mode on the CPU (rwkv6 and Ling-Lite), and the
 port's copy of the SegmentCache.
 
 Streams: identity is required in fp32.  In bf16 one exception is
@@ -138,8 +140,39 @@ def test_offline_launcher_on_cpu():
                        "--microbatch", "2", "--temperature", "0.7",
                        "--top-p", "0.9", "--top-k", "16", "--seed", "5"])
     assert hot.tokens_out == 4 * 3
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        tserve.main(["--arch", "ling-lite", "--smoke", "--device", "cpu"])
+    # Ling-Lite, the reference's default arch, on dense KV caches of the
+    # default --seq 128 (queue 1 item 8)
+    ling = tserve.main(["--arch", "ling-lite", "--smoke", "--device", "cpu",
+                        "--requests", "4", "--max-new", "3",
+                        "--microbatch", "2"])
+    assert ling.tokens_out == 4 * 3
+
+
+def test_ling_engine_emits_the_references_tokens():
+    """Ling-Lite's Flood engine on dense KV caches, fp32: the reference's
+    token lists request for request, with caches of 16 positions that the
+    shared position counter (18 head calls) passes, after which nothing
+    more is written and every cached position is attended."""
+    seq = 16
+    jc = dataclasses.replace(jcfg("ling-lite"), compute_dtype="float32")
+    tc = dataclasses.replace(tcfg("ling-lite"), compute_dtype="float32")
+    mesh = make_local_mesh(1, 1)
+    want, jstats, jcalls = _run(jflood, JSegmentCache,
+                                jserve.build_model_engine(
+                                    jc, mesh, STAGES, seq, MICRO),
+                                jc.vocab_size, False)
+    runner = japi.Runner(jc, mesh, fsdp=False, seq_parallel=False,
+                         max_seq=seq)
+    params = interop.params_from_numpy(
+        jax.tree.map(np.asarray, runner.init_params(0)), tc, device="cpu")
+    got, tstats, tcalls = _run(tflood, SegmentCache,
+                               tserve.build_model_engine(
+                                   tapi.Runner(tc, device="cpu"), params,
+                                   STAGES, MICRO, seq),
+                               tc.vocab_size, False)
+    assert len(tcalls) == len(jcalls) == N_REQ * MAX_NEW // MICRO > seq
+    assert tcalls == jcalls and got == want
+    assert tstats.tokens_out == jstats.tokens_out == N_REQ * MAX_NEW
 
 
 def test_segment_cache_copy_matches_reference():

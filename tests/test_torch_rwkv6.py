@@ -36,6 +36,7 @@ from repro_torch import interop
 from repro_torch.configs.base import get_config as tfull
 from repro_torch.configs.base import get_smoke_config as tcfg
 from repro_torch.kernels import build
+from repro_torch.models import layers as TL
 from repro_torch.models import model as TM
 from repro_torch.models import rwkv6 as TR6
 from repro_torch.serving.online import OnlineConfig, OnlineEngine
@@ -293,11 +294,17 @@ def test_unported_paths_raise_naming_their_roadmap_item():
              "labels": torch.zeros((1, 4), dtype=torch.long)}
     with pytest.raises(NotImplementedError, match="rwkv6 training"):
         TM.loss_fn(rwkv.cfg, params, batch)
+    # Ling's dense decode (queue 1 item 8) is ported: its caches need a
+    # length, and the prefill leaves one row per prompt position; sliding
+    # windows stay item 10's
     ling = tapi.Runner(tcfg("ling-lite"), device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
+    with pytest.raises(ValueError, match="seq_len"):
         ling.init_caches(1)
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        ling.make_prefill()(ling.init_params(0), {"tokens": batch["tokens"]})
+    _, caches = ling.make_prefill()(ling.init_params(0),
+                                    {"tokens": batch["tokens"]})
+    assert caches["self"]["k"].shape[1:3] == (1, 4)
+    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
+        TL.init_decode_cache(ling.cfg, 1, 16, "cpu", window=8)
     mixed = dataclasses.replace(tcfg("ling-lite"),
                                 block_pattern=("attn", "rwkv"))
     with pytest.raises(NotImplementedError, match="queue 1 item 10"):

@@ -5,7 +5,7 @@ requests (a plain run, a pool small enough to force preemption, and a
 shared prompt prefix that hits the radix cache) — greedy streams and
 admission logs must be identical.  Plus the port's own contracts: the
 fused and gathered attention modes and the radix cache on/off give
-identical streams, and unported knobs raise.
+identical streams, and the engine's knobs serve.
 
 Tolerances on logits (fp32, from the final fp32 NormHead): with fp32
 compute the packages differ by fp32 summation order only, 1e-4 of the
@@ -19,6 +19,7 @@ stream may diverge where the reference's top two logits are closer than
 the bf16 tolerance.  A divergence is accepted only when the teacher-forced
 reference logits show such a near-tie at its first divergent step."""
 import dataclasses
+import json
 
 import jax
 import jax.numpy as jnp
@@ -45,6 +46,7 @@ from repro_torch.launch import serve as tserve
 from repro_torch.models import model as TM
 from repro_torch.serving.online import OnlineConfig, OnlineEngine, \
     OnlineRequest
+from repro_torch.telemetry import SLOConfig
 
 PS, C = 8, 8                       # page size and teacher-forcing chunk
 GEO = dict(max_slots=4, max_context=32, page_size=PS, n_pages=9,
@@ -328,16 +330,54 @@ def test_poisson_load_and_cli_on_cpu(smoke, capsys):
     assert "[online] rate=50/s tok/s=" in capsys.readouterr().out
 
 
-def test_unported_knobs_raise(smoke):
-    """SLO shedding (queue 1 item 7) still raises; the sampling,
-    speculation and policy knobs of items 5 and 6 now serve."""
+def test_shared_prefix_load_on_and_off_the_radix_cache(smoke):
+    """run_poisson_load's shared system prompt: the radix cache attaches
+    it by content, and with the cache off the keyed prefix registry
+    carries it (dropped after the load); the streams are the same."""
     tc, params = smoke
-    for kw in (dict(slo=object()), dict(overload="slo")):
-        with pytest.raises(NotImplementedError, match="item 7"):
-            OnlineConfig(max_slots=2, max_context=32, **kw)
+    outs = {}
+    for radix in (True, False):
+        eng = OnlineEngine(tapi.Runner(tc, device="cpu"), params,
+                           OnlineConfig(**dict(GEO, radix_cache=radix)))
+        rep = tserve.run_poisson_load(eng, rate=1e6, n_requests=6,
+                                      prompt_len=12, max_new=3,
+                                      vocab_size=tc.vocab_size, seed=4,
+                                      shared_prefix_len=PS)
+        assert rep["prefix_hits"] >= 1 and rep["shared_prefix_len"] == PS
+        assert len({tuple(p[:PS]) for p in rep["prompts"]}) == 1
+        assert not eng.alloc.prefix_index
+        eng.alloc.check_invariants()
+        outs[radix] = rep["outputs"]
+    assert outs[True] == outs[False]
+
+
+def test_launcher_takes_the_references_serving_flags(tmp_path, capsys):
+    """--shared-prefix-len, --report, --moe-dispatch and --paged-attn (the
+    reference's flags; --tp is multi-device, not yet ported)."""
+    path = tmp_path / "report.json"
+    tserve.main(["--online", "--smoke", "--device", "cpu", "--rates", "1e6",
+                 "--requests", "3", "--max-new", "2", "--prompt-len", "10",
+                 "--shared-prefix-len", "8", "--report", str(path),
+                 "--moe-dispatch", "ragged", "--paged-attn", "gathered"])
+    rep = json.loads(path.read_text())
+    assert rep["engine"]["moe_dispatch"] == "ragged"
+    assert rep["rates"][0]["paged_attn"] == "gathered"
+    assert rep["rates"][0]["shared_prefix_len"] == 8
+    assert "[online] report ->" in capsys.readouterr().out
+
+
+def test_unported_knobs_raise(smoke):
+    """SLO shedding (queue 1 item 7) now serves, and refuses to run
+    without deadlines as the reference's engine does; the sampling,
+    speculation and policy knobs of items 5 and 6 serve too."""
+    tc, params = smoke
     runner = tapi.Runner(tc, device="cpu")
+    with pytest.raises(ValueError, match="SLOConfig"):
+        OnlineEngine(runner, params,
+                     OnlineConfig(**dict(GEO, overload="slo")))
     for kw in (dict(temperature=0.7), dict(policy="decode-priority"),
-               dict(max_queue=2), dict(tenant_budgets={"a": 64})):
+               dict(max_queue=2), dict(tenant_budgets={"a": 64}),
+               dict(overload="slo", slo=SLOConfig(ttft_p99_ms=1e6))):
         eng = OnlineEngine(runner, params, OnlineConfig(**dict(GEO, **kw)))
         assert eng.submit(OnlineRequest(rid=0, prompt=np.ones(3, np.int32),
                                         max_new=2, tenant="a"))

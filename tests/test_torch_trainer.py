@@ -19,6 +19,7 @@ and with it active for 4 of the 6 steps: the port draws the warmup's
 noise under the reference's threefry key schedule (keys bit for bit,
 normals within a few ulps), so both route alike."""
 import dataclasses
+import json
 
 import jax
 import jax.numpy as jnp
@@ -227,10 +228,21 @@ def test_train_launcher_on_the_cpu(capsys):
 
 
 @pytest.mark.parametrize("flag", [["--tp", "2"], ["--edit-workers", "2"],
-                                  ["--trace-out", "x"]])
+                                  ["--dp", "2"]])
 def test_train_launcher_refuses_paths_not_yet_ported(flag):
     with pytest.raises(SystemExit):
         tlaunch.main(["--smoke", "--device", "cpu"] + flag)
+
+
+def test_train_launcher_writes_a_chrome_trace(tmp_path, capsys):
+    path = tmp_path / "train_trace.json"
+    tlaunch.main(["--smoke", "--device", "cpu", "--steps", "2", "--batch",
+                  "2", "--seq", "16", "--trace-out", str(path)])
+    events = json.loads(path.read_text())["traceEvents"]
+    assert "[train] trace (" in capsys.readouterr().out
+    names = {e["args"]["name"] for e in events if e["ph"] == "M"}
+    assert "step" in names
+    assert any(e["ph"] == "X" for e in events)
 
 
 def test_telemetry_takes_host_values_only():
