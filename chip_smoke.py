@@ -45,7 +45,17 @@ Phases, each failing loudly (non-zero exit, no result line):
      dispatch alone; rwkv6's decay kernel at the prefill's 8 x 512 rows,
      a tick's 8 rows and 64 fp32 rows (d = n = 2560), timed the same
      way, and each row's result held bit for bit against the kernel on
-     that row alone (fp32 operations at 67 TFLOP/s in its bound);
+     that row alone (fp32 operations at 67 TFLOP/s in its bound); and
+     the same checks at the shapes of the reference's other
+     uniform-attention architectures: K1 at Ling-Plus's (96 experts
+     top-4, d 8192; T=8 and 64) and granite's (40 experts top-8, ff 512;
+     T=8, 64 and 2048), K2 and the weight gradient at granite's training
+     shapes (2048 tokens x top-8: 16384 rows over 40 experts), K3/K4 at a
+     decode tick (B=8, Q=1) on Ling-Plus's, granite's, deepseek's and
+     phi3's heads (query groups of 8, 3, 1, 1; head_dim 128, 64, 128,
+     96) and, on the heads phase 7b serves (Ling-Plus's and granite's),
+     at the prefill chunk (B=1, Q=64) and a verify pass (B=8, Q=5), and K5 on Ling-Plus's (126464 x 8192) and granite's (49155 x
+     1536) fp32 heads at T=8;
   4. gradients: one full-width MoE layer at T=256, `FusedFFN`'s grads of
      x, w1, w2, w3 and the gates on the kernels against autograd through
      a plain fp32 composition, before and after the cast to bf16;
@@ -93,7 +103,16 @@ Phases, each failing loudly (non-zero exit, no result line):
      armed by one request, then 16 submitted at once: at least one shed,
      serve_tokens_total equal to the tokens emitted, admitted + shed
      equal to submitted, and a Chrome trace written and its events
-     counted;
+     counted; then DPO with packing (`training/dpo.py`): 32 random pairs
+     (numpy seed 0; prompts of 32-256 tokens, responses of 16-256) at
+     max_len 1024 in the padded and the packed layout, each layout's rows
+     through the scoring forward (K1 per layer, K5 head; at most 8 rows a
+     call) and `segment_pooled_logps`, the same model as policy and
+     reference: the padded layout's pooled sums equal `sequence_logps`
+     over its rows within fp32 summation order, the DPO term is log 2,
+     preference_acc 0, everything finite, the pooling repeats its bits;
+     each layout's rows and card time, and the time ratio beside
+     `packing_speedup`'s row ratio;
   7. rwkv6 serving: Ling-Lite freed, full-width rwkv6-3b (32 layers, bf16
      weights from torch.Generator(device="cuda").manual_seed(0)):
      `make_prefill` on 8 prompts of 512 tokens (numpy seed 0), then 32
@@ -110,6 +129,21 @@ Phases, each failing loudly (non-zero exit, no result line):
      A miss of the prefill-vs-ticks checks is printed at once and fails
      the run after phase 8 and the kernels line, so that those still
      report;
+  7b. the reference's other uniform-attention architectures (rwkv6
+     freed), one after the other (ARCH_SERVE): Ling-Plus at full width cut
+     to 8 of its 80 layers (~62 GB of bf16 weights, embedding and fp32
+     head) and granite-moe-3b-a800m whole (32 layers), bf16 weights from
+     torch.Generator(device="cuda").manual_seed(0), each behind an
+     OnlineEngine (8 slots, page 16, chunk 64, context 512, greedy) with
+     8 Poisson requests of 64-256 prompt tokens and 32 new tokens (K1, K3
+     and K4 once per layer per chunk and tick, K5 once per chunk and
+     tick), then one request teacher-forced through the kernels and
+     through the plain modes (ragged MoE, gathered attention, the plain
+     K5): logits within the larger of 2^-5 of the largest and twice the
+     rounding floor, how far the plain modes' logits lie from a witness
+     that launches no kernel either (the kernels' path with every kernel
+     swapped for its plain version); tokens/s,
+     TTFT and ITL p50 and peak memory (< 80 GB) beside the card line;
   8. training: the serving models freed, Ling-Lite at full width cut to 4
      layers, fp32 masters from torch.Generator(device="cuda")
      .manual_seed(0), 4 optimizer steps of the port's Trainer (seq 1024,
@@ -181,11 +215,39 @@ K5_CASES = {"ling head T=8": ("ling-lite", 8),
             "ling head T=4088": ("ling-lite", 4088),
             "rwkv6 head T=8": ("rwkv6-3b", 8),
             "rwkv6 head T=64": ("rwkv6-3b", 64),
-            "rwkv6 head T=65": ("rwkv6-3b", 65)}
+            "rwkv6 head T=65": ("rwkv6-3b", 65),
+            "ling-plus head T=8": ("ling-plus", 8),
+            "granite head T=8": ("granite-moe-3b-a800m", 8)}
 K6_CASES = {"prefill": (8, 512, "bfloat16", False),
             "decode": (8, 1, "bfloat16", False),
             "T=100": (8, 100, "float32", False),
             "decays near 0 and 1": (8, 128, "bfloat16", True)}
+# phase 3's cases at the shapes of the reference's other uniform-attention
+# architectures: K1 (label -> arch, T), K3/K4 (label -> arch, PA_CASES
+# shape; query groups of 8, 3, 1, 1 and head_dim 128, 64, 128, 96): a
+# decode tick's B=8, Q=1 for all four, and for the two phase 7b serves,
+# its 64-row prefill chunk and a speculative verify pass (Q=5) too; and
+# K2 with the weight gradient at granite's training shapes
+K1_ARCH_CASES = {"ling-plus T=8": ("ling-plus", 8),
+                 "ling-plus T=64": ("ling-plus", 64),
+                 "granite T=8": ("granite-moe-3b-a800m", 8),
+                 "granite T=64": ("granite-moe-3b-a800m", 64),
+                 "granite T=2048": ("granite-moe-3b-a800m", 2048)}
+PA_ARCH_CASES = {
+    f"{name} {shape}": (arch, shape)
+    for name, arch, shapes in (
+        ("ling-plus", "ling-plus", ("decode", "prefill", "verify")),
+        ("granite", "granite-moe-3b-a800m", ("decode", "prefill", "verify")),
+        ("deepseek", "deepseek-moe-16b", ("decode",)),
+        ("phi3", "phi3-mini-3.8b", ("decode",)))
+    for shape in shapes}
+K2_ARCH = "granite-moe-3b-a800m"
+# phase 7b: (arch, layers served or None for all): Ling-Plus at full
+# width cut to 8 of its 80 layers (3.51 B parameters a layer, 7.02 GB in
+# bf16, plus 2.07 GB of embedding and a 4.14 GB fp32 head: ~62 GB on an
+# 80 GB card; all 80 layers would be ~567 GB), granite whole (~6.7 GB)
+ARCH_SERVE = (("ling-plus", 8), ("granite-moe-3b-a800m", None))
+
 # phase 3's cases of rwkv6's decay kernel (rows, their dtype) at
 # rwkv6-3b's width: the prefill's 8 x 512 rows, a tick's 8, fp32 rows
 DECAY_CASES = {"prefill": (8 * 512, "bfloat16"), "decode": (8, "bfloat16"),
@@ -551,9 +613,9 @@ def _fp32_first(fp32_operand, candidates):
 
 def check_k2(cfg, gen):
     """K2 at the MoE backward's shapes (T=2048 tokens routed by a random
-    router: 12288 rows over 64 experts, bm=128) and the grouped weight
-    gradient, each in every operand form the backward launches, against
-    their plain versions."""
+    router: at Ling-Lite 12288 rows over 64 experts, at granite 16384
+    over 40, bm=128) and the grouped weight gradient, each in every
+    operand form the backward launches, against their plain versions."""
     import torch
     from repro_torch.kernels import grouped_matmul as gm
     from repro_torch.kernels import ops
@@ -907,7 +969,10 @@ def check_grads(cfg, gen, T: int = 256):
 # ---------------------------------------------------------------------------
 
 
-def serve(cfg, params):
+def serve(cfg, params, n_req: int = 16, tag: str = "serve"):
+    """`n_req` Poisson requests (prompts of 64-256 tokens, 32 new tokens
+    each) through an OnlineEngine: launches per layer and step held,
+    figures printed under `[tag]`.  Returns (report, launches)."""
     import torch
     from repro_torch import api
     from repro_torch.kernels import build
@@ -922,8 +987,8 @@ def serve(cfg, params):
     torch.cuda.reset_peak_memory_stats()
     build.reset_launches()
     eng.step_calls = {k: 0 for k in eng.step_calls}
-    n_req, max_new = 16, 32
-    # 1000 req/s: the 16 arrivals land within a few ms, so all 8 slots
+    max_new = 32
+    # 1000 req/s: the arrivals land within a few ms, so all 8 slots
     # fill at once and stay busy while the queue drains
     rep = run_poisson_load(eng, rate=1000.0, n_requests=n_req,
                            prompt_len=(64, 256), max_new=max_new,
@@ -933,18 +998,18 @@ def serve(cfg, params):
     calls = eng.step_calls
     steps = calls["prefill"] + calls["decode"]
     per_call = cfg.n_layers * steps
-    print(f"[serve] prompts={rep['prompt_len']}")
-    print(f"[serve] requests={n_req} tokens_out={rep['tokens_out']} "
+    print(f"[{tag}] prompts={rep['prompt_len']}")
+    print(f"[{tag}] requests={n_req} tokens_out={rep['tokens_out']} "
           f"prefill_chunks={calls['prefill']} decode_ticks={calls['decode']}"
           f" launches={launches} expected {per_call} of K1/K3/K4 and "
           f"{steps} of normhead_matmul")
-    print(f"[serve] tok/s={rep['tok_s']:.1f} ttft p50/p99="
+    print(f"[{tag}] tok/s={rep['tok_s']:.1f} ttft p50/p99="
           f"{rep['ttft_p50_ms']:.1f}/{rep['ttft_p99_ms']:.1f}ms itl p50/p99="
           f"{rep['itl_p50_ms']:.2f}/{rep['itl_p99_ms']:.2f}ms "
           f"wall={rep['wall_s']:.2f}s preempts={rep['preemptions']} "
           f"max_memory_allocated={torch.cuda.max_memory_allocated() / 2**30:.2f}GiB")
     tick = eng.registry.get("serve_tick_ms")
-    print(f"[serve] telemetry on: serve_tick_ms p50={tick.percentile(50):.2f}"
+    print(f"[{tag}] telemetry on: serve_tick_ms p50={tick.percentile(50):.2f}"
           f"ms mean={tick.sum / max(tick.count, 1):.2f}ms over {tick.count} "
           f"ticks (window {tick.window_count()}), request log "
           f"{eng.rlog.counts()}")
@@ -952,7 +1017,7 @@ def serve(cfg, params):
         fail(f"served {rep['tokens_out']} tokens, expected {n_req * max_new}")
     for name, n in launches.items():
         want = (per_call if name in SERVE_KERNELS else
-                steps if name == "normhead_matmul" else 0)
+                steps * cfg.norm_head if name == "normhead_matmul" else 0)
         if n != want:
             fail(f"{name} launched {n} times in serving, expected {want} "
                  f"({cfg.n_layers} layers, {calls})")
@@ -1416,6 +1481,196 @@ def dense_serve(cfg, params, base, card):
     return dense_launches, flood_launches, score_launches
 
 
+def dpo_check(cfg, params, card):
+    """Phase 6c's DPO with packing on phase 5's model: 32 random pairs
+    (numpy seed 0; prompts of 32-256 tokens, responses of 16-256), max_len
+    1024, in the padded and the packed layout; each layout's rows through
+    the forward that make_score_fn runs (K1 per layer, the K5 head), at
+    most 8 rows a call (8 x 1024 fp32 logits of the 126464-token
+    vocabulary: 4.1 GB), pooled per (pair, chosen / rejected) by
+    `segment_pooled_logps`.  The same model is policy and reference.
+    Held: the padded layout's pooled sums are `sequence_logps` of its rows
+    (within fp32 summation order: n * 2^-24 * the sum of the n terms'
+    magnitudes), both layouts count the same chosen tokens, the DPO term
+    is log 2 to fp32 rounding, preference_acc 0, everything finite, the
+    pooling repeats its bits on the same logits, and the launches per
+    call.  The packed sums differ from the padded ones (a packed segment
+    attends to the segments before it in its row) and are printed.  Each
+    layout's ms is the card's time (CUDA events) of its forwards, heads
+    and poolings.  Returns the launches of the packed pass."""
+    import math
+
+    import numpy as np
+    import torch
+    from repro_torch.kernels import build
+    from repro_torch.models import embedding as emb
+    from repro_torch.models import model as M
+    from repro_torch.training import dpo
+    n_pairs, max_len, per_call = 32, 1024, 8
+    rs = np.random.RandomState(0)
+    draw = lambda lo, hi: rs.randint(0, cfg.vocab_size,
+                                     rs.randint(lo, hi + 1)).astype(np.int32)
+    pairs = [dpo.PairExample(prompt=draw(32, 256), chosen=draw(16, 256),
+                             rejected=draw(16, 256)) for _ in range(n_pairs)]
+    padded = dpo.pad_pairs(pairs, max_len)
+    packed = dpo.pack_pairs(pairs, max_len)
+    speed = dpo.packing_speedup(pairs, max_len)
+    # the padded layout pooled with one segment a row
+    padded["segment_ids"] = np.repeat(
+        np.arange(2 * n_pairs, dtype=np.int32)[:, None], max_len, 1)
+
+    def run(layout):
+        """(chosen, rejected, counts, |token log p| at response positions
+        (R, S), sequence_logps per row, ms, launches)."""
+        dev = lambda a: torch.from_numpy(np.asarray(a)).cuda()
+        toks, mask = dev(layout["tokens"]).long(), dev(layout["resp_mask"])
+        seg = dev(layout["segment_ids"])
+        R = toks.shape[0]
+        zero = torch.zeros((n_pairs,), device="cuda")
+        chosen, rejected, counts = zero.clone(), zero.clone(), zero.clone()
+        seq_lp, mass = [], []
+        torch.cuda.synchronize()
+        build.reset_launches()
+        events = []
+        for r0 in range(0, R, per_call):
+            rows = slice(r0, min(r0 + per_call, R))
+            b = rows.stop - r0
+            with torch.no_grad():
+                ev = (torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+                ev[0].record()
+                x, _, _, _ = M.forward(cfg, params, {"tokens": toks[rows]},
+                                       train=False)
+                logits = emb.serve_logits(cfg, params["embed"], x) \
+                    .reshape(b, max_len, -1)
+                del x
+                (c, r), n = dpo.segment_pooled_logps(
+                    logits, toks[rows], mask[rows], seg[rows], n_pairs)
+                ev[1].record()
+                events.append(ev)
+                (c2, r2), _ = dpo.segment_pooled_logps(
+                    logits, toks[rows], mask[rows], seg[rows], n_pairs)
+                if not (torch.equal(c, c2) and torch.equal(r, r2)):
+                    fail("phase 6c: segment_pooled_logps gave other bits on "
+                         "a second run on the same logits")
+                # each segment's terms lie in one call: adding the others'
+                # zeros keeps its bits
+                chosen, rejected, counts = chosen + c, rejected + r, counts + n
+                seq_lp.append(dpo.sequence_logps(logits, toks[rows],
+                                                 mask[rows]))
+                tok = torch.gather(logits, -1, toks[rows][..., None])[..., 0] \
+                    - torch.logsumexp(logits, dim=-1)
+                mass.append((tok * mask[rows]).abs())
+                del logits, tok
+        torch.cuda.synchronize()
+        ms = sum(a.elapsed_time(b) for a, b in events)
+        launches = dict(build.LAUNCHES)
+        calls = -(-R // per_call)
+        _expect(f"DPO {R} rows", launches,
+                {"fused_moe_ffn": cfg.n_layers * calls,
+                 "normhead_matmul": calls})
+        return (chosen, rejected, counts, torch.cat(mass),
+                torch.cat(seq_lp), ms, launches)
+
+    run(dict(packed, tokens=packed["tokens"][:per_call],
+             resp_mask=packed["resp_mask"][:per_call],
+             segment_ids=packed["segment_ids"][:per_call]))     # warm-up
+    pc, pr, pn, p_mass, p_seq, p_ms, _ = run(padded)
+    kc, kr, kn, k_mass, _, k_ms, launches = run(packed)
+    # fp32 summation order: n terms summed in any order differ by at most
+    # n * 2^-24 * sum |terms|
+    n_tok = torch.from_numpy(padded["resp_mask"].sum(1)).cuda()
+    bar = n_tok * 2.0 ** -24 * p_mass.sum(1)
+    pooled = torch.stack([pc, pr], 1).reshape(-1)
+    err_seq = (pooled - p_seq).abs()
+    # the packed layout's sums against the padded one's: the same tokens
+    # after other rows' segments (the model takes no segment ids), so its
+    # logits differ: printed, not held
+    err_pack = torch.cat([(kc - pc).abs(), (kr - pr).abs()]).max().item()
+    loss, mets = dpo.dpo_loss(kc, kr, kc, kr, chosen_token_count=kn)
+    fin = all(bool(torch.isfinite(t).all()) for t in
+              (pc, pr, kc, kr, loss, mets["nll"]))
+    print(f"[dpo] {n_pairs} pairs, max_len {max_len}: padded {len(pooled)} "
+          f"rows {p_ms:.2f}ms, packed {packed['tokens'].shape[0]} rows "
+          f"{k_ms:.2f}ms (at most {per_call} rows a call); measured time "
+          f"ratio {p_ms / k_ms:.3f} against packing_speedup's row ratio "
+          f"{speed['speedup']:.3f} (useful fraction padded "
+          f"{speed['useful_frac_padded']:.3f}, packed "
+          f"{speed['useful_frac_packed']:.3f}) [{card}]")
+    print(f"[dpo] padded pooled sums against sequence_logps: max "
+          f"{err_seq.max().item():.3e} (bar per row, largest "
+          f"{bar.max().item():.3e}); packed against padded pooled sums "
+          f"(segments after others in a row): max {err_pack:.4f} nats; "
+          f"chosen counts equal: {bool(torch.equal(kn, pn))}; loss "
+          f"{loss.item():.6f} dpo {mets['dpo'].item():.9f} (log 2 = "
+          f"{math.log(2):.9f}) nll {mets['nll'].item():.4f} preference_acc "
+          f"{mets['preference_acc'].item():g}; pooling bit-equal on a "
+          f"second run; launches of the packed pass {launches}")
+    if not fin:
+        fail("phase 6c: DPO log-probs or loss not finite")
+    if not bool((err_seq <= bar).all()):
+        fail(f"phase 6c: padded pooled sums differ from sequence_logps by "
+             f"{err_seq.max().item()} (bar {bar.min().item()} ..)")
+    if not torch.equal(kn, pn):
+        fail("phase 6c: the layouts' chosen token counts differ")
+    if not abs(mets["dpo"].item() - math.log(2)) <= 2.0 ** -23:
+        fail(f"phase 6c: DPO term {mets['dpo'].item()} is not log 2")
+    if mets["preference_acc"].item() != 0.0:
+        fail("phase 6c: preference_acc is not 0 with policy = reference")
+    return launches
+
+
+def serve_archs(card, gen):
+    """Phase 7b: ARCH_SERVE's models in turn, each from
+    torch.Generator(device="cuda").manual_seed(0) in bf16, through an
+    OnlineEngine (8 slots, page 16, chunk 64, context 512, greedy): 8
+    requests with prompts of 64-256 tokens and 32 new tokens (`serve`:
+    K1, K3, K4 once per layer per chunk and tick, K5 once per chunk and
+    tick: every one of them has a NormHead), then one request
+    teacher-forced through the kernels and through the plain modes
+    (ragged MoE, gathered attention, plain K5), logits within the larger
+    of 2^-5 of the largest and twice the plain witness's gap
+    (`end_to_end`);
+    peak memory under 80 GB.  Returns {arch: launches}."""
+    import torch
+    from repro_torch import api
+    from repro_torch.configs.base import cut_depth, get_config
+    out = {}
+    for arch, depth in ARCH_SERVE:
+        full = get_config(arch).n_layers
+        cfg = cut_depth(get_config(arch), depth)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params = api.Runner(cfg, device="cuda").init_params(0)
+        torch.cuda.synchronize()
+        leaves = list(_leaves(params))
+        n_par = sum(t.numel() for t in leaves)
+        size = sum(t.numel() * t.element_size() for t in leaves)
+        m = cfg.moe
+        print(f"[archs] {arch}: {cfg.n_layers} of {full} layers, d="
+              f"{cfg.d_model}, {cfg.n_heads} heads over {cfg.n_kv_heads} of "
+              f"{cfg.head_dim}, "
+              f"{'dense' if m is None else f'{m.n_experts} experts top{m.top_k} ff {m.expert_d_ff} shared {m.n_shared_experts}'}"
+              f", vocab {cfg.vocab_size}: {n_par / 1e9:.3f}B params, "
+              f"{size / 1e9:.2f}GB, init {time.perf_counter() - t0:.1f}s")
+        rep, launches = serve(cfg, params, n_req=8, tag=f"archs {arch}")
+        err, agree = end_to_end(cfg, params, gen, plain_head=True,
+                                witness=True, tag=f"archs {arch}")
+        peak = torch.cuda.max_memory_allocated()
+        print(f"[archs] {arch} ({cfg.n_layers} layers): tok/s="
+              f"{rep['tok_s']:.1f} ttft p50={rep['ttft_p50_ms']:.1f}ms itl "
+              f"p50={rep['itl_p50_ms']:.2f}ms peak max_memory_allocated "
+              f"{peak / 1e9:.2f}GB; kernels vs plain logits {err:.4e}, "
+              f"greedy agreement {agree:.3f} [{card}]")
+        if not peak < 80e9:
+            fail(f"phase 7b: {arch} peak memory {peak / 1e9:.2f} GB >= 80 GB")
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        out[arch] = launches
+    return out
+
+
 # ---------------------------------------------------------------------------
 # phase 7: rwkv6 serving
 # ---------------------------------------------------------------------------
@@ -1452,6 +1707,28 @@ def plain_k5_k6():
         yield
     finally:
         kops.normhead_logits, kops.wkv6 = saved
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """Every serving kernel's plain version in place of the kernel on
+    CUDA tensors: K1 (fp32 products and hidden, the combine in ascending
+    row order), K3/K4 (fp32 scores over the gathered pages, p rounded to
+    bf16 as K4 rounds it), K5 and K6 (`plain_k5_k6`).  The kernels' path
+    computed by plain PyTorch alone; no launch counted."""
+    from repro_torch.kernels import grouped_matmul as gm
+    from repro_torch.kernels import paged_attn as pa
+    saved = (gm.fused_moe_ffn, pa.paged_attn_scores_max,
+             pa.paged_attn_accumulate)
+    gm.fused_moe_ffn = gm.fused_moe_ffn_ref
+    pa.paged_attn_scores_max = pa.paged_attn_scores_max_ref
+    pa.paged_attn_accumulate = pa.paged_attn_accumulate_ref
+    try:
+        with plain_k5_k6():
+            yield
+    finally:
+        (gm.fused_moe_ffn, pa.paged_attn_scores_max,
+         pa.paged_attn_accumulate) = saved
 
 
 def rwkv_serve(card):
@@ -1886,60 +2163,106 @@ def train_resume(card):
     return {"a": launches_a, "b": launches_b}
 
 
-def end_to_end(cfg, params, gen):
-    """Teacher-force one request through the kernels and through the
-    plain modes; compare the logits of every step."""
+E2E_CHUNK, E2E_STEPS = 64, 8     # the teacher-forced request's shape
+
+
+def teacher_forced(cfg, params, tokens, flags):
+    """Logits (1 + E2E_STEPS, Vp) of one request teacher-forced through
+    the paged serving steps with `flags`: a prefill chunk of the first
+    E2E_CHUNK tokens, then a decode tick per following token (slot 0 of
+    8 active, pages of 16, a 512-position table)."""
     import torch
     from repro_torch.models import model as M
-    dev = "cuda"
-    B, C, ps, n_lp, steps = 8, 64, 16, 32, 8
-    tokens = torch.randint(0, cfg.vocab_size, (C + steps,), generator=gen,
-                           device=dev)
+    dev = tokens.device
+    B, C, ps, n_lp, steps = 8, E2E_CHUNK, 16, 32, E2E_STEPS
     table = torch.zeros((B, n_lp), dtype=torch.int32, device=dev)
     table[0, :(C + steps + ps - 1) // ps] = torch.arange(
         1, 1 + (C + steps + ps - 1) // ps, dtype=torch.int32, device=dev)
     active = torch.zeros((B,), dtype=torch.bool, device=dev)
     active[0] = True
+    pools = M.init_paged_caches(cfg, 1 + n_lp, ps, dev)
+    out = []
+    with torch.no_grad():
+        lg, _ = M._paged_prefill_logits(cfg, params, pools, tokens[:C], 0,
+                                        C, table[0], page_size=ps,
+                                        flags=flags)
+        out.append(lg[0])
+        for i in range(steps):
+            tok = torch.zeros((B,), dtype=torch.long, device=dev)
+            tok[0] = tokens[C + i]
+            pos = torch.zeros((B,), dtype=torch.long, device=dev)
+            pos[0] = C + i
+            lg, _ = M._paged_decode_logits(cfg, params, pools, tok, pos,
+                                           table, active, page_size=ps,
+                                           flags=flags)
+            out.append(lg[0])
+    return torch.stack(out)
+
+
+def end_to_end(cfg, params, gen, plain_head: bool = False,
+               witness: bool = False, tag: str = "e2e"):
+    """Teacher-force one request through the kernels and through the
+    plain modes (with `plain_head`, the plain K5 too); compare the logits
+    of every step, within 2^-5 of the largest.  With `witness` the bar is
+    the larger of that and twice the rounding floor: how far the plain
+    modes' logits lie from a second run that launches no kernel either,
+    the kernels' path with every kernel swapped for its plain version
+    (`plain_kernels`).  If the kernels are right, their path and that
+    witness are one computation in two roundings, no farther apart than
+    the two plain runs (which differ in more: bf16 against fp32 MoE
+    hidden and combine, another attention), so the kernels' gap to the
+    plain modes is at most their gap to the witness plus the witness's
+    gap to the plain modes: twice the floor.  A kernel fault adds to the
+    gap and nothing to the floor."""
+    import torch
+    from repro_torch.models import model as M
+    steps = E2E_STEPS
+    tokens = torch.randint(0, cfg.vocab_size, (E2E_CHUNK + steps,),
+                           generator=gen, device="cuda")
 
     def run(flags):
-        pools = M.init_paged_caches(cfg, 1 + n_lp, ps, dev)
-        out = []
-        with torch.no_grad():
-            lg, _ = M._paged_prefill_logits(cfg, params, pools, tokens[:C],
-                                            0, C, table[0], page_size=ps,
-                                            flags=flags)
-            out.append(lg[0])
-            for i in range(steps):
-                tok = torch.zeros((B,), dtype=torch.long, device=dev)
-                tok[0] = tokens[C + i]
-                pos = torch.zeros((B,), dtype=torch.long, device=dev)
-                pos[0] = C + i
-                lg, _ = M._paged_decode_logits(cfg, params, pools, tok, pos,
-                                               table, active, page_size=ps,
-                                               flags=flags)
-                out.append(lg[0])
-        return torch.stack(out)
+        return teacher_forced(cfg, params, tokens, flags)
 
     from repro_torch.kernels import build
     build.reset_launches()
     fused = run(M.RunFlags())
     torch.cuda.synchronize()
     n_k5 = build.LAUNCHES["normhead_matmul"]
-    if n_k5 != 1 + steps:
+    if n_k5 != (1 + steps) * cfg.norm_head:
         fail(f"end to end: normhead_matmul launched {n_k5} times, expected "
              f"{1 + steps} (one per chunk and per step)")
-    plain = run(M.RunFlags(moe_dispatch="ragged", paged_attn="gathered"))
+    with (plain_k5_k6() if plain_head else contextlib.nullcontext()):
+        plain = run(M.RunFlags(moe_dispatch="ragged", paged_attn="gathered"))
     err = (fused - plain).abs().max().item()
     # "ragged" rounds the expert hidden and its scatter-add to bf16 where
     # K1 keeps fp32; over 28 layers that is bf16-level drift in the
     # residual stream, so the logits are held to 2^-5 of their largest
     tol = 2.0 ** -5 * plain.abs().max().item()
+    floor_msg = ""
+    if witness:
+        # at random weights a wide model (Ling-Plus: d 8192, attention
+        # and router logits twice Ling-Lite's spread) turns one bf16 ulp
+        # flipped in a layer's output into percents of the logits, so two
+        # plain runs in other roundings lie that far apart too
+        with plain_kernels():
+            other = run(M.RunFlags())
+        big = plain.abs().max().item()
+        flo = (other - plain).abs().max().item()
+        mid = (fused - other).abs().max().item()
+        tol = max(tol, 2 * flo)
+        floor_msg = (f"; rounding floor (the plain witness against the "
+                     f"plain modes) {flo:.4e} = {flo / big:.4f} of the "
+                     f"largest logit, kernels against the witness "
+                     f"{mid:.4e} = {mid / big:.4f}, gap / floor "
+                     f"{err / max(flo, 1e-30):.3f}; the bar max(2^-5 of "
+                     f"the largest, twice the floor)")
     agree = (fused.argmax(-1) == plain.argmax(-1)).float().mean().item()
-    print(f"[e2e] 1 prefill chunk + {steps} decode steps: logits "
-          f"max_abs_err={err:.4e} (tolerance {tol:.4e}) greedy agreement="
-          f"{agree:.3f}; normhead_matmul launches {n_k5}")
+    print(f"[{tag}] 1 prefill chunk + {steps} decode steps: logits "
+          f"max_abs_err={err:.4e} = {err / plain.abs().max().item():.4f} of "
+          f"the largest (tolerance {tol:.4e}) greedy agreement="
+          f"{agree:.3f}; normhead_matmul launches {n_k5}{floor_msg}")
     if not err <= tol:
-        fail(f"end-to-end logits: {err} > {tol}")
+        fail(f"end-to-end logits ({cfg.arch_id}): {err} > {tol}")
     return err, agree
 
 
@@ -1988,11 +2311,22 @@ def main():
           "train": check_k1(cfg, 2048, gen),
           "score": check_k1(cfg, 4088, gen)}
     torch.cuda.empty_cache()
+    for label, (arch, T) in K1_ARCH_CASES.items():
+        k1[label] = check_k1(get_config(arch), T, gen)
+        torch.cuda.empty_cache()
     k3, k4 = {}, {}
     for label, kw in PA_CASES.items():
         k3[label], k4[label] = check_pa(cfg, label,
                                         paged_case(cfg, gen=gen, **kw))
+    for label, (arch, shape) in PA_ARCH_CASES.items():
+        acfg = get_config(arch)
+        k3[label], k4[label] = check_pa(acfg, label, paged_case(
+            acfg, gen=gen, **PA_CASES[shape]))
     k2, wgrad = check_k2(cfg, gen)
+    rows, wrows = check_k2(get_config(K2_ARCH), gen)
+    k2.update({f"granite {k}": v for k, v in rows.items()})
+    wgrad.update({f"granite {k}": v for k, v in wrows.items()})
+    del rows, wrows
     k5 = {label: check_k5(label, *k5_case(arch, T, gen))
           for label, (arch, T) in K5_CASES.items()}
     k6 = {label: check_k6(label, *k6_case(*case, gen))
@@ -2034,6 +2368,7 @@ def main():
     t0 = time.perf_counter()
     dense_launches, flood_launches, score_launches = dense_serve(
         cfg, params, base, card)
+    dpo_launches = dpo_check(cfg, params, card)
     print(f"[dense] phase 6c took {time.perf_counter() - t0:.1f}s")
 
     # -- 7. rwkv6 serving ---------------------------------------------------
@@ -2043,6 +2378,11 @@ def main():
     rwkv_launches, rwkv_failed = rwkv_serve(card)
     gc.collect()
     torch.cuda.empty_cache()
+
+    # -- 7b. the reference's other uniform-attention architectures ----------
+    t0 = time.perf_counter()
+    arch_launches = serve_archs(card, gen)
+    print(f"[archs] phase 7b took {time.perf_counter() - t0:.1f}s")
 
     # -- 8. training --------------------------------------------------------
     train_launches = train(card)
@@ -2083,7 +2423,11 @@ def main():
                            "rwkv_serve")}
     launches = {"serve": serve_launches, "spec": spec_launches,
                 "dense": dense_launches, "flood_ling": flood_launches,
-                "score": score_launches, "rwkv_serve": rwkv_launches, "train": train_launches,
+                "score": score_launches, "dpo": dpo_launches,
+                "rwkv_serve": rwkv_launches,
+                "serve_ling_plus": arch_launches["ling-plus"],
+                "serve_granite": arch_launches["granite-moe-3b-a800m"],
+                "train": train_launches,
                 "resume_a": resume_launches["a"],
                 "resume_b": resume_launches["b"]}
     rows = []

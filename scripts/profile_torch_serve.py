@@ -35,12 +35,16 @@ Each trace prints device time by kernel (top 20), grouped by layer of
 the port (K1..K6, the rwkv6 decay, dense GEMMs, everything else), and
 the device's busy time and idle share of the window's wall time.
 
-    python3 scripts/profile_torch_serve.py [--only ling-lite|rwkv6-3b]
+    python3 scripts/profile_torch_serve.py [--only ARCH] [--layers N]
                                            [--dense] [--src DIR]
 
-`--only` runs one of the two paths; `--src` runs the port found in DIR
-(for instance an unpacked parent commit's `src`), so that two versions
-can be compared in one call on one card.
+`--only` runs one of the two paths: rwkv6-3b, or the paged serving of
+ARCH (ling-lite, or another ported attention arch such as ling-plus or
+granite-moe-3b-a800m, in place of Ling-Lite), `--layers` serving its
+first N layers at full width (Ling-Plus's 80 do not fit one card; 8
+do); `--src` runs the port found in DIR (for instance an unpacked
+parent commit's `src`), so that two versions can be compared in one call
+on one card.
 
 Needs a CUDA card; prints the card's name and power limit first.
 """
@@ -118,14 +122,15 @@ def trace(label: str, window):
         print(f"[profile]   {ms:9.3f} ms  x{n:<6d} {name[:90]}")
 
 
-def ling_online(dense: bool):
+def ling_online(dense: bool, arch: str = "ling-lite", layers=None):
     import numpy as np
     import torch
     from repro_torch import api
-    from repro_torch.configs.base import get_config
+    from repro_torch.configs.base import cut_depth, get_config
     from repro_torch.serving.online import (OnlineConfig, OnlineEngine,
                                             OnlineRequest)
-    cfg = get_config("ling-lite")
+    cfg = cut_depth(get_config(arch), layers)
+    name = f"{arch} ({cfg.n_layers} layers)"
     runner = api.Runner(cfg, device="cuda")
     params = runner.init_params(0)
     eng = OnlineEngine(runner, params, OnlineConfig(
@@ -156,7 +161,7 @@ def ling_online(dense: bool):
             pre.append(1e3 * (t1 - t0))
         dec.append(1e3 * (t2 - t1))
     med = lambda xs: float(np.median(xs)) if xs else float("nan")
-    print(f"[host] ling-lite: prefill chunk median {med(pre):.2f} ms over "
+    print(f"[host] {name}: prefill chunk median {med(pre):.2f} ms over "
           f"{len(pre)}; decode tick median {med(dec):.2f} ms over "
           f"{len(dec)} (active slots now {int(eng.active.sum())})")
     whole = []
@@ -166,13 +171,13 @@ def ling_online(dense: bool):
         eng.tick()
         torch.cuda.synchronize()
         whole.append(1e3 * (time.perf_counter() - t0))
-    print(f"[host] ling-lite: engine tick median {med(whole):.2f} ms over "
+    print(f"[host] {name}: engine tick median {med(whole):.2f} ms over "
           f"{len(whole)}")
 
     def window():
         for _ in range(TICKS):
             eng.tick()
-    trace(f"ling-lite, {TICKS} ticks", window)
+    trace(f"{name}, {TICKS} ticks", window)
     if dense:
         del eng
         torch.cuda.empty_cache()
@@ -203,14 +208,14 @@ def ling_dense(cfg, runner, params):
         tick()
         torch.cuda.synchronize()
         times.append(1e3 * (time.perf_counter() - t0))
-    print(f"[host] ling-lite dense: decode tick median "
+    print(f"[host] {cfg.arch_id} dense: decode tick median "
           f"{float(np.median(times)):.2f} ms over {TICKS} (B={DENSE_B}, "
           f"positions {DENSE_P}-{state['pos']} of {DENSE_S})")
 
     def window():
         for _ in range(TICKS):
             tick()
-    trace(f"ling-lite dense, {TICKS} ticks", window)
+    trace(f"{cfg.arch_id} dense, {TICKS} ticks", window)
 
 
 def rwkv_dense():
@@ -249,7 +254,10 @@ def rwkv_dense():
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--only", choices=("ling-lite", "rwkv6-3b"))
+    ap.add_argument("--only", help="rwkv6-3b, or the arch whose paged "
+                    "serving to profile (default: ling-lite and rwkv6-3b)")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="the paged arch's first N layers at full width")
     ap.add_argument("--dense", action="store_true",
                     help="also profile Ling-Lite's dense decode ticks "
                          "after the paged ones, on the same model")
@@ -267,10 +275,10 @@ def main():
                          text=True, timeout=60).stdout.strip())
     print(f"[profile] port from {Path(repro_torch.__file__).parent}")
     if args.only != "rwkv6-3b":
-        ling_online(args.dense)
+        ling_online(args.dense, args.only or "ling-lite", args.layers)
         gc.collect()
         torch.cuda.empty_cache()
-    if args.only != "ling-lite":
+    if args.only in (None, "rwkv6-3b"):
         rwkv_dense()
 
 

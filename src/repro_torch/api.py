@@ -138,7 +138,7 @@ class Runner:
     def init_caches(self, batch: int, seq_len: Optional[int] = None):
         """Zeroed dense decode caches for `batch` sequences (leading layer
         dim; see `models.model.init_caches`).  An attention model needs
-        `seq_len`, a multiple of 16 (`layers.init_decode_cache`); rwkv
+        `seq_len`, of any length (`layers.init_decode_cache`); rwkv
         ignores it."""
         return M.init_caches(self.cfg, batch, self.device, seq_len)
 

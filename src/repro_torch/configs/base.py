@@ -89,7 +89,9 @@ class ModelConfig:
 
 # The reference registry; `PORTED` is the subset whose configs resolve here
 # (h2o-danube-1.8b only as a speculative drafter's source config: its
-# "swa" blocks are not built as a model).
+# "swa" blocks are not built as a model).  nemotron-4-15b (layernorm),
+# whisper-tiny (encoder-decoder) and recurrentgemma-2b (RG-LRU) need new
+# blocks (ROADMAP queue 1 item 10).
 ARCH_IDS = [
     "phi3-mini-3.8b",
     "rwkv6-3b",
@@ -104,7 +106,9 @@ ARCH_IDS = [
     "ling-lite",
     "ling-plus",
 ]
-PORTED = ("ling-lite", "rwkv6-3b", "h2o-danube-1.8b")
+PORTED = ("ling-lite", "rwkv6-3b", "h2o-danube-1.8b", "ling-plus",
+          "deepseek-moe-16b", "granite-moe-3b-a800m", "moonshot-v1-16b-a3b",
+          "phi3-mini-3.8b", "chameleon-34b")
 
 _MODULE_FOR = {a: a.replace("-", "_").replace(".", "_") for a in ARCH_IDS}
 
@@ -122,6 +126,18 @@ def _module(arch_id: str):
 
 def get_config(arch_id: str) -> ModelConfig:
     return _module(arch_id).CONFIG
+
+
+def cut_depth(cfg: ModelConfig, n_layers: Optional[int]) -> ModelConfig:
+    """`cfg` at full width with only its first `n_layers` layers (None:
+    all of them): the one form of the depth cut that lets a wide model
+    fit one card (Ling-Plus's 80 layers need ~567 GB; 8 take ~62 GB)."""
+    if n_layers is None:
+        return cfg
+    if not 0 < n_layers <= cfg.n_layers:
+        raise ValueError(f"{cfg.arch_id}: cannot serve {n_layers} of its "
+                         f"{cfg.n_layers} layers")
+    return dataclasses.replace(cfg, n_layers=n_layers)
 
 
 def get_smoke_config(arch_id: str) -> ModelConfig:

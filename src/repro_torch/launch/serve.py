@@ -11,9 +11,16 @@ modes.
         --smoke --device cpu --requests 4 --max-new 8
 
     # offline Ling-Lite (the reference's default arch): dense KV caches
-    # of --seq positions
+    # of --seq positions, of any length
     PYTHONPATH=src python -m repro_torch.launch.serve --arch ling-lite \
-        --smoke --device cpu
+        --smoke --device cpu --seq 100
+
+    # online, on the card: Ling-Plus at full width, its first 8 of 80
+    # layers (~62 GB), or granite-moe-3b-a800m whole
+    PYTHONPATH=src python -m repro_torch.launch.serve --online \
+        --arch ling-plus --layers 8 --slots 8 --prefill-chunk 64 --seq 512
+    PYTHONPATH=src python -m repro_torch.launch.serve --online \
+        --arch granite-moe-3b-a800m --slots 8 --prefill-chunk 64 --seq 512
 
     # online, on the card: full Ling-Lite, random weights
     PYTHONPATH=src python -m repro_torch.launch.serve --online \
@@ -61,7 +68,7 @@ import numpy as np
 import torch
 
 from repro_torch import api
-from repro_torch.configs.base import get_config, get_smoke_config
+from repro_torch.configs.base import cut_depth, get_config, get_smoke_config
 from repro_torch.models import model as M
 from repro_torch.serving.draft import (ConfigDrafter, SelfDrafter,
                                        adapt_drafter_config)
@@ -79,9 +86,9 @@ def build_model_engine(runner, params, n_stages: int, batch: int,
                        top_k: int = 0, seed: int = 0):
     """Real-model Flood engine on the sampled dense decode step (the
     reference's `build_model_engine`, which draws its parameters inside;
-    this one takes them).  `seq_len` is the dense KV caches' length, a
-    multiple of 16 (attention models; rwkv state does not grow and
-    ignores it).  Returns (embed_fn, stage_fns, head_fn).
+    this one takes them).  `seq_len` is the dense KV caches' length, of
+    any length (attention models; rwkv state does not grow and ignores
+    it).  Returns (embed_fn, stage_fns, head_fn).
 
     Reproduces the reference as written: the stages pass activations
     through and the head runs the whole model's decode step; each request
@@ -278,6 +285,9 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="ling-lite")
     ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="serve the arch's first N layers at full width "
+                         "(Ling-Plus's 80 do not fit one card; 8 do)")
     ap.add_argument("--online", action="store_true",
                     help="continuous-batching engine + Poisson load "
                          "generator (all-attn models); without it the "
@@ -378,6 +388,7 @@ def main(argv=None):
                     help="cuda (the kernels) or cpu (plain PyTorch)")
     args = ap.parse_args(argv)
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    cfg = cut_depth(cfg, args.layers)
     if args.online:
         return run_online(cfg, args)
     return run_offline(cfg, args)

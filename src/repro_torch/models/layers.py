@@ -459,15 +459,21 @@ def paged_verify_attention(cfg, params: Params, x: torch.Tensor,
 # key (after RoPE) and value of position s, as the reference's
 # `init_decode_cache` lays it out at tp=1.  A decode tick writes the new
 # token's row and attends through the paged path's core over a page view
-# of the cache: the contiguous cache read as (B*S/ps, ps, KV, hd) pages,
-# slot b's logical page i being physical page b*S/ps + i, and the mask
-# kpos <= pos.  The reference computes the same function with the paged
-# path's gathered combine (`_decode_scores_combine`), so that dense and
-# paged decode agree by construction; here "fused" (the default) runs K3
-# and K4 over the view, so a dense tick and an online tick at the same
-# context capacity (max_context == S) do the same arithmetic on the card.
-# K3/K4 read validity from the mask alone: the view's page 0 holds real
-# rows and is no scratch page.
+# of the cache: the cache read as (B*S16/ps, ps, KV, hd) pages, slot b's
+# logical page i being physical page b*S16/ps + i, with S16 = S rounded up
+# to the page, and the mask kpos <= pos and kpos < S.  So that the view
+# exists for any S, the cache tensors are views of storage that holds S16
+# rows a sequence (`init_decode_cache`, `expand_cache_from_prefill`): their
+# shape is the reference's, and the S16 - S padding rows past each
+# sequence's end stay zero and are never attended.  At a multiple of 16
+# (S16 = S) the tensors are contiguous and the view is a plain reshape.
+# The reference computes the same function with the paged path's gathered
+# combine (`_decode_scores_combine`), so that dense and paged decode agree
+# by construction; here "fused" (the default) runs K3 and K4 over the
+# view, so a dense tick and an online tick at the same context capacity
+# (max_context == S) do the same arithmetic on the card.  K3/K4 read
+# validity from the mask alone: the view's page 0 holds real rows and is
+# no scratch page.
 
 DENSE_PAGE = 16     # the view's page size (K3/K4 take pages of <= 32)
 
@@ -475,35 +481,37 @@ DENSE_UNPORTED = ("sliding-window and cross-attention decode caches are "
                   "not yet ported to repro_torch (ROADMAP queue 1 item 10)")
 
 
+def dense_rows(seq_len: int) -> int:
+    """Rows a sequence's dense cache storage holds: seq_len rounded up to
+    the view's page (DENSE_PAGE)."""
+    if seq_len < 1:
+        raise ValueError(f"a dense decode cache needs seq_len >= 1, got "
+                         f"{seq_len}")
+    return -(-seq_len // DENSE_PAGE) * DENSE_PAGE
+
+
 def init_decode_cache(cfg, batch: int, seq_len: int, device,
-                      window: Optional[int] = None) -> Dict[str, torch.Tensor]:
-    """Zeroed dense KV cache for one attention layer, (batch, seq_len, KV,
-    hd) k and v in the compute dtype.  seq_len must be a multiple of
-    DENSE_PAGE (16), the page size of the view a tick attends through: a
-    cache of another length raises rather than being rounded up, since
-    the reference's overflow rule (every cached position valid once pos
-    >= seq_len) would then have to tell padding rows from real ones."""
+                      window: Optional[int] = None,
+                      lead: Tuple[int, ...] = ()) -> Dict[str, torch.Tensor]:
+    """Zeroed dense KV cache for attention layers: k and v of shape (*lead,
+    batch, seq_len, KV, hd) in the compute dtype (`lead` the stacked layer
+    dim), each a view of zeroed storage of `dense_rows(seq_len)` rows a
+    sequence, the rows the tick's page view reads."""
     if window:
         raise NotImplementedError(DENSE_UNPORTED)
-    _check_dense_len(seq_len)
+    rows = dense_rows(seq_len)
     cdt = dtype_of(cfg.compute_dtype)
-    shape = (batch, seq_len, cfg.n_kv_heads, cfg.head_dim)
-    return {"k": torch.zeros(shape, dtype=cdt, device=device),
-            "v": torch.zeros(shape, dtype=cdt, device=device)}
-
-
-def _check_dense_len(seq_len: int):
-    if seq_len < 1 or seq_len % DENSE_PAGE:
-        raise ValueError(f"dense decode caches hold a multiple of "
-                         f"{DENSE_PAGE} positions (the page size of the "
-                         f"view K3/K4 attend through); got {seq_len}")
+    shape = tuple(lead) + (batch, rows, cfg.n_kv_heads, cfg.head_dim)
+    return {name: torch.zeros(shape, dtype=cdt, device=device)
+            [..., :seq_len, :, :] for name in ("k", "v")}
 
 
 def expand_cache_from_prefill(prefill_cache, seq_len: Optional[int] = None):
     """Prefill emits (..., B, S_prompt, KV, hd) caches already in decode
     layout; with `seq_len` the position axis (the third from the end) is
-    padded with zero rows to seq_len, which the decode mask never reads
-    before they are written."""
+    padded with zero rows to seq_len (views of `dense_rows(seq_len)` rows
+    a sequence, as `init_decode_cache` makes them), which the decode mask
+    never reads before they are written."""
     if seq_len is None:
         return prefill_cache
     if isinstance(prefill_cache, dict):
@@ -513,23 +521,46 @@ def expand_cache_from_prefill(prefill_cache, seq_len: Optional[int] = None):
     if s > seq_len:
         raise ValueError(f"prompt of {s} positions exceeds the cache's "
                          f"seq_len={seq_len}")
-    return F.pad(prefill_cache, (0, 0, 0, 0, 0, seq_len - s))
+    return F.pad(prefill_cache, (0, 0, 0, 0, 0, dense_rows(seq_len) - s)) \
+        [..., :seq_len, :, :]
 
 
 def dense_page_view(batch: int, seq_len: int, pos: int, device):
     """The page view of a (batch, seq_len) dense cache for a tick writing
     position `pos` (shared by every sequence):
-    (table (batch, seq_len/16) int32, valid (batch, 1, seq_len) bool).
-    valid is kpos <= pos, so once pos >= seq_len every cached position is
-    valid (the reference's overflow branch).  Identical across layers:
-    the model builds it once per tick."""
-    _check_dense_len(seq_len)
-    n_lp = seq_len // DENSE_PAGE
+    (table (batch, S16/16) int32, valid (batch, 1, S16) bool) with S16 =
+    `dense_rows(seq_len)`.  valid is kpos <= pos and kpos < seq_len, so
+    once pos >= seq_len every cached position is valid (the reference's
+    overflow branch) and the padding rows never are.  Identical across
+    layers: the model builds it once per tick."""
+    rows = dense_rows(seq_len)
+    n_lp = rows // DENSE_PAGE
     table = torch.arange(batch * n_lp, dtype=torch.int32,
                          device=device).reshape(batch, n_lp)
-    kpos = torch.arange(seq_len, device=device)
-    valid = (kpos <= pos)[None, None, :].expand(batch, 1, seq_len)
+    kpos = torch.arange(rows, device=device)
+    valid = ((kpos <= pos) & (kpos < seq_len))[None, None, :] \
+        .expand(batch, 1, rows)
     return table, valid.contiguous()
+
+
+def dense_pages(t: torch.Tensor) -> torch.Tensor:
+    """A layer's dense cache tensor (B, S, KV, hd) as the page pool of its
+    view, (B*S16/16, 16, KV, hd) over the storage's S16 rows a sequence.
+    Raises on a tensor whose storage does not hold them (a copy of the
+    cache's S rows: only `init_decode_cache` and the prefill lay them
+    out)."""
+    B, S, KV, hd = t.shape
+    row, rows = KV * hd, dense_rows(S)
+    need = (t.storage_offset() + B * rows * row) * t.element_size()
+    if (t.stride()[1:] != (row, hd, 1)
+            or (B > 1 and t.stride(0) != rows * row)
+            or t.untyped_storage().nbytes() < need):
+        raise ValueError(f"a dense cache of {S} positions is read through "
+                         f"storage of {rows} rows a sequence "
+                         f"(init_decode_cache, the prefill); got shape "
+                         f"{tuple(t.shape)}, strides {t.stride()}")
+    return t.as_strided((B * rows // DENSE_PAGE, DENSE_PAGE, KV, hd),
+                        (DENSE_PAGE * row, row, hd, 1))
 
 
 def _dense_write(cache, k_new, v_new, pos: int, cdt):
@@ -556,15 +587,14 @@ def decode_attention(cfg, params: Params, x: torch.Tensor,
     ad = AttnDims.build(cfg)
     cdt = dtype_of(cfg.compute_dtype)
     B = x.shape[0]
-    _, S, KV, hd = cache["k"].shape
+    S = cache["k"].shape[1]
     pos_b = torch.full((B,), pos, dtype=torch.long, device=x.device)
     q, k_new, v_new = _qkv(cfg, ad, params, x, pos_b, cdt)
     _dense_write(cache, k_new, v_new, pos, cdt)
     table, valid = (view if view is not None
                     else dense_page_view(B, S, pos, x.device))
-    pool = {name: cache[name].view(B * S // DENSE_PAGE, DENSE_PAGE, KV, hd)
-            for name in ("k", "v")}
+    pool = {name: dense_pages(cache[name]) for name in ("k", "v")}
     attn = _paged_attention_core(cfg, ad, q[:, None], pool, table, valid,
                                  cdt, paged_attn=paged_attn)[:, 0]
-    out = attn.reshape(B, ad.local_heads * hd) @ params["wo"].to(cdt)
+    out = attn.reshape(B, ad.local_heads * ad.head_dim) @ params["wo"].to(cdt)
     return out, cache

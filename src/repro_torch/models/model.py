@@ -306,16 +306,19 @@ def loss_fn(cfg: ModelConfig, params, batch, *, step=None, rng=None,
 
 
 def init_block_cache(cfg: ModelConfig, kind: str, batch: int, device,
-                     seq_len: Optional[int] = None) -> Dict[str, Any]:
+                     seq_len: Optional[int] = None,
+                     lead=()) -> Dict[str, Any]:
     """One layer's zeroed decode cache: for "attn" the KV cache of
-    `seq_len` positions ({"self": {"k", "v"}}, `layers.init_decode_cache`);
-    for "rwkv" the wkv state and the last normed inputs of the time mix
-    and the channel mix (no length: the state does not grow)."""
+    `seq_len` positions ({"self": {"k", "v"}}, `layers.init_decode_cache`,
+    with the leading dims `lead`); for "rwkv" the wkv state and the last
+    normed inputs of the time mix and the channel mix (no length: the
+    state does not grow)."""
     if kind == "attn":
         if seq_len is None:
             raise ValueError("an attention model's decode cache needs "
                              "seq_len")
-        return {"self": L.init_decode_cache(cfg, batch, seq_len, device)}
+        return {"self": L.init_decode_cache(cfg, batch, seq_len, device,
+                                            lead=lead)}
     return {"rwkv": rwkv_lib.init_decode_state(cfg, batch, device),
             "cmix_prev": torch.zeros((batch, cfg.d_model),
                                      dtype=L.dtype_of(cfg.compute_dtype),
@@ -327,7 +330,11 @@ def init_caches(cfg: ModelConfig, batch: int, device,
     """Zeroed dense decode caches with a leading layer dim; `seq_len` is
     the KV caches' length (attention models), ignored by rwkv."""
     check_ported_blocks(cfg)
-    one = init_block_cache(cfg, cfg.block_pattern[0], batch, device, seq_len)
+    kind = cfg.block_pattern[0]
+    if kind == "attn":      # views of padded storage: not a stack's copy
+        return init_block_cache(cfg, kind, batch, device, seq_len,
+                                lead=(cfg.n_layers,))
+    one = init_block_cache(cfg, kind, batch, device, seq_len)
     return _stack([one] * cfg.n_layers)
 
 

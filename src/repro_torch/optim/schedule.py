@@ -5,6 +5,7 @@
   to `max_lr`, held stable, halved once ~60% of the training tokens are
   consumed (§3.4.1).  The halving point is clamped to the end of the
   warmup ramp so small `total_steps` never give a non-monotone warmup.
+* Annealing: inverse-square-root decay from 1.2e-4 to 1.2e-8 (§3.4.3).
 * Batch-size warmup (§3.4.1): `BatchSizeWarmup` is the raw size schedule;
   `AccumWarmup` the engine-facing form — the microbatch shape stays fixed
   and the global batch grows by scheduling the number of accumulated
@@ -32,6 +33,23 @@ class WSDSchedule:
         warm = self.max_lr * min(step / max(self.warmup_steps, 1), 1.0)
         halve_at = max(self.halve_frac * self.total_steps, self.warmup_steps)
         return warm * (0.5 if step >= halve_at else 1.0)
+
+
+@dataclasses.dataclass(frozen=True)
+class InvSqrtAnnealing:
+    """§3.4.3: anneal from lr_start to lr_end with inverse-sqrt decay,
+    lr(t) = lr_start / sqrt(1 + a t) with a chosen to land on lr_end at
+    `steps`, never below lr_end.  `host` is the reference's name for the
+    same host evaluation."""
+    lr_start: float = 1.2e-4
+    lr_end: float = 1.2e-8
+    steps: int = 10_000
+
+    def __call__(self, step: int) -> float:
+        a = ((self.lr_start / self.lr_end) ** 2 - 1.0) / max(self.steps, 1)
+        return max(self.lr_start / math.sqrt(1.0 + a * step), self.lr_end)
+
+    host = __call__
 
 
 @dataclasses.dataclass(frozen=True)

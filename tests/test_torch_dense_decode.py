@@ -247,6 +247,44 @@ def test_overflow_past_the_cache_matches_reference():
         atol=1e-4 * float(lt.abs().max()), rtol=0)
 
 
+@pytest.mark.parametrize("seq,n_prompt,last", [(100, 12, 18), (20, 8, 28)])
+def test_cache_of_any_length_matches_reference(seq, n_prompt, last):
+    """Dense caches whose length is no multiple of the view's page (16),
+    in fp32: the prefill's caches in the reference's (L, B, seq, KV, hd)
+    shape, then each tick's logits and greedy token teacher-forced on the
+    reference's tokens, past the cache's end for seq 20 (the overflow
+    branch: the padding rows of the page view are never attended)."""
+    m = _models("float32")
+    tc = m["tc"]
+    prompt = _prompt(tc.vocab_size, seed=4, n=n_prompt)
+    jfirst, jcaches = _jax_prefill(m, prompt, seq)
+    tfirst, tcaches = m["trunner"].make_prefill(seq_len=seq)(
+        m["tparams"], {"tokens": torch.from_numpy(prompt).long()})
+    assert tcaches["self"]["k"].shape == (tc.n_layers, B, seq,
+                                          tc.n_kv_heads, tc.head_dim)
+    np.testing.assert_array_equal(tfirst.numpy(), np.asarray(jfirst))
+    jstep = _jax_logits_step(m)
+    tok = np.asarray(jfirst)
+    for pos in range(n_prompt, last):
+        jl, jcaches = jstep(m["jparams"], jcaches, jnp.asarray(tok),
+                            jnp.int32(pos))
+        with torch.no_grad():
+            tl, tcaches = TM.decode_logits(
+                tc, m["tparams"], tcaches, torch.from_numpy(tok.copy()).long(),
+                pos)
+        jl = np.asarray(jl)
+        np.testing.assert_allclose(tl.numpy(), jl,
+                                   atol=1e-4 * np.abs(jl).max(), rtol=0,
+                                   err_msg=f"pos {pos}")
+        np.testing.assert_array_equal(tl.numpy().argmax(-1), jl.argmax(-1))
+        tok = jl.argmax(-1).astype(np.int32)
+    jc_np = _cache_np(jcaches)
+    for name in ("k", "v"):
+        np.testing.assert_allclose(tcaches["self"][name].numpy(),
+                                   jc_np[name], rtol=0,
+                                   atol=1e-5 * np.abs(jc_np[name]).max())
+
+
 # ---------------------------------------------------------------------------
 # the port's own contracts
 # ---------------------------------------------------------------------------
@@ -352,8 +390,17 @@ def test_dense_cache_refusals(smoke):
     runner, params = smoke
     with pytest.raises(ValueError, match="seq_len"):
         runner.init_caches(2)
-    with pytest.raises(ValueError, match="multiple of 16"):
-        runner.init_caches(2, 24)
+    with pytest.raises(ValueError, match="seq_len >= 1"):
+        runner.init_caches(2, 0)
+    # any length is taken: the reference's shape over storage of whole
+    # pages, whose padding rows a copy of the cache would lose
+    odd = runner.init_caches(2, 24)["self"]["k"]
+    cfg = runner.cfg
+    assert odd.shape == (cfg.n_layers, 2, 24, cfg.n_kv_heads, cfg.head_dim)
+    assert TL.dense_pages(odd[0]).shape == (4, 16, cfg.n_kv_heads,
+                                            cfg.head_dim)
+    with pytest.raises(ValueError, match="storage of 32 rows"):
+        TL.dense_pages(odd[0].clone())
     with pytest.raises(NotImplementedError, match="queue 1 item 10"):
         TL.init_decode_cache(runner.cfg, 2, 32, "cpu", window=8)
     caches = runner.init_caches(2, 32)

@@ -150,29 +150,31 @@ def test_offline_launcher_on_cpu():
 
 def test_ling_engine_emits_the_references_tokens():
     """Ling-Lite's Flood engine on dense KV caches, fp32: the reference's
-    token lists request for request, with caches of 16 positions that the
-    shared position counter (18 head calls) passes, after which nothing
-    more is written and every cached position is attended."""
-    seq = 16
+    token lists request for request, with caches of 16 positions, and of
+    13 (no multiple of the page view's 16), that the shared position
+    counter (18 head calls) passes, after which nothing more is written
+    and every cached position is attended."""
     jc = dataclasses.replace(jcfg("ling-lite"), compute_dtype="float32")
     tc = dataclasses.replace(tcfg("ling-lite"), compute_dtype="float32")
     mesh = make_local_mesh(1, 1)
-    want, jstats, jcalls = _run(jflood, JSegmentCache,
-                                jserve.build_model_engine(
-                                    jc, mesh, STAGES, seq, MICRO),
-                                jc.vocab_size, False)
-    runner = japi.Runner(jc, mesh, fsdp=False, seq_parallel=False,
-                         max_seq=seq)
-    params = interop.params_from_numpy(
-        jax.tree.map(np.asarray, runner.init_params(0)), tc, device="cpu")
-    got, tstats, tcalls = _run(tflood, SegmentCache,
-                               tserve.build_model_engine(
-                                   tapi.Runner(tc, device="cpu"), params,
-                                   STAGES, MICRO, seq),
-                               tc.vocab_size, False)
-    assert len(tcalls) == len(jcalls) == N_REQ * MAX_NEW // MICRO > seq
-    assert tcalls == jcalls and got == want
-    assert tstats.tokens_out == jstats.tokens_out == N_REQ * MAX_NEW
+    for seq in (16, 13):
+        want, jstats, jcalls = _run(jflood, JSegmentCache,
+                                    jserve.build_model_engine(
+                                        jc, mesh, STAGES, seq, MICRO),
+                                    jc.vocab_size, False)
+        runner = japi.Runner(jc, mesh, fsdp=False, seq_parallel=False,
+                             max_seq=seq)
+        params = interop.params_from_numpy(
+            jax.tree.map(np.asarray, runner.init_params(0)), tc,
+            device="cpu")
+        got, tstats, tcalls = _run(tflood, SegmentCache,
+                                   tserve.build_model_engine(
+                                       tapi.Runner(tc, device="cpu"), params,
+                                       STAGES, MICRO, seq),
+                                   tc.vocab_size, False)
+        assert len(tcalls) == len(jcalls) == N_REQ * MAX_NEW // MICRO > seq
+        assert tcalls == jcalls and got == want, seq
+        assert tstats.tokens_out == jstats.tokens_out == N_REQ * MAX_NEW
 
 
 def test_segment_cache_copy_matches_reference():
