@@ -63,8 +63,10 @@ Phases, each failing loudly (non-zero exit, no result line):
      torch.Generator(device="cuda").manual_seed(0)) behind an
      OnlineEngine (8 slots, page 16, prefill chunk 64, context 512),
      16 Poisson requests with prompts of 64-256 tokens and 32 new tokens
-     each; K1, K3 and K4 must have launched once per layer and K5 once
-     per prefill chunk and per decode tick;
+     each, every tick under the debug sync guard (`debug_guards=True`: a
+     device->host sync other than the tick's announced drains raises);
+     K1, K3 and K4 must have launched once per layer and K5 once per
+     prefill chunk and per decode tick;
   6. end to end: one request teacher-forced (a 64-token prefill chunk +
      8 decode steps) through the kernels and through the plain modes
      (moe_dispatch="ragged", paged_attn="gathered"), logits compared, K5
@@ -167,6 +169,24 @@ Phases, each failing loudly (non-zero exit, no result line):
      runs are compared to tell the step from the resume.  Prints the
      saves' fetch and write seconds and GB/s, the restores' seconds and
      GB/s, the warmup noise's ms per step and the step times;
+  8c. EDiT local SGD (`core.edit`, the launcher's `--edit-workers`
+     worker step): Ling-Lite at full width cut to 1 layer, 2 workers
+     (each a replica of fp32 masters with its own AdamW moments and
+     spike guard), sync_every 4, 2 rounds (seq 1024, microbatch 2);
+     each sync timed on the card against its bytes bound and checked
+     against `edit_sync` on CPU copies of the same trees (norms within
+     EDIT_NORM_TOL relative, params and momentum within EDIT_TREE_TOL of
+     each leaf's largest); finite records, phase 8's launches per local
+     step (K1 2, K2 6, the weight gradient 3 at 1 layer) and none in a
+     sync, peak memory under 80 GB; local step and sync ms printed;
+  8d. rwkv6 training: the K6 and decay wrappers refuse tensors that
+     require grad; rwkv6-3b at full width cut to 4 of 32 layers (0.68 B
+     parameters), fp32 masters, 4 Trainer steps (seq 1024, microbatch
+     2, accum 2, rwkv_chunk 64, remat, debug guards on) through the
+     reference's plain forms: finite losses, no kernel launched, peak
+     memory under 80 GB, step time and tokens/s printed; then at T=128
+     with fp32 compute the chunked form's loss and gradients against
+     the scan's (RWKV_FORM_LOSS_TOL, RWKV_FORM_GRAD_TOL);
   9. the `kernels` JSON line, the card line, and the result line.
 """
 from __future__ import annotations
@@ -979,8 +999,11 @@ def serve(cfg, params, n_req: int = 16, tag: str = "serve"):
     from repro_torch.serving.online import (OnlineConfig, OnlineEngine,
                                             run_poisson_load)
     runner = api.Runner(cfg, device="cuda")
+    # every tick under the debug sync guard: a device->host sync other
+    # than the tick's announced drains raises
     eng = OnlineEngine(runner, params, OnlineConfig(
-        max_slots=8, max_context=512, page_size=16, prefill_chunk=64))
+        max_slots=8, max_context=512, page_size=16, prefill_chunk=64,
+        debug_guards=True))
     run_poisson_load(eng, rate=100.0, n_requests=2, prompt_len=64,
                      max_new=2, vocab_size=cfg.vocab_size, seed=7)
     torch.cuda.synchronize()
@@ -2163,6 +2186,304 @@ def train_resume(card):
     return {"a": launches_a, "b": launches_b}
 
 
+# ---------------------------------------------------------------------------
+# phase 8c: EDiT local SGD on Ling-Lite
+# ---------------------------------------------------------------------------
+
+# phase 8c's bars on each sync against the port's `edit_sync` on CPU
+# copies of the same trees: the norms (and the averaged norm) 1e-5
+# relative, params and outer momentum 1e-6 of each leaf's largest
+# magnitude (fp32 summation order: the card's reductions against the
+# CPU's)
+EDIT_NORM_TOL, EDIT_TREE_TOL = 1e-5, 1e-6
+
+
+def train_edit(card):
+    """Two EDiT workers (`core.edit.EDiTTrainer` over the launcher's
+    worker step) on Ling-Lite at full width, depth cut to 1 layer: 2
+    rounds of 4 local steps a worker, each sync checked against
+    `edit_sync` on CPU copies of its inputs."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch import api
+    from repro_torch.configs.base import get_config
+    from repro_torch.core import edit as E
+    from repro_torch.core import spikes as spikes_lib
+    from repro_torch.data.pipeline import DataPipeline, PipelineConfig
+    from repro_torch.kernels import build
+    from repro_torch.launch.train import edit_worker_step
+    from repro_torch.optim import adamw
+    cfg = dataclasses.replace(get_config("ling-lite"), n_layers=1)
+    K, H, rounds, B, S = 2, 4, 2, 2, 1024
+    torch.cuda.reset_peak_memory_stats()
+    runner = api.Runner(cfg, device="cuda")
+    pipe = DataPipeline(PipelineConfig(vocab_size=cfg.vocab_size,
+                                       seq_len=S, batch_size=B, seed=0))
+    step = edit_worker_step(runner, spikes_lib.SpikeConfig())
+    step_events = []
+
+    def timed_step(*a):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = step(*a)
+        e1.record()
+        step_events.append((e0, e1))
+        return out
+
+    syncs = []
+    real_sync = E.edit_sync
+
+    def checked_sync(base, workers, ema, outer_m, ecfg):
+        """The card's sync, timed, then the same sync on CPU copies."""
+        to_cpu = lambda tree: E.tree_map(lambda t: t.detach().cpu(), tree)
+        host = (to_cpu(base), [to_cpu(w) for w in workers], to_cpu(ema),
+                to_cpu(outer_m))
+        n_bytes = sum(nbytes(*adamw.leaves(t)) for t in
+                      [base, outer_m] + list(workers))
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        e0.record()
+        out = real_sync(base, workers, ema, outer_m, ecfg)
+        e1.record()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = real_sync(*host, ecfg)
+        cpu_s = time.perf_counter() - t0
+        got_info, want_info = out[3], want[3]
+        rel = {k: float(((got_info[k].cpu() - want_info[k]).abs()
+                         / want_info[k].abs().clamp(min=1e-30)).max())
+               for k in ("pg_norms", "pg_avg_norm", "weights")}
+        tree_err = 0.0
+        for got_t, want_t in ((out[0], want[0]), (out[2], want[2])):
+            for g, w in zip(adamw.leaves(got_t), adamw.leaves(want_t)):
+                scale = float(w.float().abs().max())
+                tree_err = max(tree_err, float(
+                    (g.cpu().float() - w.float()).abs().max())
+                    / max(scale, 1e-30))
+        # bytes: base, K workers, momentum read; params, momentum written
+        out_bytes = n_bytes + sum(nbytes(*adamw.leaves(t))
+                                  for t in (out[0], out[2]))
+        syncs.append({"ms": e0.elapsed_time(e1), "cpu_s": cpu_s,
+                      "bound_ms": bound(out_bytes, 0)[0], "rel": rel,
+                      "tree_err": tree_err,
+                      "kept": got_info["kept"].cpu().tolist(),
+                      "count": int(out[1]["count"])})
+        return out
+
+    t0 = time.perf_counter()
+    params = runner.init_train_params(0)
+    n_par = sum(t.numel() for t in adamw.leaves(params))
+    edit = E.EDiTTrainer(params, timed_step, E.EDiTConfig(sync_every=H), K)
+    del params
+    torch.cuda.synchronize()
+    print(f"[edit] ling-lite d={cfg.d_model} layers=1 (of 28): "
+          f"{n_par / 1e9:.3f}B params, fp32 masters; {K} workers, "
+          f"sync_every={H}, {rounds} rounds; seq={S} microbatch={B} "
+          f"accum=1; init {time.perf_counter() - t0:.1f}s")
+    build.reset_launches()
+    E.edit_sync = checked_sync
+    recs, round_s = [], []
+    try:
+        for _ in range(rounds):
+            batches = [[pipe.next_macrobatch(1) for _ in range(H)]
+                       for _ in range(K)]
+            t0 = time.perf_counter()
+            recs.append(edit.round(batches, lr=1e-3))
+            round_s.append(time.perf_counter() - t0)
+    finally:
+        E.edit_sync = real_sync
+    launches = dict(build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = sorted(a.elapsed_time(b) for a, b in step_events)
+    want = step_launches(cfg, [1] * (K * H * rounds))
+    for r, rec in enumerate(recs):
+        print(f"[edit] round={r} {rec} host {round_s[r]:.2f}s (with the "
+              f"CPU check)")
+    for i, sy in enumerate(syncs):
+        print(f"[edit] sync {i}: card {sy['ms']:.2f}ms against a bytes "
+              f"bound of {sy['bound_ms']:.2f}ms (share "
+              f"{sy['bound_ms'] / sy['ms']:.1%}); CPU sync {sy['cpu_s']:.1f}s;"
+              f" vs CPU: norms {sy['rel']} (bar {EDIT_NORM_TOL:.0e}), "
+              f"params/momentum {sy['tree_err']:.3e} of each leaf's largest "
+              f"(bar {EDIT_TREE_TOL:.0e}); kept {sy['kept']}")
+    print(f"[edit] local step (CUDA events) median "
+          f"{step_ms[len(step_ms) // 2]:.2f}ms, min {step_ms[0]:.2f}ms, "
+          f"max {step_ms[-1]:.2f}ms over {len(step_ms)} steps; "
+          f"{B * S / step_ms[len(step_ms) // 2] * 1e3:.0f} tokens/s a "
+          f"worker; peak max_memory_allocated {peak / 1e9:.2f}GB; launches "
+          f"{launches} expected {want} [{card}]")
+    failed = []
+    if len(step_events) != K * H * rounds:
+        failed.append(f"{len(step_events)} local steps, expected "
+                      f"{K * H * rounds}")
+    if not all(np.isfinite(r["mean_loss"]) and np.isfinite(r["pg_avg_norm"])
+               for r in recs):
+        failed.append(f"records not finite: {recs}")
+    if len(syncs) != rounds or any(
+            max(sy["rel"].values()) > EDIT_NORM_TOL
+            or sy["tree_err"] > EDIT_TREE_TOL for sy in syncs):
+        failed.append(f"the card's syncs part from the CPU's: {syncs}")
+    if launches != want:
+        failed.append(f"launches {launches} != {want}")
+    if not peak < 80e9:
+        failed.append(f"peak memory {peak / 1e9:.2f} GB >= 80 GB")
+    if failed:
+        fail("phase 8c: " + "; ".join(failed))
+    del edit
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 8d: rwkv6 training
+# ---------------------------------------------------------------------------
+
+# phase 8d's bar on the chunked WKV6 form against the scan at T=128,
+# fp32 compute, through 4 full-width layers: the loss 1e-5 relative,
+# each gradient leaf 1e-4 of its largest magnitude (fp32 summation
+# order compounding through the layers: 7.2e-6 on a CPU)
+RWKV_FORM_LOSS_TOL, RWKV_FORM_GRAD_TOL = 1e-5, 1e-4
+
+
+def train_rwkv(card):
+    """rwkv6-3b at full width cut to 4 layers trained by the port's
+    Trainer on the chunked WKV6 form (no kernel: K6 and the decay kernel
+    have no backward); the chunked form against the scan at T=128; the
+    two wrappers' refusal of autograd."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch import api
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.pipeline import DataPipeline, PipelineConfig
+    from repro_torch.kernels import build
+    from repro_torch.kernels import ops as kops
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw
+    from repro_torch.training.trainer import TrainConfig, Trainer
+    cfg = dataclasses.replace(get_config("rwkv6-3b"), n_layers=4)
+    B, S, accum, steps, chunk = 2, 1024, 2, 4, 64
+    failed = []
+
+    # the wrappers raise on operands that require grad
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    H, hd = cfg.d_model // cfg.rwkv_head_dim, cfg.rwkv_head_dim
+    rkv = [torch.randn((1, 8, H, hd), device="cuda", generator=gen)
+           for _ in range(3)]
+    w = torch.rand((1, 8, H, hd), device="cuda", generator=gen)
+    u = torch.randn((H, hd), device="cuda", generator=gen)
+    s0 = torch.zeros((1, H, hd, hd), device="cuda")
+    x = torch.randn((8, cfg.d_model), device="cuda", generator=gen)
+    la = torch.randn((cfg.d_model, 32), device="cuda", generator=gen)
+    lb = torch.randn((32, cfg.d_model), device="cuda", generator=gen)
+    w0 = torch.zeros((cfg.d_model,), device="cuda")
+    refused = []
+    for name, call in (
+            ("wkv6", lambda: kops.wkv6(rkv[0].requires_grad_(), *rkv[1:],
+                                       w, u, s0)),
+            ("rwkv_decay", lambda: kops.rwkv_decay(
+                x, la.requires_grad_(), lb, w0))):
+        build.reset_launches()
+        try:
+            call()
+        except RuntimeError as e:
+            refused.append(name)
+            print(f"[rwkv-train] {name} on tensors that require grad: "
+                  f"refused ({e})")
+        if sum(build.LAUNCHES.values()):
+            failed.append(f"{name} launched under autograd")
+    if refused != ["wkv6", "rwkv_decay"]:
+        failed.append(f"wrappers refused autograd: {refused}")
+    del rkv, w, u, s0, x, la, lb, w0
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    runner = api.Runner(cfg, flags=M.RunFlags(rwkv_chunk=chunk),
+                        device="cuda")
+    pipe = DataPipeline(PipelineConfig(vocab_size=cfg.vocab_size,
+                                       seq_len=S, batch_size=B, seed=0))
+    trainer = Trainer(runner, pipe, TrainConfig(
+        n_steps=steps, accum_steps=accum, log_every=1, seed=0,
+        debug_guards=True))
+    torch.cuda.synchronize()
+    n_par = sum(t.numel() for t in adamw.leaves(trainer.params))
+    print(f"[rwkv-train] rwkv6-3b d={cfg.d_model} layers={cfg.n_layers} "
+          f"(of 32) heads={H}x{hd} vocab={cfg.vocab_size}: "
+          f"{n_par / 1e9:.3f}B params, fp32 masters, init "
+          f"{time.perf_counter() - t0:.1f}s; seq={S} microbatch={B} "
+          f"accum={accum} rwkv_chunk={chunk} remat=True")
+    build.reset_launches()
+    times = []
+    try:
+        for k in range(1, steps + 1):
+            t0 = time.perf_counter()
+            trainer.train(k)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+    finally:
+        trainer.close()
+    launches = dict(build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    hist = trainer.history
+    step_s = sum(times[-2:]) / 2
+    dev = trainer.timer.stats["device/step"].durations
+    dev_ms = sum(list(dev)[-2:]) / 2e3
+    for r in hist:
+        print(f"[rwkv-train] step={r['step']} loss={r['loss']:.4f} "
+              f"grad_norm={r['grad_norm']:.3f} lr={r['lr']:.2e} "
+              f"skipped={r['skipped']}")
+    print(f"[rwkv-train] step times {[round(t, 3) for t in times]}s; median "
+          f"of the last 2 {step_s:.3f}s (device time {dev_ms:.1f}ms); "
+          f"{B * S * accum / step_s:.0f} tokens/s; peak max_memory_allocated "
+          f"{peak / 1e9:.2f}GB; launches {launches} [{card}]")
+    if len(hist) != steps or not all(np.isfinite(r["loss"]) for r in hist):
+        failed.append(f"losses {[r['loss'] for r in hist]}")
+    if sum(launches.values()):
+        failed.append(f"a kernel launched in a train step: {launches}")
+    if not peak < 80e9:
+        failed.append(f"peak memory {peak / 1e9:.2f} GB >= 80 GB")
+
+    # the chunked form against the scan, T=128, fp32 compute
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    params = trainer.params
+    del trainer
+    toks = torch.randint(0, cfg.vocab_size, (2, 1, 128), generator=gen,
+                         device="cuda")
+    batch = {"tokens": toks[0], "labels": toks[1]}
+    res = {}
+    for c in (0, chunk):
+        for p in adamw.leaves(params):
+            p.requires_grad_(True)
+            p.grad = None
+        t0 = time.perf_counter()
+        loss, _ = M.loss_fn(cfg32, params, batch,
+                            flags=M.RunFlags(rwkv_chunk=c))
+        loss.backward()
+        torch.cuda.synchronize()
+        res[c] = (float(loss.detach()),
+                  [p.grad for p in adamw.leaves(params)],
+                  time.perf_counter() - t0)
+        for p in adamw.leaves(params):
+            p.grad = None
+    loss_rel = abs(res[chunk][0] - res[0][0]) / abs(res[0][0])
+    grad_rel = max(float((a - b).abs().max() / b.abs().max().clamp(
+        min=1e-30)) for a, b in zip(res[chunk][1], res[0][1]))
+    print(f"[rwkv-train] T=128 fp32, chunked (chunk {chunk}) vs scan: loss "
+          f"{res[chunk][0]:.6f} vs {res[0][0]:.6f} (rel {loss_rel:.2e}, bar "
+          f"{RWKV_FORM_LOSS_TOL:.0e}); grads {grad_rel:.2e} of each leaf's "
+          f"largest (bar {RWKV_FORM_GRAD_TOL:.0e}); forward+backward "
+          f"{res[chunk][2]:.2f}s chunked, {res[0][2]:.2f}s scan (host clock)")
+    if not (loss_rel <= RWKV_FORM_LOSS_TOL and grad_rel <= RWKV_FORM_GRAD_TOL):
+        failed.append(f"chunked vs scan: loss {loss_rel:.3e}, grads "
+                      f"{grad_rel:.3e}")
+    del params, res
+    if failed:
+        fail("phase 8d: " + "; ".join(failed))
+    return launches
+
+
 E2E_CHUNK, E2E_STEPS = 64, 8     # the teacher-forced request's shape
 
 
@@ -2392,6 +2713,23 @@ def main():
     # -- 8b. checkpoint and exact resume ---------------------------------------
     resume_launches = train_resume(card)
 
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 8c. EDiT local SGD ----------------------------------------------------
+    t0 = time.perf_counter()
+    edit_launches = train_edit(card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[edit] phase 8c took {time.perf_counter() - t0:.1f}s")
+
+    # -- 8d. rwkv6 training ----------------------------------------------------
+    t0 = time.perf_counter()
+    rwkv_train_launches = train_rwkv(card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[rwkv-train] phase 8d took {time.perf_counter() - t0:.1f}s")
+
     # -- 9. results ---------------------------------------------------------
     # (source, TPU kernel it replaces, the row's shape, the path whose
     # launch count the row reports)
@@ -2429,7 +2767,8 @@ def main():
                 "serve_granite": arch_launches["granite-moe-3b-a800m"],
                 "train": train_launches,
                 "resume_a": resume_launches["a"],
-                "resume_b": resume_launches["b"]}
+                "resume_b": resume_launches["b"],
+                "edit": edit_launches, "rwkv_train": rwkv_train_launches}
     rows = []
     for name, shapes in results.items():
         src_path, replaces, main_shape, path = meta[name]

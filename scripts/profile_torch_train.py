@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
 """Where the training time goes in the PyTorch/CUDA port, on one card.
 
-    python3 scripts/profile_torch_train.py
+    python3 scripts/profile_torch_train.py [--arch rwkv6-3b]
 
-Builds the training cell of chip_smoke.py: Ling-Lite at full width cut to
-4 layers, fp32 masters from torch.Generator(device="cuda").manual_seed(0),
-the port's Trainer at seq 1024, microbatch 2, accum 2 (remat, fused MoE,
-spike guard, router warmup active).  Runs 2 steps to warm up, times 2
+Builds a training cell of chip_smoke.py: Ling-Lite (phase 8) or rwkv6-3b
+(phase 8d: the chunked WKV6 form, rwkv_chunk 64) at full width cut to 4
+layers, fp32 masters from torch.Generator(device="cuda").manual_seed(0),
+the port's Trainer at seq 1024, microbatch 2, accum 2 (remat, spike
+guard; Ling: fused MoE, router warmup active).  Runs 2 steps to warm up, times 2
 steps on the host clock (each ends in torch.cuda.synchronize), then traces
 one more step with torch.profiler and prints device time by kernel (top
 20), grouped by layer of the port (K1, K2, the weight gradient,
@@ -17,6 +18,7 @@ Needs a CUDA card; prints the card's name and power limit first.
 """
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import subprocess
 import sys
@@ -50,23 +52,31 @@ def group_of(name: str) -> str:
 
 
 def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="ling-lite",
+                    choices=["ling-lite", "rwkv6-3b"])
+    args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch_train: needs a CUDA card")
     from repro_torch import api
     from repro_torch.configs.base import get_config
     from repro_torch.data.pipeline import DataPipeline, PipelineConfig
+    from repro_torch.models import model as M
     from repro_torch.training.trainer import TrainConfig, Trainer
 
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip())
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = dataclasses.replace(get_config("ling-lite"), n_layers=4)
+    cfg = dataclasses.replace(get_config(args.arch), n_layers=4)
+    flags = M.RunFlags(rwkv_chunk=64 if args.arch == "rwkv6-3b" else 0)
+    print(f"[profile] {args.arch} at full width, 4 layers, {flags}")
     pipe = DataPipeline(PipelineConfig(vocab_size=cfg.vocab_size,
                                        seq_len=1024, batch_size=2, seed=0))
-    trainer = Trainer(api.Runner(cfg, device="cuda"), pipe, TrainConfig(
-        n_steps=5, accum_steps=2, log_every=1, seed=0))
+    trainer = Trainer(api.Runner(cfg, flags=flags, device="cuda"), pipe,
+                      TrainConfig(n_steps=5, accum_steps=2, log_every=1,
+                                  seed=0))
     try:
         trainer.train(2)
         torch.cuda.synchronize()

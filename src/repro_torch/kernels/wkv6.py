@@ -14,8 +14,10 @@ the decode tick updates its state in place).
 
 The wrapper takes the plain version for CPU tensors and launches
 csrc/wkv6.cu for CUDA tensors, raising on anything the kernel does not
-take.  The kernel splits each (b, h) over two blocks of 64 threads (a
-half of the state's columns each, 8 rows x 4 columns a thread), stages
+take, and on operands that require grad (inference only: training runs
+the reference's plain forms, `models.rwkv6`).  The kernel splits each
+(b, h) over two blocks of 64 threads (a half of the state's columns
+each, 8 rows x 4 columns a thread), stages
 8-timestep chunks two ahead by cp.async, sums each chunk's y while the
 next one computes, and adds the row groups' partial y in a fixed order (`y = sum_i r_i S_ij +
 v_j * sum_i r_i u_i k_i`); tests/test_torch_k6_split.py emulates that
@@ -72,6 +74,12 @@ def _check(r, k, v, w, u, s0, out_state):
 
 def wkv6(r, k, v, w, u, s0, *, out_state: Optional[torch.Tensor] = None):
     """K6.  CPU tensors: the plain version.  CUDA tensors: the kernel."""
+    if torch.is_grad_enabled() and any(t.requires_grad
+                                       for t in (r, k, v, w, u, s0)):
+        raise RuntimeError("wkv6 has no backward: call it under "
+                           "torch.no_grad() or on tensors that do not "
+                           "require grad (training uses "
+                           "models.rwkv6.wkv6_scan / wkv6_chunked)")
     if r.device.type == "cpu":
         y, sT = wkv6_ref(r, k, v, w, u, s0)
         if out_state is not None:

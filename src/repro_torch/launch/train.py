@@ -15,30 +15,42 @@
     PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \
         --steps 6 --checkpoint-dir /tmp/ck --checkpoint-every 2 --resume
 
+    # EDiT local SGD: 2 workers, a sync every 4 local steps
+    PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \
+        --steps 8 --edit-workers 2
+
 Builds a Runner at tp=1, the synthetic `DataPipeline`, and the `Trainer`
 (AdamW + WSD schedule + accumulation or batch-size warmup + the device
 spike guard, PCache checkpoints), trains from fp32 masters drawn from
 `torch.Generator(device).manual_seed(0)` or resumes from the newest
 checkpoint, and prints the XPUTimer span summary; `--trace-out` writes
 the run's Chrome trace (the trainer's spans and the registry's series).
-The reference's multi-device and EDiT flags are accepted and refused:
-those paths are not yet ported.
+`--edit-workers K` runs EDiT instead (`core.edit.EDiTTrainer`, as the
+reference's launcher: K workers one after the other on the device,
+`sync_every` 4, `max(1, steps // 4)` rounds, a constant `--lr`) and
+prints each round's record.  The reference's multi-device flags are
+accepted and refused: those paths are not yet ported.
 """
 from __future__ import annotations
 
 import argparse
 import json
 
+import torch
+
 from repro_torch import api
 from repro_torch.configs.base import get_config, get_smoke_config
 from repro_torch.core import spikes as spikes_lib
+from repro_torch.core.edit import EDiTConfig, EDiTTrainer
 from repro_torch.data.pipeline import DataPipeline, PipelineConfig
 from repro_torch.models import model as M
+from repro_torch.models import prng
+from repro_torch.optim import adamw
 from repro_torch.optim.schedule import AccumWarmup, WSDSchedule
 from repro_torch.telemetry import write_chrome_trace
 from repro_torch.training.trainer import TrainConfig, Trainer
 
-NOT_PORTED = ("dp", "tp", "edit_workers")
+NOT_PORTED = ("dp", "tp")
 
 
 def main(argv=None):
@@ -73,10 +85,11 @@ def main(argv=None):
     ap.add_argument("--resume", action="store_true",
                     help="resume from the newest checkpoint in "
                          "--checkpoint-dir")
+    ap.add_argument("--edit-workers", type=int, default=0,
+                    help=">0 runs EDiT local-SGD with K workers")
     # the reference's flags for paths that are not yet ported
     ap.add_argument("--dp", type=int, default=None)
     ap.add_argument("--tp", type=int, default=None)
-    ap.add_argument("--edit-workers", type=int, default=None)
     ap.add_argument("--trace-out", default=None,
                     help="write a Chrome trace-event JSON of the run "
                          "(XPUTimer spans + registry series), viewable at "
@@ -85,13 +98,15 @@ def main(argv=None):
 
     for name in NOT_PORTED:
         v = getattr(args, name)
-        if v and not (name in ("dp", "tp") and v == 1):
+        if v and v != 1:
             ap.error(f"--{name.replace('_', '-')} is not yet ported to "
-                     f"repro_torch (tp=1, one device, no EDiT)")
+                     f"repro_torch (tp=1, one device)")
     if args.resume and not args.checkpoint_dir:
         ap.error("--resume needs --checkpoint-dir")
     bs_warmup = None
     if args.bs_warmup:
+        if args.edit_workers > 0:
+            ap.error("--bs-warmup is not supported with --edit-workers")
         try:
             start, end, steps = (int(x) for x in args.bs_warmup.split(":"))
             bs_warmup = AccumWarmup(microbatch=args.batch, start=start,
@@ -105,12 +120,65 @@ def main(argv=None):
     pipe = DataPipeline(PipelineConfig(vocab_size=cfg.vocab_size,
                                        seq_len=args.seq,
                                        batch_size=args.batch))
+    spike_cfg = spikes_lib.SpikeConfig(
+        gnorm_sigma_threshold=args.spike_gnorm_sigma)
+    if args.edit_workers > 0:
+        history = run_edit(args, runner, pipe, spike_cfg)
+    else:
+        history = run_trainer(args, runner, pipe, spike_cfg, bs_warmup)
+    if args.report:
+        with open(args.report, "w") as f:
+            json.dump(history, f, indent=1)
+    if history:
+        last = history[-1]
+        print(f"final loss: "
+              f"{last.get('loss', last.get('mean_loss', float('nan'))):.4f}")
+    else:
+        print("final loss: n/a (no steps ran)")
+
+
+def edit_worker_step(runner, spike_cfg):
+    """An EDiT worker's step on the runner's train step (spike-guarded,
+    accumulation-aware): ``(params, opt, host batch, i, lr) -> (params,
+    opt, loss)``, the opt slot carrying (AdamW state, device guard
+    state); step i draws under the threefry key of i, as the reference's
+    `jax.random.PRNGKey(i)`."""
+    dev = runner.device
+    step = runner.make_train_step(spike_guard=spike_cfg)
+
+    def worker_step(w, opt, batch, i, lr):
+        if opt is None:
+            opt = (adamw.init_opt_state(w),
+                   spikes_lib.init_guard_state(spike_cfg, dev))
+        o, g = opt
+        tb = {k: torch.from_numpy(v).long().to(dev) for k, v in batch.items()}
+        w, o, g, m = step(w, o, g, tb, i, prng.prng_key(i, dev), lr)
+        return w, (o, g), m["loss"]
+    return worker_step
+
+
+def run_edit(args, runner, pipe, spike_cfg):
+    """EDiT from `init_train_params(0)`: `max(1, steps // 4)` rounds of 4
+    local steps a worker, 4 fresh macrobatches a worker a round."""
+    edit = EDiTTrainer(runner.init_train_params(0),
+                       edit_worker_step(runner, spike_cfg),
+                       EDiTConfig(sync_every=4), args.edit_workers)
+    for r in range(max(1, args.steps // 4)):
+        batches = [[pipe.next_macrobatch(args.accum) for _ in range(4)]
+                   for _ in range(args.edit_workers)]
+        rec = edit.round(batches, lr=args.lr)
+        print(f"[edit] round={r} {rec}")
+    return edit.history
+
+
+def run_trainer(args, runner, pipe, spike_cfg, bs_warmup):
+    """The Trainer path; prints the XPUTimer span summary and writes the
+    Chrome trace when asked."""
     tcfg = TrainConfig(
         n_steps=args.steps,
         lr_schedule=WSDSchedule(max_lr=args.lr, warmup_steps=20,
                                 total_steps=max(args.steps, 1)),
-        spike=spikes_lib.SpikeConfig(
-            gnorm_sigma_threshold=args.spike_gnorm_sigma),
+        spike=spike_cfg,
         accum_steps=args.accum, bs_warmup=bs_warmup,
         checkpoint_dir=args.checkpoint_dir,
         checkpoint_every=args.checkpoint_every)
@@ -128,13 +196,7 @@ def main(argv=None):
                                registry=trainer.registry)
         print(f"[train] trace ({n} events) -> {args.trace_out} "
               f"(open at https://ui.perfetto.dev)")
-    if args.report:
-        with open(args.report, "w") as f:
-            json.dump(history, f, indent=1)
-    if history:
-        print(f"final loss: {history[-1]['loss']:.4f}")
-    else:
-        print("final loss: n/a (no steps ran)")
+    return history
 
 
 if __name__ == "__main__":

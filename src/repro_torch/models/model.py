@@ -9,8 +9,8 @@ Every decode, prefill and verify step may sample (temperature / top-k /
 top-p under the reference's (seed, position, stream) threefry keys).
 
 Two block kinds are ported: "attn" (training, prefill and dense decode,
-and paged serving of all-attn models) and "rwkv" (prefill and dense
-decode).  Other kinds and mixed patterns raise NotImplementedError
+and paged serving of all-attn models) and "rwkv" (training, prefill and
+dense decode).  Other kinds and mixed patterns raise NotImplementedError
 naming their ROADMAP item.
 
 Parameters keep the reference's nested-dict keys with a leading layer
@@ -47,11 +47,13 @@ class RunFlags:
     (torch.utils.checkpoint); `loss_chunk` is the token chunk of the
     cross entropy, so no (T, V) fp32 logits are held whole.  The
     reference's `attn_block` has no counterpart: the port's SDPA
-    attention picks its own tiles."""
+    attention picks its own tiles.  `rwkv_chunk` > 0 trains rwkv blocks
+    on the chunked-parallel WKV6 form (`rwkv6.wkv6_chunked`)."""
     moe_dispatch: str = "auto"
     paged_attn: str = "auto"
     remat: bool = True
     loss_chunk: int = 2048
+    rwkv_chunk: int = 0
 
 
 DEFAULT_FLAGS = RunFlags()
@@ -61,12 +63,6 @@ def _ffn_kind(cfg: ModelConfig, layer: int) -> str:
     if cfg.moe is not None and layer >= cfg.moe.first_dense_layers:
         return "moe"
     return "mlp"
-
-
-# ROADMAP queue 1 items that port what is still missing here
-RWKV_TRAINING = ("rwkv6 training (the chunked wkv6 formulation and a K6 "
-                 "backward) is not yet ported to repro_torch (ROADMAP "
-                 "queue 1 item 11)")
 
 
 def check_ported_blocks(cfg: ModelConfig):
@@ -153,14 +149,17 @@ def warmup_noise(cfg: ModelConfig, rng, step, T: int):
                                    (T, m.n_experts))
 
 
-def _rwkv_block(cfg: ModelConfig, params, x, *, B: int, S: int):
-    """One rwkv block at prefill: x (T, d) -> (x, its decode cache).  The
-    time mix and the channel mix shift their (normed) inputs by one token
-    with a zero first row; the cache keeps each one's last input."""
+def _rwkv_block(cfg: ModelConfig, params, x, *, B: int, S: int,
+                train: bool, chunk: int):
+    """One rwkv block: x (T, d) -> (x, its decode cache).  The time mix
+    and the channel mix shift their (normed) inputs by one token with a
+    zero first row; the cache keeps each one's last input.  `train` runs
+    the time mix's plain forms (`rwkv6.time_mix`)."""
     d = cfg.d_model
     h = L.apply_norm(cfg, params["norm1"], x)
     partial, state = rwkv_lib.time_mix(cfg, params["tmix"],
-                                       h.reshape(B, S, d))
+                                       h.reshape(B, S, d), train=train,
+                                       chunk=chunk)
     x = x + partial.reshape(B * S, d)
     h = L.apply_norm(cfg, params["norm2"], x)
     hB = h.reshape(B, S, d)
@@ -173,16 +172,15 @@ def block_forward(cfg: ModelConfig, params, x, eps, *, B: int, S: int,
                   kind: str, ffn: str, step=None, train: bool = True,
                   flags: RunFlags = DEFAULT_FLAGS, want_cache: bool = False):
     """One block: x (T, d) -> (x, aux, metrics, cache or None).  eps
-    (T, E) is the layer's router-warmup noise, or None.  "attn" blocks run
-    for training and, with `train=False`, for inference (the MoE on the
-    serving router), where `want_cache` returns {"self": {"k", "v"}};
-    "rwkv" blocks run for inference, where `want_cache` returns
-    {"rwkv": {"wkv", "last_x"}, "cmix_prev"}."""
+    (T, E) is the layer's router-warmup noise, or None.  Both kinds run
+    for training and, with `train=False`, for inference ("attn": the MoE
+    on the serving router; rwkv: K6 and the decay kernel), where
+    `want_cache` returns {"self": {"k", "v"}} ("attn") or {"rwkv":
+    {"wkv", "last_x"}, "cmix_prev"} ("rwkv")."""
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
     if kind == "rwkv":
-        if train:
-            raise NotImplementedError(RWKV_TRAINING)
-        x, cache = _rwkv_block(cfg, params, x, B=B, S=S)
+        x, cache = _rwkv_block(cfg, params, x, B=B, S=S, train=train,
+                               chunk=flags.rwkv_chunk)
         return x, zero, {}, (cache if want_cache else None)
     d = cfg.d_model
     h = L.apply_norm(cfg, params["norm1"], x)

@@ -49,6 +49,7 @@
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from collections import deque
@@ -57,6 +58,7 @@ from typing import Any, Deque, Dict, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from repro_torch.analysis import contracts
 from repro_torch.models import layers as L
 from repro_torch.models import model as M
 from repro_torch.serving.segment_cache import PageAllocator
@@ -84,7 +86,10 @@ class OnlineConfig:
     | "slo") and `tenant_budgets` (admitted prompt+max_new tokens per
     tenant) are host bookkeeping.  `overload="slo"` sheds at submit time
     when the `slo` deadlines (a `telemetry.SLOConfig`) would be breached;
-    `trace_ring` sizes the request lifecycle log."""
+    `trace_ring` sizes the request lifecycle log.  `debug_guards` runs
+    every tick under `analysis.contracts.transfer_guard` (None: the
+    REPRO_DEBUG_GUARDS env var), so a device->host sync other than the
+    tick's announced drains raises on a card."""
     max_slots: int
     max_context: int
     page_size: int = 16
@@ -103,6 +108,7 @@ class OnlineConfig:
     tenant_budgets: Optional[Dict[str, int]] = None
     slo: Optional[SLOConfig] = None
     trace_ring: int = 65536
+    debug_guards: Optional[bool] = None
 
     @property
     def max_pages(self) -> int:
@@ -178,6 +184,9 @@ class OnlineEngine:
         self.runner = runner
         self.params = params
         self.device = runner.device
+        self.debug_guards = (contracts.env_debug_guards()
+                             if cfg.debug_guards is None
+                             else cfg.debug_guards)
         self.paged_attn = L.resolve_paged_attn(runner.flags.paged_attn)
         self.alloc = PageAllocator(n_pages, cfg.page_size)
         self.pools = runner.init_paged_pools(n_pages, cfg.page_size)
@@ -286,7 +295,14 @@ class OnlineEngine:
         self.rlog.record("evict", -1, tick=self.ticks, arg=page)
 
     def _dev(self, a: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(a).to(self.device)
+        """Host scheduler state -> the device.  On a card the copy goes
+        through pinned memory without waiting (a copy from pageable
+        memory waits for the card); `a` may change as soon as this
+        returns."""
+        t = torch.from_numpy(a)
+        if self.device.type == "cuda":
+            return t.pin_memory().to(self.device, non_blocking=True)
+        return t.to(self.device)
 
     def set_policy(self, policy: str):
         """Switch the tick-ordering policy at run time (host state only)."""
@@ -581,7 +597,8 @@ class OnlineEngine:
             self.alloc.register_prefix(rid, r.prefix_key,
                                        min(r.prefix_len, len(r.prompt)))
         if not r.out:
-            tok = int(nxt)      # one device->host read per finished prefill
+            with contracts.announced_drain():
+                tok = int(nxt)  # one device->host read per finished prefill
             r.out.append(tok)
             r.first_token_t = t
             r.token_times.append(t)
@@ -622,7 +639,8 @@ class OnlineEngine:
             self._dev(self.lens), self._dev(self.table),
             self._dev(self.active), *self._sample_args())
         self.step_calls["decode"] += 1
-        nxt = nxt.cpu().numpy()         # the tick's one device->host drain
+        with contracts.announced_drain():
+            nxt = nxt.cpu().numpy()     # the tick's one device->host drain
         t = time.perf_counter()
         for slot in np.flatnonzero(self.active):
             slot = int(slot)
@@ -665,8 +683,8 @@ class OnlineEngine:
             self.params, self.pools, tokens, pos0, table, active, dprobs,
             *sample_args)
         self.step_calls["verify"] += 1
-        # the tick's one device->host drain
-        n_acc, out = n_acc.cpu().numpy(), out.cpu().numpy()
+        with contracts.announced_drain():   # the tick's one drain
+            n_acc, out = n_acc.cpu().numpy(), out.cpu().numpy()
         t = time.perf_counter()
         for slot in np.flatnonzero(self.active):
             slot = int(slot)
@@ -730,13 +748,14 @@ class OnlineEngine:
 
         All three drive the same steps.  `now` (the caller's clock, for
         admission timestamps) defaults to the present; the tick's phases
-        are XPUTimer spans, its wall time a `serve_tick_ms` observation."""
+        are XPUTimer spans, its wall time a `serve_tick_ms` observation;
+        with `debug_guards` the tick runs under `_tick_guard`."""
         now = time.perf_counter() if now is None else now
         self.ticks += 1
         t_start = time.perf_counter()
         step_span = "spec" if self.spec else "decode"
         step = self._spec_tick if self.spec else self._decode_tick
-        with self.timer.span("tick"):
+        with self.timer.span("tick"), self._tick_guard():
             with self.timer.span("admit"):
                 self._admit(now)
             if self.policy == "decode-priority":
@@ -757,6 +776,14 @@ class OnlineEngine:
                     step()
         self._m_tick.observe((time.perf_counter() - t_start) * 1e3)
         self._sample_counters()
+
+    def _tick_guard(self):
+        """debug_guards mode: the whole tick runs under a device->host
+        transfer guard; the drains the tick announces
+        (`contracts.announced_drain`) are its only syncs."""
+        if self.debug_guards:
+            return contracts.transfer_guard("disallow")
+        return contextlib.nullcontext()
 
     def _sample_counters(self):
         """Per-tick host-scalar samples -> gauges and Perfetto counter

@@ -34,6 +34,7 @@ from typing import Any, Dict, List, Optional
 import torch
 
 from repro_torch import api
+from repro_torch.analysis import contracts
 from repro_torch.checkpoint.pcache import PCache
 from repro_torch.core import spikes as spikes_lib
 from repro_torch.core.spikes import SpikeConfig, SpikeDetector
@@ -61,9 +62,10 @@ class TrainConfig:
     checkpoint_every: int = 0          # 0 = off
     checkpoint_dir: Optional[str] = None
     seed: int = 0
-    # run every step dispatch under torch.cuda.set_sync_debug_mode("error")
-    # so any device->host sync inside it raises
-    debug_guards: bool = False
+    # run every step dispatch under contracts.transfer_guard so any
+    # device->host sync inside it raises; None = read the
+    # REPRO_DEBUG_GUARDS env var
+    debug_guards: Optional[bool] = None
 
 
 class Trainer:
@@ -85,6 +87,9 @@ class Trainer:
         self._m_steps = self.registry.counter(
             "train_steps_total", "optimizer steps drained")
         self.detector = SpikeDetector(cfg.spike)
+        self.debug_guards = (contracts.env_debug_guards()
+                             if cfg.debug_guards is None
+                             else cfg.debug_guards)
         if cfg.bs_warmup is not None:
             if cfg.bs_warmup.microbatch != pipeline.cfg.batch_size:
                 raise ValueError(
@@ -182,11 +187,11 @@ class Trainer:
         return self.history
 
     def _step_guard(self):
-        """Armed (debug_guards, on a card) the step dispatch runs under
-        torch.cuda.set_sync_debug_mode("error"): a device->host sync in
-        it raises.  Metrics must stay on the device until `_drain`."""
-        if self.cfg.debug_guards and self.device.type == "cuda":
-            return _sync_debug_error()
+        """Armed (debug_guards) the step dispatch runs under a
+        device->host transfer guard (a no-op without a card): metrics
+        must stay on the device until `_drain`."""
+        if self.debug_guards:
+            return contracts.transfer_guard("disallow")
         return contextlib.nullcontext()
 
     # -- metrics drain ---------------------------------------------------------
@@ -312,12 +317,3 @@ class Trainer:
         if self.pcache is not None:
             self.pcache.wait()
 
-
-@contextlib.contextmanager
-def _sync_debug_error():
-    prev = torch.cuda.get_sync_debug_mode()
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        yield
-    finally:
-        torch.cuda.set_sync_debug_mode(prev)

@@ -292,8 +292,9 @@ def test_unported_paths_raise_naming_their_roadmap_item():
     params = rwkv.init_params(0)
     batch = {"tokens": torch.zeros((1, 4), dtype=torch.long),
              "labels": torch.zeros((1, 4), dtype=torch.long)}
-    with pytest.raises(NotImplementedError, match="rwkv6 training"):
-        TM.loss_fn(rwkv.cfg, params, batch)
+    # rwkv6 training (queue 1 item 11) is ported: the loss runs
+    loss, _ = TM.loss_fn(rwkv.cfg, params, batch)
+    assert torch.isfinite(loss)
     # Ling's dense decode (queue 1 item 8) is ported: its caches need a
     # length, and the prefill leaves one row per prompt position; sliding
     # windows stay item 10's

@@ -2,8 +2,10 @@
 metrics registry, request log, SLO tracker and trace export, and the
 OnlineEngine's instrumentation): the reference's tests/test_telemetry.py
 case by case against the port, where a device-value rejection takes a
-torch.Tensor for the jax value and the engine's compile and transfer
-guards (XLA contracts) have no counterpart; and against the reference
+torch.Tensor for the jax value and the engine's compile guard (an XLA
+contract) has no counterpart, while its transfer guard is
+`analysis.contracts.transfer_guard` (tests/test_torch_contracts.py runs
+this file's churn engine under it); and against the reference
 itself: the Prometheus text on the same observations, the SLOTracker's
 decisions on the same observation sequence, and the engine's request log
 ((event, rid, slot, tick, arg) records) on the same workload with
@@ -356,9 +358,10 @@ def test_slo_tracker_makes_the_references_decisions():
 
 def test_engine_telemetry_under_churn_keeps_contracts(runner_params):
     """The fully instrumented engine: the lifecycle log is complete and
-    the registry mirrors it (the reference's compile and transfer guards
-    have no counterpart: nothing here is traced, and the telemetry reads
-    only host values, which the registry enforces)."""
+    the registry mirrors it (the reference's compile guard has no
+    counterpart: nothing here is traced; its transfer guard is
+    `debug_guards`, tested in tests/test_torch_contracts.py; the
+    telemetry reads only host values, which the registry enforces)."""
     runner, params = runner_params
     eng, reqs = churn_engine(runner, params)
     assert all(r.done for r in reqs)
