@@ -54,8 +54,16 @@ Phases, each failing loudly (non-zero exit, no result line):
      decode tick (B=8, Q=1) on Ling-Plus's, granite's, deepseek's and
      phi3's heads (query groups of 8, 3, 1, 1; head_dim 128, 64, 128,
      96) and, on the heads phase 7b serves (Ling-Plus's and granite's),
-     at the prefill chunk (B=1, Q=64) and a verify pass (B=8, Q=5), and K5 on Ling-Plus's (126464 x 8192) and granite's (49155 x
-     1536) fp32 heads at T=8;
+     at the prefill chunk (B=1, Q=64) and a verify pass (B=8, Q=5), and
+     K5 on Ling-Plus's (126464 x 8192) and granite's (49155 x 1536) fp32
+     heads at T=8; and at the shapes of the block families phase 7c
+     serves: K3/K4 at a decode tick (B=8, Q=1) over a dense cache's page
+     view (PA_FAMILY_CASES: nemotron's and danube's heads at 544
+     positions, recurrentgemma's head_dim 256, group 10, over its
+     rolling cache of 2048, whisper's cross attention over 1504), and K5
+     on nemotron's (256000 x 6144), danube's (32000 x 2560),
+     recurrentgemma's (256000 x 2560) and whisper's (51865 x 384) fp32
+     heads at T=8;
   4. gradients: one full-width MoE layer at T=256, `FusedFFN`'s grads of
      x, w1, w2, w3 and the gates on the kernels against autograd through
      a plain fp32 composition, before and after the cast to bf16;
@@ -146,6 +154,28 @@ Phases, each failing loudly (non-zero exit, no result line):
      that launches no kernel either (the kernels' path with every kernel
      swapped for its plain version); tokens/s,
      TTFT and ITL p50 and peak memory (< 80 GB) beside the card line;
+  7c. the block families the Ling blocks do not cover (FAMILY_SERVE), one
+     after the other at full width, every layer, bf16 weights from
+     torch.Generator(device="cuda").manual_seed(0): nemotron-4-15b
+     (LayerNorm, squared ReLU; ~34 GB), h2o-danube-1.8b (sliding windows
+     of 4096), recurrentgemma-2b (RG-LRU blocks, windows of 2048, head_dim
+     256) and whisper-tiny (encoder-decoder); `make_prefill` on 8 prompts
+     of 512 tokens (numpy seed 0; whisper 64 beside 8 x 1504 seeded
+     frames) into dense caches of 544 positions (whisper 128) and 32
+     greedy ticks, launches held (K5 once in the prefill, then per tick
+     K5 once and K3, K4 32, 24, 8 and 8 times: the attention layers,
+     whisper's 4 self and 4 cross); one batch teacher-forced (a 64-token
+     prefill and 8 ticks) through the kernels and the plain modes,
+     logits within phase 7b's bar (its witness: the plain attention in
+     fp64, `fp64_attention`) over the run, and the prefill's and the
+     first tick's alone each within the bar of its own floor; a 64-token
+     prefill against 64 ticks (the logit gap printed, not held); for
+     recurrentgemma also one prompt of 2040 tokens into caches of 2080
+     positions and 32 ticks across the rolling caches' wrap at 2048, then
+     that prompt teacher-forced for 16 ticks across the wrap through the
+     kernels and the plain modes (the run, the first tick and the first
+     tick past the wrap, each within its bar); prefill ms, tick ms,
+     tokens/s and peak memory (< 80 GB) beside the card line;
   8. training: the serving models freed, Ling-Lite at full width cut to 4
      layers, fp32 masters from torch.Generator(device="cuda")
      .manual_seed(0), 4 optimizer steps of the port's Trainer (seq 1024,
@@ -187,6 +217,14 @@ Phases, each failing loudly (non-zero exit, no result line):
      memory under 80 GB, step time and tokens/s printed; then at T=128
      with fp32 compute the chunked form's loss and gradients against
      the scan's (RWKV_FORM_LOSS_TOL, RWKV_FORM_GRAD_TOL);
+  8e. the block families trained (FAMILY_TRAIN): h2o-danube-1.8b cut to
+     4 layers and recurrentgemma-2b to 3 (one rglru, rglru, swa period)
+     through the Trainer, whisper-tiny whole through `make_train_step`
+     with 1504 seeded frames a sequence; fp32 masters, 4 steps of seq
+     1024, microbatch 2, accum 1, debug guards on: finite losses, no
+     kernel launched, peak memory under 80 GB, step time and tokens/s
+     printed (nemotron-4-15b trains on the CPU only: its embedding and
+     head alone are 50 GB of training state);
   9. the `kernels` JSON line, the card line, and the result line.
 """
 from __future__ import annotations
@@ -194,6 +232,7 @@ from __future__ import annotations
 import contextlib
 import gc
 import json
+import re
 import subprocess
 import sys
 import time
@@ -237,7 +276,11 @@ K5_CASES = {"ling head T=8": ("ling-lite", 8),
             "rwkv6 head T=64": ("rwkv6-3b", 64),
             "rwkv6 head T=65": ("rwkv6-3b", 65),
             "ling-plus head T=8": ("ling-plus", 8),
-            "granite head T=8": ("granite-moe-3b-a800m", 8)}
+            "granite head T=8": ("granite-moe-3b-a800m", 8),
+            "nemotron head T=8": ("nemotron-4-15b", 8),
+            "danube head T=8": ("h2o-danube-1.8b", 8),
+            "recurrentgemma head T=8": ("recurrentgemma-2b", 8),
+            "whisper head T=8": ("whisper-tiny", 8)}
 K6_CASES = {"prefill": (8, 512, "bfloat16", False),
             "decode": (8, 1, "bfloat16", False),
             "T=100": (8, 100, "float32", False),
@@ -272,6 +315,25 @@ ARCH_SERVE = (("ling-plus", 8), ("granite-moe-3b-a800m", None))
 # rwkv6-3b's width: the prefill's 8 x 512 rows, a tick's 8, fp32 rows
 DECAY_CASES = {"prefill": (8 * 512, "bfloat16"), "decode": (8, "bfloat16"),
                "fp32 rows": (64, "float32")}
+
+# phase 3's K3/K4 cases at the decode ticks of the block families phase 7c
+# serves (B=8, Q=1), through a dense cache's page view as the tick reads
+# it: label -> (arch, cache positions, the tick's position; a position
+# past the cache is a rolling window after its wrap, or a cross cache:
+# every row valid).  Query groups of 6, 4, 10 and 1, head_dim 128, 80,
+# 256 (the kernels' second instantiation) and 64.
+PA_FAMILY_CASES = {
+    "nemotron decode 544": ("nemotron-4-15b", 544, 543),
+    "danube decode 544": ("h2o-danube-1.8b", 544, 543),
+    "recurrentgemma rolling 2048": ("recurrentgemma-2b", 2048, 2071),
+    "whisper cross 1504": ("whisper-tiny", 1504, 1503)}
+# phase 7c: (arch, K3 and K4 launches a tick: its attention layers, and
+# whisper's cross attention beside its 4 self-attention layers)
+FAMILY_SERVE = (("nemotron-4-15b", 32), ("h2o-danube-1.8b", 24),
+                ("recurrentgemma-2b", 8), ("whisper-tiny", 8))
+# phase 8e: (arch, layers trained or None for all)
+FAMILY_TRAIN = (("h2o-danube-1.8b", 4), ("recurrentgemma-2b", 3),
+                ("whisper-tiny", None))
 
 
 def fail(msg: str):
@@ -345,6 +407,21 @@ def host_ms(fn, iters: int = 50, repeats: int = 5) -> float:
     torch.cuda.synchronize()
     times.sort()
     return times[len(times) // 2]
+
+
+def kernel_name(mangled: str) -> str:
+    """A kernel's name and integer template arguments from its mangled
+    symbol (`..._20pa_accumulate_kernelILi256ELi128EE...` ->
+    `pa_accumulate_kernel<256, 128>`), or the symbol's first 72
+    characters."""
+    for m in re.finditer(r"(\d+)([A-Za-z_])", mangled):
+        i = m.start(2)
+        ident = mangled[i:i + int(m.group(1))]
+        if ident.endswith("kernel"):
+            t = re.match(r"I((?:L[ibjl]\d+E)+)E", mangled[i + len(ident):])
+            args = re.findall(r"L[ibjl](\d+)E", t.group(1)) if t else []
+            return ident + (f"<{', '.join(args)}>" if args else "")
+    return mangled[:72]
 
 
 def bound(nbytes: float, flops: float, flops_s: float = BF16_FLOPS):
@@ -527,6 +604,27 @@ def paged_case(cfg, *, B, Q, ctx, base, n_pages, gen):
     gq = ops._pa_group_q(q, KV)
     mask4 = mask.reshape(B, Q, n_lp, ps)
     return gq, k_pool, v_pool, table, mask4
+
+
+def dense_case(arch: str, S: int, pos: int, gen, B: int = 8):
+    """A decode tick's K3/K4 operands over a dense cache of S positions
+    (random bf16 rows), as `layers.decode_attention` hands them over: q
+    (B, 1, H, hd) grouped per kv head, the cache's page pools and the
+    tick's page view at `pos` (`layers.dense_page_view`)."""
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import layers as L
+    cfg = get_config(arch)
+    cache = L.init_decode_cache(cfg, B, S, "cuda")
+    for t in cache.values():
+        t.copy_(torch.randn(t.shape, generator=gen, device="cuda"))
+    table, valid = L.dense_page_view(B, S, pos, "cuda")
+    q = torch.randn((B, 1, cfg.n_heads, cfg.head_dim), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    return (ops._pa_group_q(q, cfg.n_kv_heads), L.dense_pages(cache["k"]),
+            L.dense_pages(cache["v"]), table,
+            valid.reshape(B, 1, table.shape[1], L.DENSE_PAGE))
 
 
 def pa_bounds(gq, k_pool, table, mask4, pass2: bool):
@@ -1695,6 +1793,272 @@ def serve_archs(card, gen):
 
 
 # ---------------------------------------------------------------------------
+# phase 7c: the block families the Ling blocks do not cover
+# ---------------------------------------------------------------------------
+
+def dense_teacher_forced(cfg, params, batch, toks, seq, flags):
+    """Logits (1 + n, B, Vp): the prefill's (into caches of `seq`
+    positions) at the prompt's last token, then one tick per column of
+    toks (B, n), each feeding that token."""
+    import torch
+    from repro_torch.models import model as M
+    P = batch["tokens"].shape[1]
+    with torch.no_grad():
+        lg, caches = M.prefill_logits(cfg, params, batch, flags, seq)
+        out = [lg]
+        for i in range(toks.shape[1]):
+            lg, caches = M.decode_logits(cfg, params, caches, toks[:, i],
+                                         P + i, flags)
+            out.append(lg)
+    return torch.stack(out)
+
+
+def hold_logits(label, kern, plain, other, steps):
+    """Phase 7c's bar on teacher-forced logits (1 + n, B, Vp): the
+    kernels' against the plain modes' within the larger of 2^-5 of the
+    largest and twice the rounding floor (the plain modes against the
+    fp64-attention witness `other`), over the whole run and, each on its
+    own bar, at the steps named in `steps` (label -> index), which
+    rounding has amplified less."""
+    import torch
+    parts = [("the run", slice(None))] + [(n, i) for n, i in steps.items()]
+    for name, at in parts:
+        k, p, o = kern[at], plain[at], other[at]
+        big = p.abs().max().item()
+        err = (k - p).abs().max().item()
+        flo = (o - p).abs().max().item()
+        tol = max(2.0 ** -5 * big, 2 * flo)
+        agree = (k.argmax(-1) == p.argmax(-1)).float().mean().item()
+        ratio = f"{err / flo:.3f}" if flo > 0 else "n/a (floor 0)"
+        print(f"[families] {label}, {name}: kernels vs plain modes logits "
+              f"max_abs_err={err:.4e} = {err / big:.4f} of the largest "
+              f"(tolerance {tol:.4e}); rounding floor (the fp64-attention "
+              f"witness vs plain) {flo:.4e} = {flo / big:.4f}, gap / floor "
+              f"{ratio}; greedy agreement {agree:.3f}")
+        if not (err <= tol and torch.isfinite(k).all()):
+            fail(f"phase 7c: {label}, {name}: kernels vs plain logits "
+                 f"{err} > {tol}")
+
+
+def serve_families(card):
+    """Phase 7c: FAMILY_SERVE's models in turn at full width, every layer,
+    bf16 weights from torch.Generator(device="cuda").manual_seed(0),
+    greedy through `make_prefill` and `make_decode_step`: 8 prompts of
+    512 tokens (numpy seed 0) into dense caches of 544 positions and 32
+    ticks; whisper 8 prompts of 64 tokens beside 8 x 1504 seeded frames,
+    caches of 128 positions.  Launches held: K5 once in the prefill and
+    none of K3/K4 (the prefill attends on SDPA), then per tick K5 once and
+    K3, K4 once per attention layer (whisper's cross attention too).
+    Then one batch teacher-forced (a 64-token prefill, 8 ticks; whisper
+    56 and 8) through the kernels and through the plain modes (gathered
+    attention, the plain K5), logits within phase 7b's bar (the larger
+    of 2^-5 of the largest and twice the gap between the plain modes and
+    a witness that launches no kernel: here `fp64_attention`, as a dense
+    model's `plain_kernels` is the plain modes bit for bit), and the
+    prefill's and the first tick's logits each on the bar of its own
+    floor (`hold_logits`); how far a prefill's last logits lie from the
+    same 64 tokens fed tick by tick (printed, not held); for
+    recurrentgemma one prompt of 2040 tokens into caches of 2080
+    positions (its windows roll at 2048) and 32 ticks across the wrap,
+    then that prompt teacher-forced for 16 ticks across the wrap through
+    the kernels and the plain modes, held as above and at the first tick
+    past the wrap; peak memory under 80 GB.  Returns {arch: launches of
+    the main run}."""
+    import numpy as np
+    import torch
+    from repro_torch import api
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import build
+    from repro_torch.models import model as M
+    out = {}
+    pa_names = ("paged_attn_scores_max", "paged_attn_accumulate")
+
+    def expect(label, got, per_tick, ticks, prefills=1):
+        want = {n: 0 for n in got}
+        want.update({n: per_tick * ticks for n in pa_names},
+                    normhead_matmul=prefills + ticks)
+        if got != want:
+            fail(f"phase 7c: {label} launches {got}, expected {want}")
+
+    for arch, per_tick in FAMILY_SERVE:
+        cfg = get_config(arch)
+        encdec = cfg.is_encoder_decoder
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        runner = api.Runner(cfg, device="cuda")
+        params = runner.init_params(0)
+        torch.cuda.synchronize()
+        leaves = list(_leaves(params))
+        kinds = sorted({cfg.block_kind(i) for i in range(cfg.n_layers)})
+        print(f"[families] {arch}: {cfg.n_layers} layers {kinds}"
+              f"{' + %d encoder layers' % cfg.encoder_layers if encdec else ''}"
+              f", d={cfg.d_model}, {cfg.n_heads} heads over "
+              f"{cfg.n_kv_heads} of {cfg.head_dim}, {cfg.norm_type}, "
+              f"{cfg.mlp_act} {cfg.d_ff}, window {cfg.attn_window}, vocab "
+              f"{cfg.vocab_size}: {sum(t.numel() for t in leaves) / 1e9:.3f}"
+              f"B params, {nbytes(*leaves) / 1e9:.2f}GB, init "
+              f"{time.perf_counter() - t0:.1f}s (depth not cut)")
+        B, ticks = 8, 32
+        P, seq = (64, 128) if encdec else (512, 544)
+        rs = np.random.RandomState(0)
+        prompts = torch.from_numpy(rs.randint(0, cfg.vocab_size, (B, P))) \
+            .cuda()
+        batch = {"tokens": prompts}
+        if encdec:
+            batch["enc_frames"] = torch.from_numpy(rs.randn(
+                B, cfg.encoder_seq_len, cfg.d_model).astype(np.float32)) \
+                .cuda().to(torch.bfloat16)
+        prefill, decode = runner.make_prefill(seq_len=seq), \
+            runner.make_decode_step()
+        # warm-up: cuBLAS handles and the allocator at these shapes
+        tok, caches = prefill(params, batch)
+        decode(params, caches, tok, P)
+        del caches
+        torch.cuda.synchronize()
+        build.reset_launches()
+        t0 = time.perf_counter()
+        tok, caches = prefill(params, batch)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        after_prefill = dict(build.LAUNCHES)
+        toks = [tok]
+        for pos in range(P, P + ticks):
+            tok, caches = decode(params, caches, tok, pos)
+            toks.append(tok)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        launches = dict(build.LAUNCHES)
+        toks = torch.stack(toks).cpu()
+        expect(f"{arch} prefill", after_prefill, per_tick, 0)
+        expect(f"{arch} prefill + {ticks} ticks", launches, per_tick, ticks)
+        if not bool(((toks >= 0) & (toks < cfg.vocab_size)).all()):
+            fail(f"phase 7c: {arch} tokens out of the vocabulary")
+        del caches
+        prefill_ms, tick_ms = 1e3 * (t1 - t0), 1e3 * (t2 - t1) / ticks
+        print(f"[families] {arch} prefill B={B} S={P} into caches of {seq}: "
+              f"{prefill_ms:.2f}ms ({B * P / (t1 - t0):.0f} prompt "
+              f"tokens/s); {ticks} ticks: {tick_ms:.2f}ms per tick "
+              f"({B * ticks / (t2 - t1):.1f} tokens/s); K3/K4 {per_tick} "
+              f"and K5 1 launches a tick [{card}]")
+
+        # the kernels against the plain modes, teacher-forced
+        n_tf = 8
+        p_tf = P - n_tf if encdec else 64
+        tf_batch = dict(batch, tokens=prompts[:, :p_tf])
+        tf_toks = prompts[:, p_tf:p_tf + n_tf]
+        build.reset_launches()
+        kern = dense_teacher_forced(cfg, params, tf_batch, tf_toks, seq,
+                                    M.RunFlags())
+        n_k = dict(build.LAUNCHES)
+        with plain_k5_k6():
+            plain = dense_teacher_forced(cfg, params, tf_batch, tf_toks,
+                                         seq, M.RunFlags(paged_attn=
+                                                         "gathered"))
+        with fp64_attention():
+            other = dense_teacher_forced(cfg, params, tf_batch, tf_toks,
+                                         seq, M.RunFlags())
+        torch.cuda.synchronize()
+        expect(f"{arch} teacher-forced", n_k, per_tick, n_tf)
+        if dict(build.LAUNCHES) != n_k:
+            fail(f"phase 7c: {arch}'s plain runs launched a kernel")
+        hold_logits(f"{arch} 1 prefill + {n_tf} ticks teacher-forced "
+                    f"(B={B})", kern, plain, other,
+                    {"the prefill": 0, "the first tick": 1})
+        del kern, plain, other
+
+        # a prefill's last logits against the same tokens fed tick by tick
+        n = 64
+        one = {k: v[:1] for k, v in batch.items()}
+        one["tokens"] = prompts[:1, :n]
+        with torch.no_grad():
+            la, pc = M.prefill_logits(cfg, params, one, seq_len=seq)
+            c1 = runner.init_caches(1, seq)
+            if encdec:
+                for c, src in zip(c1, pc):
+                    for name in ("k", "v"):
+                        c["cross"][name].copy_(src["cross"][name])
+            for pos in range(n):
+                lb, c1 = M.decode_logits(cfg, params, c1,
+                                         one["tokens"][:, pos], pos)
+        gap = (la - lb).abs().max().item()
+        print(f"[families] {arch} prefill of {n} tokens vs {n} ticks: last "
+              f"logits gap {gap:.4e} = {gap / la.abs().max().item():.4f} of "
+              f"the largest, same greedy token "
+              f"{int(la.argmax(-1)) == int(lb.argmax(-1))} (printed only)")
+        del pc, c1
+
+        if arch == "recurrentgemma-2b":
+            long_p, long_seq = 2040, 2080
+            lp = torch.from_numpy(rs.randint(0, cfg.vocab_size,
+                                             (1, long_p))).cuda()
+            pre = runner.make_prefill(seq_len=long_seq)
+            build.reset_launches()
+            t0 = time.perf_counter()
+            tok, caches = pre(params, {"tokens": lp})
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            rows = {c["self"]["k"].shape[1] for c in caches if "self" in c}
+            ltoks = [tok]
+            for pos in range(long_p, long_p + ticks):
+                tok, caches = decode(params, caches, tok, pos)
+                ltoks.append(tok)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            expect(f"{arch} {long_p}-token prompt", dict(build.LAUNCHES),
+                   per_tick, ticks)
+            ltoks = torch.stack(ltoks).cpu()
+            if rows != {2048} or not bool(
+                    ((ltoks >= 0) & (ltoks < cfg.vocab_size)).all()):
+                fail(f"phase 7c: {arch} rolling caches of {rows} rows, or "
+                     f"tokens out of the vocabulary")
+            print(f"[families] {arch} 1 prompt of {long_p} tokens into "
+                  f"caches of {long_seq} (windows rolling at {rows}): "
+                  f"prefill {1e3 * (t1 - t0):.1f}ms, {ticks} ticks across "
+                  f"the wrap at 2048 {1e3 * (t2 - t1) / ticks:.2f}ms per "
+                  f"tick [{card}]")
+            del caches
+            # the same prompt teacher-forced across the wrap: the rolling
+            # write at slot pos % 2048, then K3/K4 over the rolled rows
+            n_w = 16
+            lt = torch.from_numpy(rs.randint(0, cfg.vocab_size,
+                                             (1, n_w))).cuda()
+            lb = {"tokens": lp}
+            build.reset_launches()
+            kern = dense_teacher_forced(cfg, params, lb, lt, long_seq,
+                                        M.RunFlags())
+            n_k = dict(build.LAUNCHES)
+            with plain_k5_k6():
+                plain = dense_teacher_forced(cfg, params, lb, lt, long_seq,
+                                             M.RunFlags(paged_attn=
+                                                        "gathered"))
+            with fp64_attention():
+                other = dense_teacher_forced(cfg, params, lb, lt, long_seq,
+                                             M.RunFlags())
+            torch.cuda.synchronize()
+            expect(f"{arch} teacher-forced across the wrap", n_k, per_tick,
+                   n_w)
+            if dict(build.LAUNCHES) != n_k:
+                fail(f"phase 7c: {arch}'s plain runs launched a kernel")
+            hold_logits(f"{arch} 1 prefill of {long_p} + {n_w} ticks "
+                        f"teacher-forced across the wrap (B=1)", kern, plain,
+                        other, {"the first tick": 1,
+                                "the first tick past the wrap":
+                                1 + 2048 - long_p})
+            del kern, plain, other
+
+        peak = torch.cuda.max_memory_allocated()
+        print(f"[families] {arch}: peak max_memory_allocated "
+              f"{peak / 1e9:.2f}GB [{card}]")
+        if not peak < 80e9:
+            fail(f"phase 7c: {arch} peak memory {peak / 1e9:.2f} GB >= 80 GB")
+        del params, leaves, runner, prefill, decode
+        gc.collect()
+        torch.cuda.empty_cache()
+        out[arch] = launches
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 7: rwkv6 serving
 # ---------------------------------------------------------------------------
 
@@ -1752,6 +2116,51 @@ def plain_kernels():
     finally:
         (gm.fused_moe_ffn, pa.paged_attn_scores_max,
          pa.paged_attn_accumulate) = saved
+
+
+@contextlib.contextmanager
+def fp64_attention():
+    """K3/K4's plain versions with the scores, exponentials and sums in
+    fp64, each result rounded once to fp32 (p still rounded to bf16
+    before the PV product, as K4 and the plain versions round it), and
+    the plain K5: the kernels' function in another rounding, launching no
+    kernel.  A dense model's plain modes and `plain_kernels` are one
+    computation bit for bit (no MoE to route otherwise), so this is phase
+    7c's witness of how far rounding alone moves the logits."""
+    import torch
+    from repro_torch.kernels import paged_attn as pa
+
+    def scores(q, k_pool, table, mask):
+        B, KV, GQ, hd = q.shape
+        n_q, n_lp, ps = mask.shape[1:]
+        S, g = n_lp * ps, GQ // n_q
+        kg = k_pool[table.long()].reshape(B, S, KV, hd).double()
+        s = torch.einsum("bkrd,bskd->bkrs", q.double(), kg) * hd ** -0.5
+        mskg = mask.reshape(B, 1, 1, n_q, S).expand(B, KV, g, n_q, S) \
+            .reshape(B, KV, GQ, S)
+        return torch.where(mskg, s, float("-inf")), mskg
+
+    def scores_max(q, k_pool, table, mask):
+        return scores(q, k_pool, table, mask)[0].amax(dim=-1).float()
+
+    def accumulate(q, k_pool, v_pool, table, mask, m_safe):
+        s, mskg = scores(q, k_pool, table, mask)
+        p = torch.where(mskg, torch.exp(s - m_safe.double()[..., None]),
+                        0.0)
+        B, KV, _, hd = q.shape
+        vg = v_pool[table.long()].reshape(B, -1, KV, hd).double()
+        num = torch.einsum("bkrs,bskd->bkrd", p.to(v_pool.dtype).double(),
+                           vg)
+        return num.float(), p.sum(dim=-1).float()
+
+    saved = pa.paged_attn_scores_max, pa.paged_attn_accumulate
+    pa.paged_attn_scores_max, pa.paged_attn_accumulate = (scores_max,
+                                                          accumulate)
+    try:
+        with plain_k5_k6():
+            yield
+    finally:
+        pa.paged_attn_scores_max, pa.paged_attn_accumulate = saved
 
 
 def rwkv_serve(card):
@@ -2484,6 +2893,120 @@ def train_rwkv(card):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 8e: the block families trained
+# ---------------------------------------------------------------------------
+
+def train_families(card):
+    """FAMILY_TRAIN's models at full width (danube cut to 4 layers,
+    recurrentgemma to one (rglru, rglru, swa) period of 3, whisper
+    whole), fp32 masters from torch.Generator(device="cuda")
+    .manual_seed(0), 4 optimizer steps each (seq 1024, microbatch 2,
+    accum 1, remat, spike guard) with every step's dispatch under the
+    debug sync guard: danube and recurrentgemma through the port's
+    Trainer, whisper (whose batches carry 1504 encoder frames the
+    launcher's pipeline does not make) through `make_train_step` on
+    batches from numpy seed 0.  Finite losses, no kernel launched (a
+    dense model's train step has none), peak memory under 80 GB; step
+    time and tokens/s printed.  Returns {arch: launches}."""
+    import numpy as np
+    import torch
+    from repro_torch import api
+    from repro_torch.analysis import contracts
+    from repro_torch.configs.base import cut_depth, get_config
+    from repro_torch.core import spikes as spikes_lib
+    from repro_torch.data.pipeline import DataPipeline, PipelineConfig
+    from repro_torch.kernels import build
+    from repro_torch.models import prng
+    from repro_torch.optim import adamw
+    from repro_torch.training.trainer import TrainConfig, Trainer
+    B, S, steps = 2, 1024, 4
+    out, failed = {}, []
+    for arch, depth in FAMILY_TRAIN:
+        cfg = cut_depth(get_config(arch), depth)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        runner = api.Runner(cfg, device="cuda")
+        times, losses = [], []
+        build.reset_launches()
+        if cfg.is_encoder_decoder:
+            spike = spikes_lib.SpikeConfig()
+            params = runner.init_train_params(0)
+            opt = adamw.init_opt_state(params)
+            guard = spikes_lib.init_guard_state(spike, "cuda")
+            step = runner.make_train_step(spike_guard=spike)
+            rs = np.random.RandomState(0)
+            batches, keys = [], []
+            for k in range(1, steps + 1):
+                t = torch.from_numpy(rs.randint(0, cfg.vocab_size,
+                                                (B, S + 1))).cuda()
+                f = torch.from_numpy(rs.randn(
+                    B, cfg.encoder_seq_len, cfg.d_model).astype(np.float32))
+                batches.append({"tokens": t[:, :-1], "labels": t[:, 1:],
+                                "enc_frames": f.cuda()})
+                keys.append(prng.fold_in(prng.prng_key(0, "cuda"), k))
+            torch.cuda.synchronize()
+            n_par = sum(t.numel() for t in adamw.leaves(params))
+            build.reset_launches()
+            for k in range(steps):
+                t0s = time.perf_counter()
+                with contracts.transfer_guard("disallow"):
+                    params, opt, guard, mets = step(params, opt, guard,
+                                                    batches[k], k + 1,
+                                                    keys[k], 1e-4)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0s)
+                losses.append(mets["loss"])
+            losses = [float(v) for v in losses]
+            del params, opt, guard, batches
+        else:
+            pipe = DataPipeline(PipelineConfig(vocab_size=cfg.vocab_size,
+                                               seq_len=S, batch_size=B,
+                                               seed=0))
+            trainer = Trainer(runner, pipe, TrainConfig(
+                n_steps=steps, accum_steps=1, log_every=1, seed=0,
+                debug_guards=True))
+            torch.cuda.synchronize()
+            n_par = sum(t.numel() for t in adamw.leaves(trainer.params))
+            build.reset_launches()
+            try:
+                for k in range(1, steps + 1):
+                    t0s = time.perf_counter()
+                    trainer.train(k)
+                    torch.cuda.synchronize()
+                    times.append(time.perf_counter() - t0s)
+            finally:
+                trainer.close()
+            losses = [r["loss"] for r in trainer.history]
+            del trainer
+        launches = dict(build.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        step_s = sum(times[-2:]) / 2
+        print(f"[families-train] {arch}: {cfg.n_layers} of "
+              f"{get_config(arch).n_layers} layers, d={cfg.d_model}: "
+              f"{n_par / 1e9:.3f}B params, fp32 masters; seq={S} "
+              f"microbatch={B} accum=1 remat=True, debug guards on; losses "
+              f"{[round(v, 4) for v in losses]}; step times "
+              f"{[round(t, 3) for t in times]}s, the last 2's mean "
+              f"{step_s:.3f}s ({B * S / step_s:.0f} tokens/s); peak "
+              f"max_memory_allocated {peak / 1e9:.2f}GB; init and steps "
+              f"{time.perf_counter() - t0:.1f}s [{card}]")
+        if len(losses) != steps or not all(np.isfinite(v) for v in losses):
+            failed.append(f"{arch} losses {losses}")
+        if sum(launches.values()):
+            failed.append(f"{arch}: a kernel launched in a train step: "
+                          f"{launches}")
+        if not peak < 80e9:
+            failed.append(f"{arch} peak memory {peak / 1e9:.2f} GB >= 80 GB")
+        del runner
+        gc.collect()
+        torch.cuda.empty_cache()
+        out[arch] = launches
+    if failed:
+        fail("phase 8e: " + "; ".join(failed))
+    return out
+
+
 E2E_CHUNK, E2E_STEPS = 64, 8     # the teacher-forced request's shape
 
 
@@ -2620,9 +3143,14 @@ def main():
     for p in libs.values():
         log = p.with_suffix(".log")
         if log.exists():
+            # each kernel's registers and spills, under its name
+            fn = ""
             for line in log.read_text().splitlines():
-                if "Used" in line or "spill" in line:
-                    print(f"[build] {p.stem}: {line.strip()}")
+                if "Compiling entry function" in line:
+                    fn = kernel_name(line.split("'")[1] if "'" in line
+                                     else line)
+                elif "Used" in line or "spill" in line:
+                    print(f"[build] {p.stem} {fn}: {line.strip()}")
 
     # -- 3. per-kernel checks ----------------------------------------------
     cfg = get_config("ling-lite")
@@ -2643,6 +3171,9 @@ def main():
         acfg = get_config(arch)
         k3[label], k4[label] = check_pa(acfg, label, paged_case(
             acfg, gen=gen, **PA_CASES[shape]))
+    for label, (arch, S, pos) in PA_FAMILY_CASES.items():
+        k3[label], k4[label] = check_pa(get_config(arch), label,
+                                        dense_case(arch, S, pos, gen))
     k2, wgrad = check_k2(cfg, gen)
     rows, wrows = check_k2(get_config(K2_ARCH), gen)
     k2.update({f"granite {k}": v for k, v in rows.items()})
@@ -2705,6 +3236,11 @@ def main():
     arch_launches = serve_archs(card, gen)
     print(f"[archs] phase 7b took {time.perf_counter() - t0:.1f}s")
 
+    # -- 7c. the block families: LayerNorm, windows, RG-LRU, whisper --------
+    t0 = time.perf_counter()
+    family_launches = serve_families(card)
+    print(f"[families] phase 7c took {time.perf_counter() - t0:.1f}s")
+
     # -- 8. training --------------------------------------------------------
     train_launches = train(card)
     gc.collect()
@@ -2729,6 +3265,11 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     print(f"[rwkv-train] phase 8d took {time.perf_counter() - t0:.1f}s")
+
+    # -- 8e. the block families trained ------------------------------------------
+    t0 = time.perf_counter()
+    family_train_launches = train_families(card)
+    print(f"[families-train] phase 8e took {time.perf_counter() - t0:.1f}s")
 
     # -- 9. results ---------------------------------------------------------
     # (source, TPU kernel it replaces, the row's shape, the path whose
@@ -2768,7 +3309,11 @@ def main():
                 "train": train_launches,
                 "resume_a": resume_launches["a"],
                 "resume_b": resume_launches["b"],
-                "edit": edit_launches, "rwkv_train": rwkv_train_launches}
+                "edit": edit_launches, "rwkv_train": rwkv_train_launches,
+                **{f"serve_{a}": family_launches[a]
+                   for a, _ in FAMILY_SERVE},
+                **{f"train_{a}": family_train_launches[a]
+                   for a, _ in FAMILY_TRAIN}}
     rows = []
     for name, shapes in results.items():
         src_path, replaces, main_shape, path = meta[name]
@@ -2799,6 +3344,9 @@ def main():
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, list):
+        for v in tree:
             yield from _leaves(v)
     else:
         yield tree

@@ -18,6 +18,11 @@ prefill chunks continue), then
     and
   * traces the same kind of window with torch.profiler.
 
+The block families paged serving refuses (`--only` nemotron-4-15b,
+h2o-danube-1.8b, recurrentgemma-2b or whisper-tiny, full width, every
+layer) take the dense path alone, as below (whisper's prompts beside
+1504 seeded encoder frames).
+
 With `--dense`, Ling-Lite's dense KV-cache decode on the same model right
 after: the Runner's greedy prefill of 8 prompts of 128 tokens into caches
 of 512 positions, then decode ticks over the 8 sequences (K3/K4 over the
@@ -38,8 +43,8 @@ the device's busy time and idle share of the window's wall time.
     python3 scripts/profile_torch_serve.py [--only ARCH] [--layers N]
                                            [--dense] [--src DIR]
 
-`--only` runs one of the two paths: rwkv6-3b, or the paged serving of
-ARCH (ling-lite, or another ported attention arch such as ling-plus or
+`--only` runs one of the two paths: rwkv6-3b, a family's dense ticks,
+or the paged serving of ARCH (ling-lite, or another ported attention arch such as ling-plus or
 granite-moe-3b-a800m, in place of Ling-Lite), `--layers` serving its
 first N layers at full width (Ling-Plus's 80 do not fit one card; 8
 do); `--src` runs the port found in DIR (for instance an unpacked
@@ -58,6 +63,9 @@ from collections import defaultdict
 from pathlib import Path
 
 SKIP, TICKS = 16, 12
+# served dense only: the reference refuses their blocks in paged serving
+DENSE_ONLY = ("nemotron-4-15b", "h2o-danube-1.8b", "recurrentgemma-2b",
+              "whisper-tiny")
 RWKV_B, RWKV_S, RWKV_TICKS = 8, 512, 8
 DENSE_B, DENSE_P, DENSE_S = 8, 128, 512
 
@@ -181,18 +189,24 @@ def ling_online(dense: bool, arch: str = "ling-lite", layers=None):
     if dense:
         del eng
         torch.cuda.empty_cache()
-        ling_dense(cfg, runner, params)
+        dense_ticks(cfg, runner, params)
 
 
-def ling_dense(cfg, runner, params):
-    """Ling-Lite's dense ticks at B=8 over 512-position caches."""
+def dense_ticks(cfg, runner, params):
+    """An arch's dense ticks at B=8 over 512-position caches (whisper:
+    beside 1504 seeded encoder frames)."""
     import numpy as np
     import torch
-    prompts = torch.from_numpy(np.random.RandomState(1).randint(
-        0, cfg.vocab_size, (DENSE_B, DENSE_P))).cuda()
+    rs = np.random.RandomState(1)
+    batch = {"tokens": torch.from_numpy(rs.randint(
+        0, cfg.vocab_size, (DENSE_B, DENSE_P))).cuda()}
+    if cfg.is_encoder_decoder:
+        batch["enc_frames"] = torch.from_numpy(rs.randn(
+            DENSE_B, cfg.encoder_seq_len, cfg.d_model).astype(np.float32)) \
+            .cuda().to(torch.bfloat16)
     prefill = runner.make_prefill(seq_len=DENSE_S)
     decode = runner.make_decode_step()
-    tok, caches = prefill(params, {"tokens": prompts})
+    tok, caches = prefill(params, batch)
     state = {"tok": tok, "pos": DENSE_P}
 
     def tick():
@@ -274,6 +288,12 @@ def main():
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip())
     print(f"[profile] port from {Path(repro_torch.__file__).parent}")
+    if args.only in DENSE_ONLY:
+        from repro_torch import api
+        from repro_torch.configs.base import get_config
+        runner = api.Runner(get_config(args.only), device="cuda")
+        dense_ticks(runner.cfg, runner, runner.init_params(0))
+        return
     if args.only != "rwkv6-3b":
         ling_online(args.dense, args.only or "ling-lite", args.layers)
         gc.collect()

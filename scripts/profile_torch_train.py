@@ -7,7 +7,9 @@ Builds a training cell of chip_smoke.py: Ling-Lite (phase 8) or rwkv6-3b
 (phase 8d: the chunked WKV6 form, rwkv_chunk 64) at full width cut to 4
 layers, fp32 masters from torch.Generator(device="cuda").manual_seed(0),
 the port's Trainer at seq 1024, microbatch 2, accum 2 (remat, spike
-guard; Ling: fused MoE, router warmup active).  Runs 2 steps to warm up, times 2
+guard; Ling: fused MoE, router warmup active); or phase 8e's cells,
+h2o-danube-1.8b cut to 4 layers and recurrentgemma-2b to 3 (its RG-LRU
+scan a loop of positions), at accum 1.  Runs 2 steps to warm up, times 2
 steps on the host clock (each ends in torch.cuda.synchronize), then traces
 one more step with torch.profiler and prints device time by kernel (top
 20), grouped by layer of the port (K1, K2, the weight gradient,
@@ -54,7 +56,8 @@ def group_of(name: str) -> str:
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="ling-lite",
-                    choices=["ling-lite", "rwkv6-3b"])
+                    choices=["ling-lite", "rwkv6-3b", "h2o-danube-1.8b",
+                             "recurrentgemma-2b"])
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -69,13 +72,17 @@ def main():
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip())
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = dataclasses.replace(get_config(args.arch), n_layers=4)
+    family = args.arch in ("h2o-danube-1.8b", "recurrentgemma-2b")
+    layers = 3 if args.arch == "recurrentgemma-2b" else 4
+    accum = 1 if family else 2
+    cfg = dataclasses.replace(get_config(args.arch), n_layers=layers)
     flags = M.RunFlags(rwkv_chunk=64 if args.arch == "rwkv6-3b" else 0)
-    print(f"[profile] {args.arch} at full width, 4 layers, {flags}")
+    print(f"[profile] {args.arch} at full width, {layers} layers, accum "
+          f"{accum}, {flags}")
     pipe = DataPipeline(PipelineConfig(vocab_size=cfg.vocab_size,
                                        seq_len=1024, batch_size=2, seed=0))
     trainer = Trainer(api.Runner(cfg, flags=flags, device="cuda"), pipe,
-                      TrainConfig(n_steps=5, accum_steps=2, log_every=1,
+                      TrainConfig(n_steps=5, accum_steps=accum, log_every=1,
                                   seed=0))
     try:
         trainer.train(2)

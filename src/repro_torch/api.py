@@ -1,7 +1,8 @@
 """High-level runner for the port (counterpart of `repro.api.Runner`) at
 tp=1: parameter init, the train step, the greedy prefill and the dense
-decode step with their caches (KV caches of attention models, the state
-of rwkv models), sequence scoring for the eval harness, paged KV pools,
+decode step with their caches (KV caches of attention layers, rolling
+ones for sliding windows, cross caches of the encoder-decoder, the
+state of recurrent layers), sequence scoring for the eval harness, paged KV pools,
 and the paged serving steps (all-attn models: decode, prefill, and
 speculative decoding's draft and verify), greedy or sampled, as plain
 callables.
@@ -44,6 +45,7 @@ class Runner:
     cfg: ModelConfig
     flags: M.RunFlags = M.DEFAULT_FLAGS
     device: Union[str, torch.device] = "cuda"
+    max_seq: int = 4096     # an encoder-decoder's learned decoder positions
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
@@ -54,14 +56,15 @@ class Runner:
         """Random serving parameters on the runner's device from
         `torch.Generator(device).manual_seed(seed)`."""
         gen = torch.Generator(device=self.device).manual_seed(seed)
-        return M.init_model(self.cfg, device=self.device, generator=gen)
+        return M.init_model(self.cfg, device=self.device, generator=gen,
+                            max_seq=self.max_seq)
 
     def init_train_params(self, seed: int = 0):
         """Random training parameters: every leaf an fp32 master (the
         reference's `param_dtype`), cast to the compute dtype at use."""
         gen = torch.Generator(device=self.device).manual_seed(seed)
         return M.init_model(self.cfg, device=self.device, generator=gen,
-                            masters=True)
+                            masters=True, max_seq=self.max_seq)
 
     # -- train step ----------------------------------------------------------
     def make_train_step(self, opt_cfg: adamw.AdamWConfig = adamw.AdamWConfig(),
@@ -73,7 +76,8 @@ class Runner:
         params are fp32 masters (`init_train_params`); batch leaves are
         (B, S) token ids for one microbatch, or (accum, B, S) for accum
         microbatches, so one step serves every stage of the batch-size
-        warmup.  The step accumulates fp32 grads over the microbatches
+        warmup (an encoder-decoder's "enc_frames" (B, S_enc, d) take the
+        same leading dim).  The step accumulates fp32 grads over the microbatches
         (mean), clips by the global norm, runs the spike guard when
         `spike_guard` is given (``metrics["commit"]`` is then 1.0 or 0.0)
         and applies AdamW in place with the commit gate; params,
@@ -136,18 +140,23 @@ class Runner:
 
     # -- prefill and dense decode -------------------------------------------
     def init_caches(self, batch: int, seq_len: Optional[int] = None):
-        """Zeroed dense decode caches for `batch` sequences (leading layer
-        dim; see `models.model.init_caches`).  An attention model needs
-        `seq_len`, of any length (`layers.init_decode_cache`); rwkv
-        ignores it."""
+        """Zeroed dense decode caches for `batch` sequences (a leading
+        layer dim or a list; see `models.model.init_caches`).  An
+        attention model needs `seq_len`, of any length
+        (`layers.init_decode_cache`); recurrent layers ignore it.  An
+        encoder-decoder's cross caches hold `cfg.encoder_seq_len`
+        positions."""
         return M.init_caches(self.cfg, batch, self.device, seq_len)
 
     def make_prefill(self, seq_len: Optional[int] = None):
         """Greedy prefill: ``(params, batch) -> (next (B,) int32,
-        caches)`` with batch["tokens"] (B, S); caches hold what the
-        prompt leaves behind, in `init_caches`' layout.  An attention
-        model's caches hold S positions, or `seq_len` (the prompt's rows,
-        then zeros) when given, ready for `make_decode_step` at pos S."""
+        caches)`` with batch["tokens"] (B, S) (and, for an
+        encoder-decoder, batch["enc_frames"] (B, S_enc, d)); caches hold
+        what the prompt leaves behind, in `init_caches`' layout.  An
+        attention model's caches hold S positions, or `seq_len` (the
+        prompt's rows, then zeros) when given, ready for
+        `make_decode_step` at pos S; a sliding window's hold min(window,
+        that), and a prompt longer than the window raises."""
         cfg, flags = self.cfg, self.flags
 
         @torch.no_grad()

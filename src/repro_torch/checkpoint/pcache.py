@@ -97,12 +97,15 @@ def simulate_checkpoint_write(n_dp_groups: int, ranks_per_group: int,
 
 def tree_unflatten(like, leaves: List[Any]):
     """The tree `like` with its leaves replaced, in `adamw.leaves` order
-    (sorted dict keys, as `jax.tree.flatten` orders them)."""
+    (sorted dict keys, list entries in index order, as
+    `jax.tree.flatten` orders them)."""
     it = iter(leaves)
 
     def build(node):
         if isinstance(node, dict):
             return {k: build(node[k]) for k in sorted(node)}
+        if isinstance(node, list):
+            return [build(v) for v in node]
         return next(it)
     return build(like)
 
@@ -113,6 +116,8 @@ def _treedef(tree) -> str:
         if isinstance(node, dict):
             return "{" + ", ".join(f"{k!r}: {spell(node[k])}"
                                    for k in sorted(node)) + "}"
+        if isinstance(node, list):
+            return "[" + ", ".join(spell(v) for v in node) + "]"
         return "*"
     return f"PyTreeDef({spell(tree)})"
 

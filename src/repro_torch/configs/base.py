@@ -2,8 +2,7 @@
 
 `ModelConfig` and `MoEConfig` keep the reference's fields and defaults
 so a config built here describes exactly the model the JAX package
-builds.  Only the architectures the port serves resolve; the rest of the
-reference registry raises until its slice lands.
+builds.  Every architecture of the reference registry resolves.
 """
 from __future__ import annotations
 
@@ -37,7 +36,10 @@ class MoEConfig:
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
-    """A composable decoder transformer description (reference fields)."""
+    """A composable decoder (or encoder-decoder) transformer description
+    (reference fields).  Block kinds, cycled over layers: "attn" (causal
+    self attention), "swa" (sliding window of `attn_window`), "rglru"
+    (RG-LRU recurrent block), "rwkv" (RWKV6 time mix)."""
 
     arch_id: str
     family: str
@@ -87,11 +89,8 @@ class ModelConfig:
         return len(set(self.block_pattern)) == 1
 
 
-# The reference registry; `PORTED` is the subset whose configs resolve here
-# (h2o-danube-1.8b only as a speculative drafter's source config: its
-# "swa" blocks are not built as a model).  nemotron-4-15b (layernorm),
-# whisper-tiny (encoder-decoder) and recurrentgemma-2b (RG-LRU) need new
-# blocks (ROADMAP queue 1 item 10).
+# The reference registry; `PORTED` is the subset whose configs resolve
+# here: all of it.
 ARCH_IDS = [
     "phi3-mini-3.8b",
     "rwkv6-3b",
@@ -106,9 +105,7 @@ ARCH_IDS = [
     "ling-lite",
     "ling-plus",
 ]
-PORTED = ("ling-lite", "rwkv6-3b", "h2o-danube-1.8b", "ling-plus",
-          "deepseek-moe-16b", "granite-moe-3b-a800m", "moonshot-v1-16b-a3b",
-          "phi3-mini-3.8b", "chameleon-34b")
+PORTED = tuple(ARCH_IDS)
 
 _MODULE_FOR = {a: a.replace("-", "_").replace(".", "_") for a in ARCH_IDS}
 
@@ -116,10 +113,6 @@ _MODULE_FOR = {a: a.replace("-", "_").replace(".", "_") for a in ARCH_IDS}
 def _module(arch_id: str):
     if arch_id not in _MODULE_FOR:
         raise KeyError(f"unknown arch {arch_id!r}; known: {sorted(_MODULE_FOR)}")
-    if arch_id not in PORTED:
-        raise NotImplementedError(
-            f"arch {arch_id!r} is not yet ported to repro_torch "
-            f"(ported: {list(PORTED)})")
     return importlib.import_module(
         f"repro_torch.configs.{_MODULE_FOR[arch_id]}")
 

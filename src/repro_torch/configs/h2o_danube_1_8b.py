@@ -1,10 +1,11 @@
 """h2o-danube-1.8b [dense] — llama + mistral mix, sliding-window attention
 [arXiv:2401.16818].
 
-Same numbers as `repro.configs.h2o_danube_1_8b`.  The port does not
-build its "swa" blocks as a model (`models.model.check_ported_blocks`);
-the config is here for `serving.draft.adapt_drafter_config`, which
-rewrites it into an all-"attn" drafter.
+Same numbers as `repro.configs.h2o_danube_1_8b`: 24 "swa" layers, each
+query attending the 4096 positions up to its own (a rolling decode cache
+of min(4096, seq_len) rows), d 2560, GQA 32 over 8 heads of 80, SwiGLU
+6912, vocab 32000.  `serving.draft.adapt_drafter_config` also rewrites
+it into an all-"attn" drafter for paged serving, which refuses windows.
 """
 import dataclasses
 

@@ -56,9 +56,12 @@ class EDiTConfig:
 
 
 def tree_map(fn: Callable, *trees):
-    """`fn` over corresponding leaves of nested dicts of one layout."""
+    """`fn` over corresponding leaves of nested dicts and lists of one
+    layout."""
     if isinstance(trees[0], dict):
         return {k: tree_map(fn, *(t[k] for t in trees)) for k in trees[0]}
+    if isinstance(trees[0], list):
+        return [tree_map(fn, *nodes) for nodes in zip(*trees)]
     return fn(*trees)
 
 

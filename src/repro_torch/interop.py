@@ -1,8 +1,10 @@
 """Convert reference parameters, given as numpy arrays, into the port's.
 
-The JAX package's `Runner.init_params(seed)` pytree (nested dicts, a
-leading layer dim on every `blocks` leaf) maps key for key onto the
-port's parameter dict, so conversion is a key walk plus a dtype choice.
+The JAX package's `Runner.init_params(seed)` pytree (nested dicts; a
+leading layer dim on every `blocks` leaf of a uniform decoder, lists of
+per-layer trees for mixed patterns and the encoder-decoder) maps key for
+key and index for index onto the port's parameters, so conversion is a
+tree walk plus a dtype choice.
 The dtype of each leaf is the one the port's own `init_model` gives it:
 with `masters` (training) every leaf in `cfg.param_dtype`, as the
 reference stores it; for serving the compute dtype for leaves the
@@ -25,8 +27,12 @@ def params_from_numpy(tree: Dict[str, Any], cfg, *, device="cuda",
                       masters: bool = False) -> Dict[str, Any]:
     """Reference params (numpy leaves) -> the port's params on `device`,
     in training storage when `masters`, else in serving storage.  Raises
-    if the key sets or shapes differ from the port's layout."""
-    layout = M.init_model(cfg, device="meta", masters=masters)
+    if the key sets, list lengths or shapes differ from the port's
+    layout.  An encoder-decoder's `max_seq` is read off its `pos_dec`."""
+    max_seq = (np.shape(tree["pos_dec"])[0] if "pos_dec" in tree
+               else 4096)
+    layout = M.init_model(cfg, device="meta", masters=masters,
+                          max_seq=max_seq)
 
     def convert(ref, spec, path):
         if isinstance(spec, dict):
@@ -35,6 +41,12 @@ def params_from_numpy(tree: Dict[str, Any], cfg, *, device="cuda",
                 raise KeyError(f"{path or '<root>'}: reference keys {got} "
                                f"!= port keys {sorted(spec)}")
             return {k: convert(ref[k], spec[k], f"{path}/{k}") for k in spec}
+        if isinstance(spec, list):
+            if not isinstance(ref, (list, tuple)) or len(ref) != len(spec):
+                raise KeyError(f"{path}: reference {type(ref).__name__} "
+                               f"!= port list of {len(spec)}")
+            return [convert(r, t, f"{path}/{i}")
+                    for i, (r, t) in enumerate(zip(ref, spec))]
         arr = np.array(ref, dtype=np.float32)          # writable copy
         if arr.shape != tuple(spec.shape):
             raise ValueError(f"{path}: reference shape {arr.shape} != port "

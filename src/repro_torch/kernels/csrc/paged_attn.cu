@@ -56,10 +56,19 @@
 //    share them, a tile's 16-position chunks taken in turn by 2 warps,
 //    whose partials are added in warp order through shared memory: the
 //    same order at every shape, so a query row's result does not depend
-//    on the other rows of its block (at decode two of the 4 warps idle).  Each accumulator sums at most 4 k16 steps (q.k over
-//    head_dim <= 128 in even and odd halves; p.v over a split's <= 4
+//    on the other rows of its block (at decode two of the 4 warps idle).
+//    Each accumulator sums at most 4 k16 steps (q.k over head_dim in
+//    head_dim / 64 interleaved accumulators; p.v over a split's <= 4
 //    chunks), so the tensor cores' truncating adds (see hopper_mma.cuh
 //    `promote`) cost at most a few ulps of a score; the rest is fp32.
+//  * head_dim is a template parameter: HDM = 128 takes head_dim <= 128,
+//    HDM = 256 the rest up to 256 (recurrentgemma's heads).  At 256 a
+//    warp's q fragments are 64 registers, and pass 2's fp32 output for
+//    all 256 columns would be 128 more: there the two warps of a tile
+//    split p.v by columns instead of by chunks (each takes every chunk,
+//    computing its scores again, and half the columns: 64 registers of
+//    output), so nothing spills; a row's chunks are then added in one
+//    mma chain in chunk order, again the same order at every shape.
 //  * The combine inside the same launch.  Each block writes its split's
 //    partial (pass 1: the rows' max; pass 2: fp32 num and den) and a
 //    live flag, and takes a ticket on its (slot, kv head, row group); the
@@ -78,14 +87,31 @@ namespace {
 
 constexpr int SPLIT = 64;                 // positions per split, at most
 constexpr int ROWS = 64;                  // query rows per block, at most
-constexpr int HD_MAX = 128;               // head_dim limit
+constexpr int HD_MAX = 256;               // head_dim limit
 constexpr int PS_MAX = 32;                // page_size limit
-constexpr int KLD = HD_MAX + 8;           // K / V row stride in shared
-                                          // memory (272 B: ldmatrix rows
-                                          // fall in distinct banks)
-constexpr int KV_BYTES = SPLIT * KLD * 2;  // one split's K (or V) rows
 constexpr int CG = 8;                     // the combine: splits loaded at
 constexpr int U = 4;                      // once, float4 columns a thread
+
+// What follows from HDM, the head_dim bound of one instantiation (128 or
+// 256).
+template <int HDM>
+struct Dm {
+  // K / V row stride in shared memory (272 or 528 B: the 8 rows of an
+  // ldmatrix fall in distinct banks)
+  static constexpr int KLD = HDM + 8;
+  static constexpr int KV_BYTES = SPLIT * KLD * 2;  // one split's K or V
+  static constexpr int NACC = HDM / 64;   // q.k accumulators, <= 4 k16 each
+  // pass 2 at 256: the tile's two warps split p.v by columns
+  static constexpr bool COLSPLIT = HDM > 128;
+  static constexpr int OT = COLSPLIT ? HDM / 16 : HDM / 8;  // 8-column
+                                                            // tiles of o
+  // pass 2 at 128: the warps past a tile's first stash their num and den
+  // in the K / V rows' shared memory, one stash a tile
+  static constexpr int STASH_LD = HDM + 4;          // floats a stashed row
+  static constexpr int STASH = 16 * STASH_LD + 16;  // num rows, then den
+};
+static_assert(4 * Dm<128>::STASH * 4 <= 2 * Dm<128>::KV_BYTES,
+              "four stashes fit K and V");
 
 struct Shapes {
   int B, KV, GQ, hd, ps, n_lp, Q, P, n_split;
@@ -142,7 +168,8 @@ __device__ __forceinline__ uint32_t q_pair(const bf16* row, int c,
 // The A fragments of the 16-row tile mt of q for every k16 step of
 // head_dim (mma.m16n8k16 layout: rows lane / 4 and + 8, columns
 // 2 (lane % 4) + {0, 1} and + 8).
-__device__ __forceinline__ void load_q(uint32_t (&qa)[HD_MAX / 16][4],
+template <int HDM>
+__device__ __forceinline__ void load_q(uint32_t (&qa)[HDM / 16][4],
                                        const bf16* qb, const Shapes& sh,
                                        int mt, int lane) {
   const int r0 = mt * 16 + (lane >> 2), r1 = r0 + 8;
@@ -150,7 +177,7 @@ __device__ __forceinline__ void load_q(uint32_t (&qa)[HD_MAX / 16][4],
   const bf16* q1 = qb + (size_t)r1 * sh.hd;
   const bool in0 = r0 < sh.GQ, in1 = r1 < sh.GQ;
 #pragma unroll
-  for (int kk = 0; kk < HD_MAX / 16; ++kk) {
+  for (int kk = 0; kk < HDM / 16; ++kk) {
     const int c = 16 * kk + 2 * (lane & 3);
     qa[kk][0] = q_pair(q0, c, sh, in0);
     qa[kk][1] = q_pair(q1, c, sh, in1);
@@ -161,35 +188,42 @@ __device__ __forceinline__ void load_q(uint32_t (&qa)[HD_MAX / 16][4],
 
 // Scaled scores of the 16-row tile against chunk c (16 positions of the
 // split's compacted live positions): sc[t][e] is row lane / 4 + 8 (e / 2),
-// position 16 c + 8 t + 2 (lane % 4) + e % 2.  The even and odd k16 steps
-// of head_dim go to two accumulators, added at the end in fp32: four
-// chains of at most 4 mma instead of two of 8.
+// position 16 c + 8 t + 2 (lane % 4) + e % 2.  The k16 steps of head_dim
+// go to NACC interleaved accumulators (step kk to kk % NACC), added at the
+// end in fp32 in order: chains of at most 4 mma.
+template <int HDM>
 __device__ __forceinline__ void chunk_scores(
-    float (&sc)[2][4], const uint32_t (&qa)[HD_MAX / 16][4], const bf16* kS,
+    float (&sc)[2][4], const uint32_t (&qa)[HDM / 16][4], const bf16* kS,
     int c, int ks, int lane, float scale) {
-  float acc[2][2][4];
+  constexpr int NACC = Dm<HDM>::NACC;
+  float acc[2][NACC][4];
 #pragma unroll
   for (int t = 0; t < 2; ++t)
 #pragma unroll
-    for (int h = 0; h < 2; ++h)
+    for (int h = 0; h < NACC; ++h)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[t][h][e] = 0.f;
-  const bf16* row = kS + (16 * c + 8 * (lane >> 4) + (lane & 7)) * KLD +
+  const bf16* row = kS + (16 * c + 8 * (lane >> 4) + (lane & 7)) *
+                             Dm<HDM>::KLD +
                     8 * ((lane >> 3) & 1);
 #pragma unroll
-  for (int kk = 0; kk < HD_MAX / 16; ++kk) {
+  for (int kk = 0; kk < HDM / 16; ++kk) {
     if (kk < ks) {
       uint32_t b[4];
       ldsm_x4(b, row + 16 * kk);
-      mma16816(acc[0][kk & 1], qa[kk], b[0], b[1]);
-      mma16816(acc[1][kk & 1], qa[kk], b[2], b[3]);
+      mma16816(acc[0][kk % NACC], qa[kk], b[0], b[1]);
+      mma16816(acc[1][kk % NACC], qa[kk], b[2], b[3]);
     }
   }
 #pragma unroll
   for (int t = 0; t < 2; ++t)
 #pragma unroll
-    for (int e = 0; e < 4; ++e)
-      sc[t][e] = (acc[t][0][e] + acc[t][1][e]) * scale;
+    for (int e = 0; e < 4; ++e) {
+      float a = acc[t][0][e];
+#pragma unroll
+      for (int h = 1; h < NACC; ++h) a += acc[t][h][e];
+      sc[t][e] = a * scale;
+    }
 }
 
 // The staged mask row of row r's query, or null past the rows.
@@ -252,22 +286,23 @@ __device__ __forceinline__ Parts parts_of(float* part, const Shapes& sh,
 }
 
 // Writes a 16-row tile's partial of this split: pass 1 the rows' max,
-// pass 2 their num and den (rows of the pair from row_base on).
-template <bool PASS2>
+// pass 2 their num (OT 8-column tiles from column col0 on) and, with
+// `rows`, den (rows of the pair from row_base on).
+template <int OT, bool PASS2>
 __device__ __forceinline__ void write_partial(
     const Parts& pt, const Shapes& sh, size_t row_base, int mt, int lane,
-    const float (&mx)[2], const float (&o)[HD_MAX / 8][4],
-    const float (&dn)[2]) {
+    const float (&mx)[2], const float (&o)[OT][4], const float (&dn)[2],
+    int col0, bool rows) {
   const int r0 = mt * 16 + (lane >> 2);
-  if ((lane & 3) == 0) {
+  if ((lane & 3) == 0 && rows) {
     float* dst = PASS2 ? pt.den : pt.val;
     if (r0 < sh.GQ) dst[row_base + r0] = PASS2 ? dn[0] : mx[0];
     if (r0 + 8 < sh.GQ) dst[row_base + r0 + 8] = PASS2 ? dn[1] : mx[1];
   }
   if (!PASS2) return;
 #pragma unroll
-  for (int t = 0; t < HD_MAX / 8; ++t) {
-    const int col = 8 * t + 2 * (lane & 3);
+  for (int t = 0; t < OT; ++t) {
+    const int col = col0 + 8 * t + 2 * (lane & 3);
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int r = r0 + 8 * h;
@@ -357,16 +392,8 @@ __device__ __forceinline__ void combine(const Parts& pt, const Shapes& sh,
   }
 }
 
-// A block's G warps per 16-row tile (4 for one tile, else 2: a block of
-// 128 threads has at most 2 tiles, of 256 at most 4) take its chunks in
-// turn; in pass 2 the warps past the first stash their num and den in the
-// K / V rows' shared memory, (G - 1) per tile, at most four.
-constexpr int STASH_LD = HD_MAX + 4;              // floats a stashed row
-constexpr int STASH = 16 * STASH_LD + 16;         // num rows, then den
-static_assert(4 * STASH * 4 <= 2 * KV_BYTES, "four stashes fit K and V");
-
 // One block's work: (split, kv head x row group, slot) = blockIdx.
-template <int NT, bool PASS2>
+template <int HDM, int NT, bool PASS2>
 __device__ __forceinline__ void split_walk(
     const bf16* __restrict__ q, const bf16* __restrict__ k_pool,
     const bf16* __restrict__ v_pool, const int* __restrict__ table,
@@ -374,11 +401,15 @@ __device__ __forceinline__ void split_walk(
     float* __restrict__ out_m, float* __restrict__ out_num,
     float* __restrict__ out_den, float* __restrict__ part,
     int* __restrict__ tickets, const Shapes& sh) {
+  using D = Dm<HDM>;
   constexpr int NW = NT / 32;
+  constexpr int KLD = D::KLD, OT = D::OT;
+  // pass 2 at 256: the tile's two warps split the columns, not the chunks
+  constexpr bool COLS = PASS2 && D::COLSPLIT;
   extern __shared__ __align__(16) uint8_t smem[];
   bf16* kS = reinterpret_cast<bf16*>(smem);
   bf16* vS = kS + SPLIT * KLD;
-  uint8_t* maskS = smem + (PASS2 ? 2 : 1) * KV_BYTES;
+  uint8_t* maskS = smem + (PASS2 ? 2 : 1) * D::KV_BYTES;
   __shared__ int page_s[SPLIT];   // physical page of each split page
   __shared__ int live_s[SPLIT];   // split page holds a valid position
   __shared__ int list_s[SPLIT];   // live split pages, ascending
@@ -475,10 +506,10 @@ __device__ __forceinline__ void split_walk(
     const bool active = lt < MT;                // sub + G, ...
     const int mt = t0 + lt;
     const int r0 = mt * 16 + (lane >> 2), r1 = r0 + 8;
-    uint32_t qa[HD_MAX / 16][4];
+    uint32_t qa[HDM / 16][4];
     float ms[2] = {0.f, 0.f};
     if (active) {
-      load_q(qa, qb, sh, mt, lane);
+      load_q<HDM>(qa, qb, sh, mt, lane);
       if (PASS2) {
         ms[0] = r0 < sh.GQ ? m_safe[rb + r0] : 0.f;
         ms[1] = r1 < sh.GQ ? m_safe[rb + r1] : 0.f;
@@ -489,17 +520,18 @@ __device__ __forceinline__ void split_walk(
 
     // -- 3. each warp: its tile against its chunks of the positions ------
     float mx[2] = {-INFINITY, -INFINITY};  // pass 1
-    float o[HD_MAX / 8][4], dn[2] = {0.f, 0.f};  // pass 2
+    float o[OT][4], dn[2] = {0.f, 0.f};   // pass 2: columns tc0 * 8 on
+    const int tc0 = COLS ? sub * OT : 0;
 #pragma unroll
-    for (int t = 0; t < HD_MAX / 8; ++t)
+    for (int t = 0; t < OT; ++t)
 #pragma unroll
       for (int e = 0; e < 4; ++e) o[t][e] = 0.f;
     if (active) {
       const uint8_t* mr[2] = {mask_row(maskS, sh, r0),
                               mask_row(maskS, sh, r1)};
-      for (int c = sub; c < n_ch; c += G) {
+      for (int c = COLS ? 0 : sub; c < n_ch; c += COLS ? 1 : G) {
         float sc[2][4];
-        chunk_scores(sc, qa, kS, c, ks, lane, sh.scale);
+        chunk_scores<HDM>(sc, qa, kS, c, ks, lane, sh.scale);
 #pragma unroll
         for (int t = 0; t < 2; ++t)
 #pragma unroll
@@ -525,10 +557,10 @@ __device__ __forceinline__ void split_walk(
               vS + (16 * c + 8 * ((lane >> 3) & 1) + (lane & 7)) * KLD +
               8 * (lane >> 4);
 #pragma unroll
-          for (int t = 0; t < HD_MAX / 8; t += 2) {
-            if (t < 2 * ks) {
+          for (int t = 0; t < OT; t += 2) {
+            if (tc0 + t < 2 * ks) {
               uint32_t bv[4];
-              ldsm_x4_t(bv, vrow + 8 * t);
+              ldsm_x4_t(bv, vrow + 8 * (tc0 + t));
               mma16816(o[t], pa, bv[0], bv[1]);
               mma16816(o[t + 1], pa, bv[2], bv[3]);
             }
@@ -547,12 +579,17 @@ __device__ __forceinline__ void split_walk(
       }
     }
 
-    // -- 3b. each tile's G warps: add their chunks in order --------------
+    // -- 3b. each tile's G warps: add their chunks in order (or, split by
+    // columns, write their own) -------------------------------------------
     const int rr = lane >> 2;
+    constexpr int STASH_LD = D::STASH_LD;
     float* stash = reinterpret_cast<float*>(smem) +
-                   (lt * (G - 1) + max(sub, 1) - 1) * STASH;
+                   (lt * (G - 1) + max(sub, 1) - 1) * D::STASH;
     __syncthreads();                    // every warp is done with K and V
-    if (active && sub > 0) {
+    if (COLS && active)
+      write_partial<OT, PASS2>(pt, sh, split * R + rb, mt, lane, mx, o, dn,
+                               8 * tc0, sub == 0);
+    if (!COLS && active && sub > 0) {
       if (!PASS2) {
         if ((lane & 3) == 0) {
           red_s[warp][rr] = mx[0];
@@ -560,7 +597,7 @@ __device__ __forceinline__ void split_walk(
         }
       } else {
 #pragma unroll
-        for (int t = 0; t < HD_MAX / 8; ++t) {
+        for (int t = 0; t < OT; ++t) {
           const int col = 8 * t + 2 * (lane & 3);
           *reinterpret_cast<float2*>(stash + rr * STASH_LD + col) =
               make_float2(o[t][0], o[t][1]);
@@ -574,15 +611,15 @@ __device__ __forceinline__ void split_walk(
       }
     }
     __syncthreads();
-    if (active && sub == 0) {
+    if (!COLS && active && sub == 0) {
       for (int s2 = 1; s2 < G; ++s2) {
         if (!PASS2) {
           mx[0] = fmaxf(mx[0], red_s[warp + s2][rr]);
           mx[1] = fmaxf(mx[1], red_s[warp + s2][rr + 8]);
         } else {
-          const float* st = stash + (s2 - 1) * STASH;
+          const float* st = stash + (s2 - 1) * D::STASH;
 #pragma unroll
-          for (int t = 0; t < HD_MAX / 8; ++t) {
+          for (int t = 0; t < OT; ++t) {
             const int col = 8 * t + 2 * (lane & 3);
             const float2 a =
                 *reinterpret_cast<const float2*>(st + rr * STASH_LD + col);
@@ -597,7 +634,8 @@ __device__ __forceinline__ void split_walk(
           dn[1] += st[16 * STASH_LD + rr + 8];
         }
       }
-      write_partial<PASS2>(pt, sh, split * R + rb, mt, lane, mx, o, dn);
+      write_partial<OT, PASS2>(pt, sh, split * R + rb, mt, lane, mx, o, dn,
+                               0, true);
     }
   }
   const size_t n_pairs = (size_t)sh.B * sh.KV * sh.n_rg;
@@ -631,21 +669,21 @@ __device__ __forceinline__ void split_walk(
 }
 
 // The two passes as kernels of their own names (the profiler's K3 and K4).
-template <int NT>
+template <int HDM, int NT>
 __global__ void __launch_bounds__(NT) pa_scores_max_kernel(
     const bf16* q, const bf16* k_pool, const bf16* v_pool, const int* table,
     const uint8_t* mask, const float* m_safe, float* out_m, float* out_num,
     float* out_den, float* part, int* tickets, Shapes sh) {
-  split_walk<NT, false>(q, k_pool, v_pool, table, mask, m_safe, out_m,
-                        out_num, out_den, part, tickets, sh);
+  split_walk<HDM, NT, false>(q, k_pool, v_pool, table, mask, m_safe, out_m,
+                             out_num, out_den, part, tickets, sh);
 }
-template <int NT>
+template <int HDM, int NT>
 __global__ void __launch_bounds__(NT) pa_accumulate_kernel(
     const bf16* q, const bf16* k_pool, const bf16* v_pool, const int* table,
     const uint8_t* mask, const float* m_safe, float* out_m, float* out_num,
     float* out_den, float* part, int* tickets, Shapes sh) {
-  split_walk<NT, true>(q, k_pool, v_pool, table, mask, m_safe, out_m,
-                       out_num, out_den, part, tickets, sh);
+  split_walk<HDM, NT, true>(q, k_pool, v_pool, table, mask, m_safe, out_m,
+                            out_num, out_den, part, tickets, sh);
 }
 
 // Checks the shapes and fills the derived fields; 0 or a CUDA error.
@@ -658,7 +696,8 @@ int prepare(Shapes& sh, const void* q, const void* k_pool,
   sh.n_split = max(1, (sh.n_lp + sh.P - 1) / sh.P);
   sh.n_rg = (sh.GQ + ROWS - 1) / ROWS;
   // the combine lists the live splits in the K rows' shared memory
-  if (sh.n_split > KV_BYTES / 4) return static_cast<int>(cudaErrorInvalidValue);
+  if (sh.n_split > Dm<128>::KV_BYTES / 4)
+    return static_cast<int>(cudaErrorInvalidValue);
   auto a16 = [](const void* p) {
     return reinterpret_cast<uintptr_t>(p) % 16 == 0;
   };
@@ -667,12 +706,13 @@ int prepare(Shapes& sh, const void* q, const void* k_pool,
   return 0;
 }
 
-template <int NT, bool PASS2>
+template <int HDM, int NT, bool PASS2>
 int launch_nt(const Shapes& sh, size_t smem, cudaStream_t stream,
               const void* q, const void* k_pool, const void* v_pool,
               const void* table, const void* mask, const void* m_safe,
               void* m, void* num, void* den, void* part, void* tickets) {
-  auto kern = PASS2 ? pa_accumulate_kernel<NT> : pa_scores_max_kernel<NT>;
+  auto kern = PASS2 ? pa_accumulate_kernel<HDM, NT>
+                    : pa_scores_max_kernel<HDM, NT>;
   // The opt-in above the default 48 KB holds per device: remember what
   // each device (the current one, where the launch goes) was granted.
   constexpr int kDevices = 64;
@@ -700,20 +740,35 @@ int launch_nt(const Shapes& sh, size_t smem, cudaStream_t stream,
 // 128 threads where a block's rows make at most two 16-row tiles (decode,
 // verify: the chunks spread over the warps, and more blocks share an SM),
 // 256 otherwise (prefill: four tiles, each over two warps).
+template <int HDM, bool PASS2>
+int launch_hd(const Shapes& sh, const void* q, const void* k_pool,
+              const void* v_pool, const void* table, const void* mask,
+              const void* m_safe, void* m, void* num, void* den, void* part,
+              void* tickets, cudaStream_t s) {
+  const size_t smem =
+      (PASS2 ? 2 : 1) * Dm<HDM>::KV_BYTES + (size_t)sh.Q * SPLIT;
+  return (min(sh.GQ, ROWS) + 15) / 16 <= 2
+             ? launch_nt<HDM, 128, PASS2>(sh, smem, s, q, k_pool, v_pool,
+                                          table, mask, m_safe, m, num, den,
+                                          part, tickets)
+             : launch_nt<HDM, 256, PASS2>(sh, smem, s, q, k_pool, v_pool,
+                                          table, mask, m_safe, m, num, den,
+                                          part, tickets);
+}
+
+// head_dim <= 128 on the HDM = 128 kernels, up to 256 on the HDM = 256 ones
 template <bool PASS2>
 int launch(const Shapes& sh, const void* q, const void* k_pool,
            const void* v_pool, const void* table, const void* mask,
            const void* m_safe, void* m, void* num, void* den, void* part,
            void* tickets, void* stream) {
   if (sh.B == 0 || sh.KV == 0) return 0;
-  const size_t smem = (PASS2 ? 2 : 1) * KV_BYTES + (size_t)sh.Q * SPLIT;
   const auto s = static_cast<cudaStream_t>(stream);
-  return (min(sh.GQ, ROWS) + 15) / 16 <= 2
-             ? launch_nt<128, PASS2>(sh, smem, s, q, k_pool, v_pool, table,
-                                     mask, m_safe, m, num, den, part, tickets)
-             : launch_nt<256, PASS2>(sh, smem, s, q, k_pool, v_pool, table,
-                                     mask, m_safe, m, num, den, part,
-                                     tickets);
+  return sh.hd <= 128
+             ? launch_hd<128, PASS2>(sh, q, k_pool, v_pool, table, mask,
+                                     m_safe, m, num, den, part, tickets, s)
+             : launch_hd<256, PASS2>(sh, q, k_pool, v_pool, table, mask,
+                                     m_safe, m, num, den, part, tickets, s);
 }
 
 }  // namespace

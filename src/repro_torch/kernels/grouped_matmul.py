@@ -50,9 +50,11 @@ def apply_act(name: str, x: torch.Tensor) -> torch.Tensor:
     if name == "swiglu":
         return x * torch.sigmoid(x)
     if name in ("geglu", "gelu"):
-        c = torch.tensor([0.7978845608028654, 0.044715], dtype=x.dtype,
-                         device=x.device)
-        cdf = 0.5 * (1.0 + torch.tanh(c[0] * (x + c[1] * (x * x * x))))
+        # 0-d fills on the device, not a copy from the host (which would
+        # wait for the device)
+        c0, c1 = (torch.full((), c, dtype=x.dtype, device=x.device)
+                  for c in (0.7978845608028654, 0.044715))
+        cdf = 0.5 * (1.0 + torch.tanh(c0 * (x + c1 * (x * x * x))))
         return x * cdf
     if name == "squared_relu":
         r = torch.relu(x)

@@ -32,7 +32,8 @@ import torch
 
 from repro_torch.kernels import build
 
-HD_MAX = 128   # csrc/paged_attn.cu limits
+HD_MAX = 256   # csrc/paged_attn.cu limits (its kernels are instantiated
+               # for head_dim <= 128 and for head_dim <= 256)
 PS_MAX = 32
 SPLIT_POSITIONS = 64   # positions a block covers, at most
 

@@ -15,6 +15,13 @@ modes.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch ling-lite \
         --smoke --device cpu --seq 100
 
+    # offline, the other block families (nemotron-4-15b, h2o-danube-1.8b,
+    # recurrentgemma-2b, whisper-tiny): rolling window caches, RG-LRU
+    # state, whisper's cross caches zeroed and never prefilled (as the
+    # reference's engine); --online refuses them, as the reference does
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-tiny \
+        --smoke --device cpu
+
     # online, on the card: Ling-Plus at full width, its first 8 of 80
     # layers (~62 GB), or granite-moe-3b-a800m whole
     PYTHONPATH=src python -m repro_torch.launch.serve --online \
@@ -87,8 +94,8 @@ def build_model_engine(runner, params, n_stages: int, batch: int,
     """Real-model Flood engine on the sampled dense decode step (the
     reference's `build_model_engine`, which draws its parameters inside;
     this one takes them).  `seq_len` is the dense KV caches' length, of
-    any length (attention models; rwkv state does not grow and ignores
-    it).  Returns (embed_fn, stage_fns, head_fn).
+    any length (attention layers; recurrent state does not grow and
+    ignores it).  Returns (embed_fn, stage_fns, head_fn).
 
     Reproduces the reference as written: the stages pass activations
     through and the head runs the whole model's decode step; each request
@@ -96,7 +103,8 @@ def build_model_engine(runner, params, n_stages: int, batch: int,
     one; one cache and one position counter are shared by every in-flight
     micro-batch, and once the counter passes seq_len nothing more is
     written and every cached position is attended (the reference's
-    overflow branch); and request rid draws under seed (seed + rid) %
+    overflow branch); an encoder-decoder's cross caches stay zero (no
+    frames, no prefill); and request rid draws under seed (seed + rid) %
     2**31 with the online engine's (seed, position, stream) keys
     (temperature 0 is the greedy token bit for bit)."""
     decode = runner.make_decode_step(sample=True)

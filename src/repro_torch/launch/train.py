@@ -19,6 +19,10 @@
     PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \
         --steps 8 --edit-workers 2
 
+    # the other block families: LayerNorm, sliding windows, RG-LRU
+    PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \
+        --arch recurrentgemma-2b --steps 4 --batch 2 --seq 32
+
 Builds a Runner at tp=1, the synthetic `DataPipeline`, and the `Trainer`
 (AdamW + WSD schedule + accumulation or batch-size warmup + the device
 spike guard, PCache checkpoints), trains from fp32 masters drawn from
@@ -29,7 +33,9 @@ the run's Chrome trace (the trainer's spans and the registry's series).
 reference's launcher: K workers one after the other on the device,
 `sync_every` 4, `max(1, steps // 4)` rounds, a constant `--lr`) and
 prints each round's record.  The reference's multi-device flags are
-accepted and refused: those paths are not yet ported.
+accepted and refused: those paths are not yet ported.  An
+encoder-decoder (whisper-tiny) is refused: the synthetic pipeline feeds
+no encoder frames, so it trains through `api.Runner` alone.
 """
 from __future__ import annotations
 
@@ -115,6 +121,11 @@ def main(argv=None):
             ap.error(f"--bs-warmup: {e}")
 
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    if cfg.is_encoder_decoder:
+        ap.error(f"{args.arch} is an encoder-decoder: the launcher's data "
+                 f"pipeline feeds no encoder frames (as the reference's); "
+                 f"train it through api.Runner.make_train_step with "
+                 f"batch['enc_frames']")
     runner = api.Runner(cfg, flags=M.RunFlags(moe_dispatch=args.moe_dispatch),
                         device=args.device)
     pipe = DataPipeline(PipelineConfig(vocab_size=cfg.vocab_size,

@@ -66,6 +66,18 @@ class Init:
         return torch.ones(self.lead + tuple(shape), dtype=dtype,
                           device=self.device)
 
+    def zeros(self, shape, dtype) -> torch.Tensor:
+        return torch.zeros(self.lead + tuple(shape), dtype=dtype,
+                           device=self.device)
+
+    def const(self, values: torch.Tensor, dtype) -> torch.Tensor:
+        """`values` (a CPU tensor) cast to dtype and repeated over `lead`."""
+        t = torch.empty(self.lead + tuple(values.shape), dtype=dtype,
+                        device=self.device)
+        if self.device.type != "meta":
+            t.copy_(values.to(dtype).expand_as(t))
+        return t
+
 
 # ---------------------------------------------------------------------------
 # norms, RoPE, MLP
@@ -73,21 +85,34 @@ class Init:
 
 
 def init_norm(cfg, init: Init) -> Params:
-    if cfg.norm_type != "rmsnorm":
-        raise NotImplementedError(
-            f"norm_type={cfg.norm_type!r} is not yet ported")
-    return {"scale": init.ones((cfg.d_model,), dtype_of(cfg.param_dtype))}
+    """RMSNorm: a scale of ones; LayerNorm: also a bias of zeros."""
+    if cfg.norm_type not in ("rmsnorm", "layernorm"):
+        raise ValueError(f"norm_type={cfg.norm_type!r}")
+    dt = dtype_of(cfg.param_dtype)
+    params = {"scale": init.ones((cfg.d_model,), dt)}
+    if cfg.norm_type == "layernorm":
+        params["bias"] = init.zeros((cfg.d_model,), dt)
+    return params
 
 
 def apply_norm(cfg, params: Params, x: torch.Tensor) -> torch.Tensor:
+    """The reference's RMSNorm (eps 1e-6) or LayerNorm (eps 1e-5, the
+    population variance, then scale and bias), in fp32, cast back to x's
+    dtype.  The row statistics are taken in fp64 and each rounded once to
+    fp32: a reduction's order follows the number of rows in the call, and
+    in fp32 a row's statistics could then differ by an ulp between a
+    prefill and a decode tick."""
     scale = params["scale"].float()
     xf = x.float()
-    # the mean square in fp64, its inverse root rounded once to fp32: the
-    # reduction's order follows the number of rows in the call, and in
-    # fp32 a row's scale could then differ by an ulp between a prefill
-    # and a decode tick
-    ms = torch.mean(xf.double().square(), dim=-1, keepdim=True)
-    out = xf * torch.rsqrt(ms + 1e-6).float() * scale
+    xd = xf.double()
+    if cfg.norm_type == "layernorm":
+        mu = torch.mean(xd, dim=-1, keepdim=True)
+        var = torch.mean((xd - mu).square(), dim=-1, keepdim=True)
+        out = ((xf - mu.float()) * torch.rsqrt(var + 1e-5).float() * scale
+               + params["bias"].float())
+    else:
+        ms = torch.mean(xd.square(), dim=-1, keepdim=True)
+        out = xf * torch.rsqrt(ms + 1e-6).float() * scale
     return out.to(x.dtype)
 
 
@@ -187,47 +212,71 @@ def init_attention(cfg, init: Init) -> Params:
 
 
 def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                   causal: bool = True) -> torch.Tensor:
-    """q, k, v (B, S, H, hd), kv already expanded to H heads -> (B, S, H,
-    hd) in q's dtype.  The reference's `attention_core` is a blockwise
-    flash attention in pure JAX (not a Pallas kernel) with fp32 scores,
-    fp32 probabilities and an fp32 PV product; here the same math is
+                   causal: bool = True,
+                   window: Optional[int] = None) -> torch.Tensor:
+    """q (B, Sq, H, hd), k, v (B, Sk, H, hd), kv already expanded to H
+    heads -> (B, Sq, H, hd) in q's dtype.  Key k is visible to query q
+    where k <= q (`causal`) and, with `window`, k > q - window (the
+    reference's `_pair_mask`; the window goes in as an explicit boolean
+    mask).  The reference's `attention_core` is a blockwise flash
+    attention in pure JAX (not a Pallas kernel) with fp32 scores, fp32
+    probabilities and an fp32 PV product; here the same math is
     PyTorch's `scaled_dot_product_attention` on fp32 upcasts of the
     operands, so the two differ by fp32 summation order.  It runs on
     SDPA's math backend: the backend PyTorch picks for fp32 on a card
     (memory-efficient attention) sums dq by atomics in no fixed order, so
     two runs of a step would differ and no resume could be exact."""
+    mask = None
+    if window is not None:
+        qpos = torch.arange(q.shape[1], device=q.device)[:, None]
+        kpos = torch.arange(k.shape[1], device=q.device)[None, :]
+        mask = kpos > qpos - window
+        if causal:
+            mask = mask & (kpos <= qpos)
     with sdpa_kernel(SDPBackend.MATH):
         out = F.scaled_dot_product_attention(
             q.float().transpose(1, 2), k.float().transpose(1, 2),
-            v.float().transpose(1, 2), is_causal=causal)
+            v.float().transpose(1, 2), attn_mask=mask,
+            is_causal=causal and mask is None)
     return out.transpose(1, 2).to(q.dtype)
 
 
 def apply_attention(cfg, params: Params, x: torch.Tensor, *,
-                    causal: bool = True, return_cache: bool = False):
+                    causal: bool = True, window: Optional[int] = None,
+                    kv_source: Optional[torch.Tensor] = None,
+                    use_rope: Optional[bool] = None,
+                    return_cache: bool = False):
     """Training and prefill attention: x (B, S, d) -> (B, S, d) in the
-    compute dtype.  QKV projections, RoPE at positions 0..S-1, causal GQA
-    attention (query head h reads kv head h // (H / KV)), output
-    projection.  With `return_cache` (prefill) it returns (out, {"k",
-    "v"}): the keys after RoPE and the values, (B, S, KV, hd) in the
-    compute dtype, the dense decode cache's layout."""
+    compute dtype.  QKV projections (keys and values from `kv_source`
+    (B, Skv, d) where given: cross attention), RoPE at positions 0..S-1
+    and 0..Skv-1 (`use_rope`, default `cfg.use_rope`), GQA attention
+    (query head h reads kv head h // (H / KV)) under `causal` and
+    `window` (`attention_core`), output projection.  With `return_cache`
+    (prefill) it returns (out, {"k", "v"}): the keys after RoPE and the
+    values, (B, Skv, KV, hd) in the compute dtype, the dense decode
+    cache's layout."""
     ad = AttnDims.build(cfg)
     cdt = dtype_of(cfg.compute_dtype)
     B, S, _ = x.shape
+    kv_in = x if kv_source is None else kv_source
+    Skv = kv_in.shape[1]
     hd = ad.head_dim
     q = (x @ params["wq"].to(cdt)).reshape(B, S, ad.local_heads, hd)
-    k = (x @ params["wk"].to(cdt)).reshape(B, S, ad.n_kv, hd)
-    v = (x @ params["wv"].to(cdt)).reshape(B, S, ad.n_kv, hd)
-    if cfg.use_rope:
+    k = (kv_in @ params["wk"].to(cdt)).reshape(B, Skv, ad.n_kv, hd)
+    v = (kv_in @ params["wv"].to(cdt)).reshape(B, Skv, ad.n_kv, hd)
+    if cfg.use_rope if use_rope is None else use_rope:
         cos, sin = rope_angles(torch.arange(S, device=x.device), hd,
                                cfg.rope_theta)
         q = apply_rope(q, cos, sin)
+        if Skv != S:
+            cos, sin = rope_angles(torch.arange(Skv, device=x.device), hd,
+                                   cfg.rope_theta)
         k = apply_rope(k, cos, sin)
     kv_idx = torch.arange(ad.local_heads, device=x.device) \
         // max(ad.n_heads // ad.n_kv, 1)
     kv_idx = kv_idx.clamp_max(ad.n_kv - 1)
-    out = attention_core(q, k[:, :, kv_idx], v[:, :, kv_idx], causal=causal)
+    out = attention_core(q, k[:, :, kv_idx], v[:, :, kv_idx], causal=causal,
+                         window=window)
     out = out.reshape(B, S, ad.local_heads * hd) @ params["wo"].to(cdt)
     if return_cache:
         return out, {"k": k, "v": v}
@@ -455,15 +504,24 @@ def paged_verify_attention(cfg, params: Params, x: torch.Tensor,
 # Dense KV-cache decode (offline serving, generation-based evaluation)
 # ---------------------------------------------------------------------------
 #
-# A layer's cache is (B, S, KV, hd) in the compute dtype, row s holding the
-# key (after RoPE) and value of position s, as the reference's
-# `init_decode_cache` lays it out at tp=1.  A decode tick writes the new
-# token's row and attends through the paged path's core over a page view
-# of the cache: the cache read as (B*S16/ps, ps, KV, hd) pages, slot b's
-# logical page i being physical page b*S16/ps + i, with S16 = S rounded up
-# to the page, and the mask kpos <= pos and kpos < S.  So that the view
-# exists for any S, the cache tensors are views of storage that holds S16
-# rows a sequence (`init_decode_cache`, `expand_cache_from_prefill`): their
+# A layer's cache is (B, S, KV, hd) in the compute dtype, as the
+# reference's `init_decode_cache` lays it out at tp=1.  Three kinds:
+#   * "attn": S = seq_len, row s holding the key (after RoPE) and value
+#     of position s; a tick writes row pos where pos < S and attends the
+#     rows kpos <= pos (all of them once pos >= S: the reference's
+#     overflow branch).
+#   * "swa" (sliding window): a rolling cache of S = min(window, seq_len)
+#     rows; a tick writes slot pos % S and attends the slots kpos <
+#     min(pos + 1, S), the ones written so far, which is the "attn" rule.
+#   * cross attention (whisper's decoder): S = the encoder's length, keys
+#     and values of the encoder output, never written by a tick; every
+#     row is attended.
+# A tick attends through the paged path's core over a page view of the
+# cache: the cache read as (B*S16/ps, ps, KV, hd) pages, slot b's logical
+# page i being physical page b*S16/ps + i, with S16 = S rounded up to the
+# page, and the mask above (and kpos < S).  So that the view exists for
+# any S, the cache tensors are views of storage that holds S16 rows a
+# sequence (`init_decode_cache`, `expand_cache_from_prefill`): their
 # shape is the reference's, and the S16 - S padding rows past each
 # sequence's end stay zero and are never attended.  At a multiple of 16
 # (S16 = S) the tensors are contiguous and the view is a plain reshape.
@@ -477,9 +535,6 @@ def paged_verify_attention(cfg, params: Params, x: torch.Tensor,
 
 DENSE_PAGE = 16     # the view's page size (K3/K4 take pages of <= 32)
 
-DENSE_UNPORTED = ("sliding-window and cross-attention decode caches are "
-                  "not yet ported to repro_torch (ROADMAP queue 1 item 10)")
-
 
 def dense_rows(seq_len: int) -> int:
     """Rows a sequence's dense cache storage holds: seq_len rounded up to
@@ -490,39 +545,53 @@ def dense_rows(seq_len: int) -> int:
     return -(-seq_len // DENSE_PAGE) * DENSE_PAGE
 
 
+def cache_len(seq_len: int, window: Optional[int] = None) -> int:
+    """Positions a dense cache holds: seq_len, or min(window, seq_len) for
+    a sliding window's rolling cache."""
+    return min(window, seq_len) if window else seq_len
+
+
 def init_decode_cache(cfg, batch: int, seq_len: int, device,
                       window: Optional[int] = None,
                       lead: Tuple[int, ...] = ()) -> Dict[str, torch.Tensor]:
     """Zeroed dense KV cache for attention layers: k and v of shape (*lead,
-    batch, seq_len, KV, hd) in the compute dtype (`lead` the stacked layer
-    dim), each a view of zeroed storage of `dense_rows(seq_len)` rows a
-    sequence, the rows the tick's page view reads."""
-    if window:
-        raise NotImplementedError(DENSE_UNPORTED)
-    rows = dense_rows(seq_len)
+    batch, S, KV, hd) in the compute dtype (`lead` the stacked layer dim;
+    S = `cache_len(seq_len, window)`), each a view of zeroed storage of
+    `dense_rows(S)` rows a sequence, the rows the tick's page view
+    reads."""
+    S = cache_len(seq_len, window)
+    rows = dense_rows(S)
     cdt = dtype_of(cfg.compute_dtype)
     shape = tuple(lead) + (batch, rows, cfg.n_kv_heads, cfg.head_dim)
     return {name: torch.zeros(shape, dtype=cdt, device=device)
-            [..., :seq_len, :, :] for name in ("k", "v")}
+            [..., :S, :, :] for name in ("k", "v")}
 
 
-def expand_cache_from_prefill(prefill_cache, seq_len: Optional[int] = None):
+def expand_cache_from_prefill(prefill_cache, seq_len: Optional[int] = None,
+                              window: Optional[int] = None):
     """Prefill emits (..., B, S_prompt, KV, hd) caches already in decode
-    layout; with `seq_len` the position axis (the third from the end) is
-    padded with zero rows to seq_len (views of `dense_rows(seq_len)` rows
-    a sequence, as `init_decode_cache` makes them), which the decode mask
-    never reads before they are written."""
-    if seq_len is None:
-        return prefill_cache
+    layout.  They are laid out as `init_decode_cache` lays a cache of
+    `cache_len(seq_len or S_prompt, window)` positions: the prompt's
+    rows, then zero rows (views of `dense_rows` rows a sequence), which
+    the decode mask never reads before they are written.  A prompt longer
+    than that raises: past a window the rolling cache would have to drop
+    rows the reference's prefill cannot leave out."""
     if isinstance(prefill_cache, dict):
-        return {k: expand_cache_from_prefill(v, seq_len)
+        return {k: expand_cache_from_prefill(v, seq_len, window)
                 for k, v in prefill_cache.items()}
     s = prefill_cache.shape[-3]
-    if s > seq_len:
+    if window and s > window:
+        raise ValueError(f"prompt of {s} positions exceeds the sliding "
+                         f"window of {window}: its rolling decode cache "
+                         f"cannot take the prefill's rows")
+    S = cache_len(s if seq_len is None else seq_len, window)
+    if s > S:
         raise ValueError(f"prompt of {s} positions exceeds the cache's "
                          f"seq_len={seq_len}")
-    return F.pad(prefill_cache, (0, 0, 0, 0, 0, dense_rows(seq_len) - s)) \
-        [..., :seq_len, :, :]
+    if s == S and S == dense_rows(S):
+        return prefill_cache
+    return F.pad(prefill_cache, (0, 0, 0, 0, 0, dense_rows(S) - s)) \
+        [..., :S, :, :]
 
 
 def dense_page_view(batch: int, seq_len: int, pos: int, device):
@@ -531,8 +600,9 @@ def dense_page_view(batch: int, seq_len: int, pos: int, device):
     (table (batch, S16/16) int32, valid (batch, 1, S16) bool) with S16 =
     `dense_rows(seq_len)`.  valid is kpos <= pos and kpos < seq_len, so
     once pos >= seq_len every cached position is valid (the reference's
-    overflow branch) and the padding rows never are.  Identical across
-    layers: the model builds it once per tick."""
+    overflow branch; a rolling window cache; a cross cache, viewed at
+    pos = seq_len - 1) and the padding rows never are.  Identical across
+    the layers of one cache length: the model builds it once per tick."""
     rows = dense_rows(seq_len)
     n_lp = rows // DENSE_PAGE
     table = torch.arange(batch * n_lp, dtype=torch.int32,
@@ -563,36 +633,35 @@ def dense_pages(t: torch.Tensor) -> torch.Tensor:
                         (DENSE_PAGE * row, row, hd, 1))
 
 
-def _dense_write(cache, k_new, v_new, pos: int, cdt):
-    """Write row `pos` of every sequence's cache in place, only where
-    pos < seq_len (the reference's `owns`; past the end nothing is
-    written)."""
-    if 0 <= pos < cache["k"].shape[1]:
-        cache["k"][:, pos] = k_new.to(cdt)
-        cache["v"][:, pos] = v_new.to(cdt)
-
-
 def decode_attention(cfg, params: Params, x: torch.Tensor,
                      cache: Dict[str, torch.Tensor], pos: int, *,
                      window: Optional[int] = None, cross: bool = False,
                      paged_attn: str = "auto", view=None):
     """Single-token decode against a dense cache.  x (B, d); cache k/v (B,
     S, KV, hd), updated in place; pos the position every sequence writes.
-    Projections and RoPE as the paged steps
-    (`_qkv`), the new row written where pos < S, then attention over the
-    cache's page view (`dense_page_view`, or `view` built once per tick)
-    through `_paged_attention_core`.  Returns (out (B, d), cache)."""
-    if window or cross:
-        raise NotImplementedError(DENSE_UNPORTED)
+    Self attention: projections and RoPE as the paged steps (`_qkv`), the
+    new row written at slot pos where pos < S ("attn") or at pos % S
+    (`window`: the rolling cache).  `cross`: the query alone, no RoPE and
+    no write.  Then attention over the cache's page view
+    (`dense_page_view`, or `view` built once per tick) through
+    `_paged_attention_core`.  Returns (out (B, d), cache)."""
     ad = AttnDims.build(cfg)
     cdt = dtype_of(cfg.compute_dtype)
     B = x.shape[0]
     S = cache["k"].shape[1]
-    pos_b = torch.full((B,), pos, dtype=torch.long, device=x.device)
-    q, k_new, v_new = _qkv(cfg, ad, params, x, pos_b, cdt)
-    _dense_write(cache, k_new, v_new, pos, cdt)
-    table, valid = (view if view is not None
-                    else dense_page_view(B, S, pos, x.device))
+    if cross:
+        q = (x @ params["wq"].to(cdt)).reshape(B, ad.local_heads,
+                                               ad.head_dim)
+    else:
+        pos_b = torch.full((B,), pos, dtype=torch.long, device=x.device)
+        q, k_new, v_new = _qkv(cfg, ad, params, x, pos_b, cdt)
+        slot = pos % S if window else pos
+        if 0 <= slot < S:       # past the end nothing is written
+            cache["k"][:, slot] = k_new.to(cdt)
+            cache["v"][:, slot] = v_new.to(cdt)
+    if view is None:
+        view = dense_page_view(B, S, S - 1 if cross else pos, x.device)
+    table, valid = view
     pool = {name: dense_pages(cache[name]) for name in ("k", "v")}
     attn = _paged_attention_core(cfg, ad, q[:, None], pool, table, valid,
                                  cdt, paged_attn=paged_attn)[:, 0]

@@ -1,22 +1,27 @@
 """Model assembly at tp=1 (counterpart of `repro.models.model`):
 parameter init; the forward (training, and the prefill with caches) and
 the loss (`forward`, `loss_fn`); dense decode caches and the `prefill` /
-`decode_step` (KV caches of "attn" blocks, the state of "rwkv" blocks);
-paged KV pools and the fixed shape serving steps of attention models —
-one paged decode tick over every slot, one chunked-prefill chunk for one
-request, and speculative decoding's draft proposals and verify pass.
-Every decode, prefill and verify step may sample (temperature / top-k /
-top-p under the reference's (seed, position, stream) threefry keys).
+`decode_step`; paged KV pools and the fixed shape serving steps of
+attention models — one paged decode tick over every slot, one
+chunked-prefill chunk for one request, and speculative decoding's draft
+proposals and verify pass.  Every decode, prefill and verify step may
+sample (temperature / top-k / top-p under the reference's (seed,
+position, stream) threefry keys).
 
-Two block kinds are ported: "attn" (training, prefill and dense decode,
-and paged serving of all-attn models) and "rwkv" (training, prefill and
-dense decode).  Other kinds and mixed patterns raise NotImplementedError
-naming their ROADMAP item.
+Every block kind of the reference is ported, in any pattern: "attn",
+"swa" (a sliding window: a rolling decode cache), "rwkv" and "rglru"
+(recurrent state), and the whisper encoder-decoder (learned positions,
+a non-causal encoder, decoder blocks with cross attention over the
+encoder's output).  Paged online serving takes decoder-only all-"attn"
+models, as the reference's (`check_paged_support`).
 
-Parameters keep the reference's nested-dict keys with a leading layer
-dim on every `blocks` leaf; a Python loop over layers replaces
-`lax.scan`.  The dense caches and the KV pools carry the same leading
-layer dim and are updated in place.
+Parameters keep the reference's nested-dict keys and its two layouts:
+a uniform decoder-only pattern has a leading layer dim on every `blocks`
+leaf (`stacked`), a mixed pattern and the encoder-decoder a list of
+per-layer trees (`blocks`, and `enc_blocks`).  A Python loop over layers
+replaces `lax.scan`.  The dense caches take the same layout (a leading
+layer dim, or a list) and the KV pools a leading layer dim; all are
+updated in place.
 """
 from __future__ import annotations
 
@@ -34,7 +39,10 @@ from repro_torch.core import moe as moe_lib
 from repro_torch.models import embedding as emb
 from repro_torch.models import layers as L
 from repro_torch.models import prng
+from repro_torch.models import rglru as rglru_lib
 from repro_torch.models import rwkv6 as rwkv_lib
+
+BLOCK_KINDS = ("attn", "swa", "rwkv", "rglru")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -65,24 +73,40 @@ def _ffn_kind(cfg: ModelConfig, layer: int) -> str:
     return "mlp"
 
 
+def _window(cfg: ModelConfig, kind: str) -> Optional[int]:
+    return cfg.attn_window if kind == "swa" else None
+
+
+def stacked(cfg: ModelConfig) -> bool:
+    """True where the blocks (and the dense caches) carry a leading layer
+    dim: uniform decoder-only patterns.  Mixed patterns and the
+    encoder-decoder keep lists of per-layer trees, as the reference."""
+    return cfg.uniform_blocks and not cfg.is_encoder_decoder
+
+
 def check_ported_blocks(cfg: ModelConfig):
-    """The port builds uniform "attn" or "rwkv" decoders; other block
-    kinds, mixed patterns and encoder-decoders raise."""
-    kinds = sorted({cfg.block_kind(i) for i in range(cfg.n_layers)})
-    if cfg.is_encoder_decoder or kinds not in (["attn"], ["rwkv"]):
-        raise NotImplementedError(
-            f"{cfg.arch_id}: blocks {kinds}"
-            f"{' (encoder-decoder)' if cfg.is_encoder_decoder else ''} are "
-            f"not yet ported to repro_torch (ROADMAP queue 1 item 10)")
+    """Raises ValueError for a block kind the reference does not build."""
+    kinds = {cfg.block_kind(i) for i in range(cfg.n_layers)}
+    unknown = sorted(kinds - set(BLOCK_KINDS))
+    if unknown:
+        raise ValueError(f"{cfg.arch_id}: unknown block kinds {unknown} "
+                         f"(known: {list(BLOCK_KINDS)})")
 
 
-def init_block(cfg: ModelConfig, init: L.Init, kind: str,
-               ffn: str) -> Dict[str, Any]:
+def init_block(cfg: ModelConfig, init: L.Init, kind: str, ffn: str,
+               cross: bool = False) -> Dict[str, Any]:
     params: Dict[str, Any] = {"norm1": L.init_norm(cfg, init)}
-    if kind == "rwkv":
-        params["tmix"] = rwkv_lib.init_time_mix(cfg, init)
-    else:
+    if kind in ("attn", "swa"):
         params["attn"] = L.init_attention(cfg, init)
+    elif kind == "rwkv":
+        params["tmix"] = rwkv_lib.init_time_mix(cfg, init)
+    elif kind == "rglru":
+        params["rec"] = rglru_lib.init_rglru(cfg, init)
+    else:
+        raise ValueError(kind)
+    if cross:
+        params["norm_x"] = L.init_norm(cfg, init)
+        params["xattn"] = L.init_attention(cfg, init)
     params["norm2"] = L.init_norm(cfg, init)
     if kind == "rwkv":
         params["cmix"] = rwkv_lib.init_channel_mix(cfg, init)
@@ -95,32 +119,58 @@ def init_block(cfg: ModelConfig, init: L.Init, kind: str,
 
 def init_model(cfg: ModelConfig, *, device="cuda",
                generator: Optional[torch.Generator] = None,
-               masters: bool = False) -> Dict[str, Any]:
+               masters: bool = False, max_seq: int = 4096) -> Dict[str, Any]:
     """Random parameters with the reference's shapes and scales
     (`layers.dense_init`: normal * 0.02, output projections * 0.02 /
-    sqrt(n_layers), norms at 1), drawn on `device` from `generator`.
-    With `masters` (training) every leaf is stored in `cfg.param_dtype`,
-    as the reference keeps it; otherwise (serving) the leaves the
-    reference casts to the compute dtype at use are stored in that dtype,
-    and the router, the norms and the LM head stay fp32 (rwkv6.py says
-    which rwkv leaves stay fp32).  On the meta device only shapes are
-    built."""
+    sqrt(n_layers), norms at 1 (and 0 for LayerNorm's bias)), drawn on
+    `device` from `generator`.  With `masters` (training) every leaf is
+    stored in `cfg.param_dtype`, as the reference keeps it; otherwise
+    (serving) the leaves the reference casts to the compute dtype at use
+    are stored in that dtype, and the router, the norms and the LM head
+    stay fp32 (rwkv6.py and rglru.py say which of their leaves stay
+    fp32).  An encoder-decoder also has learned positions: `pos_enc`
+    (encoder_seq_len, d) and `pos_dec` (max_seq, d).  On the meta device
+    only shapes are built."""
     check_ported_blocks(cfg)
     device = torch.device(device)
     init = L.Init(device=device, generator=generator, masters=masters)
     params: Dict[str, Any] = {"embed": emb.init_embedding(cfg, init),
                               "final_norm": L.init_norm(cfg, init)}
-    stacked = dataclasses.replace(init, lead=(cfg.n_layers,))
-    params["blocks"] = init_block(cfg, stacked, cfg.block_pattern[0],
-                                  _ffn_kind(cfg, cfg.n_layers - 1))
+    if cfg.is_encoder_decoder:
+        wdt = init.weight_dtype(cfg)
+        params["pos_enc"] = init.normal((cfg.encoder_seq_len, cfg.d_model),
+                                        wdt)
+        params["pos_dec"] = init.normal((max_seq, cfg.d_model), wdt)
+        params["enc_norm"] = L.init_norm(cfg, init)
+        params["enc_blocks"] = [init_block(cfg, init, "attn", "mlp")
+                                for _ in range(cfg.encoder_layers)]
+        params["blocks"] = [init_block(cfg, init, "attn", "mlp", cross=True)
+                            for _ in range(cfg.n_layers)]
+    elif stacked(cfg):
+        lead = dataclasses.replace(init, lead=(cfg.n_layers,))
+        params["blocks"] = init_block(cfg, lead, cfg.block_pattern[0],
+                                      _ffn_kind(cfg, cfg.n_layers - 1))
+    else:
+        params["blocks"] = [init_block(cfg, init, cfg.block_kind(i),
+                                       _ffn_kind(cfg, i))
+                            for i in range(cfg.n_layers)]
     return params
 
 
 def layer_params(blocks, i: int):
-    """Layer i's parameters: views into the stacked leaves."""
+    """Layer i's parameters (or caches): a list's entry, or views into the
+    stacked leaves."""
+    if isinstance(blocks, list):
+        return blocks[i]
     if isinstance(blocks, dict):
         return {k: layer_params(v, i) for k, v in blocks.items()}
     return blocks[i]
+
+
+def _layer_ffn(cfg: ModelConfig, i: int) -> str:
+    """Layer i's FFN kind; a stacked pattern takes its last layer's for
+    every layer, as the reference's scan does."""
+    return _ffn_kind(cfg, cfg.n_layers - 1 if stacked(cfg) else i)
 
 
 # ---- forward and loss (training) -------------------------------------------
@@ -135,18 +185,23 @@ def choose_block(s: int, target: int = 1024) -> int:
 
 def warmup_noise(cfg: ModelConfig, rng, step, T: int):
     """Each layer's router-warmup noise for T tokens, as the reference
-    draws it: the layer keys are `split(rng, n_layers)` and layer i's eps
-    is `normal(keys[i], (T, n_experts))`, all layers in one draw: (L, T,
-    E) fp32.  None where no warmup mix applies (no rng, no MoE, no
-    warmup, or step past it, where alpha = 1 gives the learned logits
-    whatever eps is)."""
+    draws it: layer i's eps is `normal(key_i, (T, n_experts))` with the
+    layer keys `split(rng, n_layers)` (stacked blocks) or `fold_in(rng,
+    i)` (a list), all layers in one draw: (L, T, E) fp32.  None where no
+    warmup mix applies (no rng, no MoE, no warmup, or step past it, where
+    alpha = 1 gives the learned logits whatever eps is)."""
     m = cfg.moe
-    if (rng is None or _ffn_kind(cfg, cfg.n_layers - 1) != "moe"
-            or m.router_warmup_steps <= 0 or step is None
-            or step >= m.router_warmup_steps):
+    if (rng is None or m is None or m.router_warmup_steps <= 0
+            or step is None or step >= m.router_warmup_steps):
         return None
-    return router_lib.warmup_noise(prng.split(rng, cfg.n_layers),
-                                   (T, m.n_experts))
+    if stacked(cfg):
+        if _ffn_kind(cfg, cfg.n_layers - 1) != "moe":
+            return None
+        keys = prng.split(rng, cfg.n_layers)
+    else:
+        keys = torch.stack([prng.fold_in(rng, i)
+                            for i in range(cfg.n_layers)])
+    return router_lib.warmup_noise(keys, (T, m.n_experts))
 
 
 def _rwkv_block(cfg: ModelConfig, params, x, *, B: int, S: int,
@@ -170,27 +225,43 @@ def _rwkv_block(cfg: ModelConfig, params, x, *, B: int, S: int,
 
 def block_forward(cfg: ModelConfig, params, x, eps, *, B: int, S: int,
                   kind: str, ffn: str, step=None, train: bool = True,
-                  flags: RunFlags = DEFAULT_FLAGS, want_cache: bool = False):
+                  flags: RunFlags = DEFAULT_FLAGS, want_cache: bool = False,
+                  causal: bool = True, enc_out=None):
     """One block: x (T, d) -> (x, aux, metrics, cache or None).  eps
-    (T, E) is the layer's router-warmup noise, or None.  Both kinds run
-    for training and, with `train=False`, for inference ("attn": the MoE
-    on the serving router; rwkv: K6 and the decay kernel), where
-    `want_cache` returns {"self": {"k", "v"}} ("attn") or {"rwkv":
-    {"wkv", "last_x"}, "cmix_prev"} ("rwkv")."""
+    (T, E) is the layer's router-warmup noise, or None.  Every kind runs
+    for training and, with `train=False`, for inference (the MoE on the
+    serving router; rwkv: K6 and the decay kernel), where `want_cache`
+    returns the layer's decode cache: {"self": {"k", "v"}} ("attn",
+    "swa"), {"rglru": {"h", "conv"}}, {"rwkv": {"wkv", "last_x"},
+    "cmix_prev"}, and {"cross": {"k", "v"}} beside it in a decoder block
+    with cross attention over `enc_out` (B, S_enc, d).  `causal=False`
+    is the encoder's attention."""
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
     if kind == "rwkv":
         x, cache = _rwkv_block(cfg, params, x, B=B, S=S, train=train,
                                chunk=flags.rwkv_chunk)
         return x, zero, {}, (cache if want_cache else None)
     d = cfg.d_model
-    h = L.apply_norm(cfg, params["norm1"], x)
-    out = L.apply_attention(cfg, params["attn"], h.reshape(B, S, d),
-                            return_cache=want_cache)
-    cache = None
-    if want_cache:
-        out, kv = out
-        cache = {"self": kv}
-    x = x + out.reshape(B * S, d)
+    cache = {}
+    h = L.apply_norm(cfg, params["norm1"], x).reshape(B, S, d)
+    if kind == "rglru":
+        partial, cache["rglru"] = rglru_lib.recurrent_block(
+            cfg, params["rec"], h)
+    else:
+        partial = L.apply_attention(cfg, params["attn"], h, causal=causal,
+                                    window=_window(cfg, kind),
+                                    return_cache=want_cache)
+        if want_cache:
+            partial, cache["self"] = partial
+    x = x + partial.reshape(B * S, d)
+    if "xattn" in params:
+        h = L.apply_norm(cfg, params["norm_x"], x).reshape(B, S, d)
+        partial = L.apply_attention(cfg, params["xattn"], h, causal=False,
+                                    kv_source=enc_out, use_rope=False,
+                                    return_cache=want_cache)
+        if want_cache:
+            partial, cache["cross"] = partial
+        x = x + partial.reshape(B * S, d)
     h = L.apply_norm(cfg, params["norm2"], x)
     aux, metrics = zero, {}
     if ffn == "moe" and train:
@@ -202,7 +273,7 @@ def block_forward(cfg: ModelConfig, params, x, eps, *, B: int, S: int,
                                            dispatch=flags.moe_dispatch)
     else:
         partial = L.apply_mlp(cfg, params["mlp"], h)
-    return x + partial, aux, metrics, cache
+    return x + partial, aux, metrics, (cache if want_cache else None)
 
 
 def _stack(trees):
@@ -213,23 +284,24 @@ def _stack(trees):
 
 
 def _run_blocks(cfg: ModelConfig, params, x, *, B: int, S: int, step,
-                rng, train: bool, flags: RunFlags, want_cache: bool):
+                rng, train: bool, flags: RunFlags, want_cache: bool,
+                enc_out=None):
     """The layer loop.  In training with `flags.remat` every block runs
     under torch.utils.checkpoint and is recomputed in the backward.  The
     warmup noise (`warmup_noise`) is drawn here, outside the checkpointed
     blocks, so the recompute routes as the forward did.  Returns (x, aux
-    summed over layers, metrics averaged over layers, caches stacked over
-    layers or None)."""
-    kind = cfg.block_pattern[0]
-    ffn = _ffn_kind(cfg, cfg.n_layers - 1)
+    summed over layers, metrics averaged over the layers that report
+    them, caches in `init_caches`' layout or None)."""
     noise = warmup_noise(cfg, rng, step, x.shape[0]) if train else None
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     metrics_all, caches = [], []
     for i in range(cfg.n_layers):
         eps = noise[i] if noise is not None else None
-        fn = functools.partial(block_forward, cfg, B=B, S=S, kind=kind,
-                               ffn=ffn, step=step, train=train, flags=flags,
-                               want_cache=want_cache)
+        fn = functools.partial(block_forward, cfg, B=B, S=S,
+                               kind=cfg.block_kind(i),
+                               ffn=_layer_ffn(cfg, i), step=step,
+                               train=train, flags=flags,
+                               want_cache=want_cache, enc_out=enc_out)
         lp = layer_params(params["blocks"], i)
         if flags.remat and train:
             x, a, mets, cache = checkpoint(fn, lp, x, eps,
@@ -238,28 +310,53 @@ def _run_blocks(cfg: ModelConfig, params, x, *, B: int, S: int, step,
         else:
             x, a, mets, cache = fn(lp, x, eps)
         aux = aux + a
-        metrics_all.append(mets)
+        if mets:
+            metrics_all.append(mets)
         caches.append(cache)
     metrics = {k: torch.mean(torch.stack([m[k] for m in metrics_all]))
-               for k in metrics_all[0]}
-    return x, aux, metrics, (_stack(caches) if want_cache else None)
+               for k in (metrics_all[0] if metrics_all else {})}
+    if not want_cache:
+        caches = None
+    elif stacked(cfg):
+        caches = _stack(caches)
+    return x, aux, metrics, caches
+
+
+def encode(cfg: ModelConfig, params, frames, flags: RunFlags = DEFAULT_FLAGS):
+    """The whisper encoder over the stub frontend's frame embeddings
+    (B, S_enc, d): learned positions, non-causal "attn" blocks (no
+    cache, the inference router: the reference's `_encode`), the encoder
+    norm.  Returns (B, S_enc, d) in the compute dtype."""
+    B, S_enc, d = frames.shape
+    cdt = L.dtype_of(cfg.compute_dtype)
+    x = (frames.to(cdt) + params["pos_enc"].to(cdt)[None]).reshape(-1, d)
+    for lp in params["enc_blocks"]:
+        x, _, _, _ = block_forward(cfg, lp, x, None, B=B, S=S_enc,
+                                   kind="attn", ffn="mlp", train=False,
+                                   flags=flags, causal=False)
+    return L.apply_norm(cfg, params["enc_norm"], x).reshape(B, S_enc, d)
 
 
 def forward(cfg: ModelConfig, params, batch, *, step=None, rng=None,
             train: bool = True, flags: RunFlags = DEFAULT_FLAGS,
             want_cache: bool = False):
-    """batch["tokens"] (B, S) -> (x_final (T, d), aux, metrics, caches).
+    """batch["tokens"] (B, S) -> (x_final (T, d), aux, metrics, caches);
+    an encoder-decoder also reads batch["enc_frames"] (B, S_enc, d).
     `rng`, a threefry key (`models.prng`), draws the router-warmup noise
-    (`warmup_noise`); None draws none.
-    With `want_cache` (inference) caches is the stacked decode cache the
-    prompt leaves behind (`init_caches`' layout, attention caches S
-    positions long), else None."""
+    (`warmup_noise`); None draws none.  With `want_cache` (inference)
+    caches is the decode cache the prompt leaves behind (`init_caches`'
+    layout; attention caches S positions long, cross caches S_enc), else
+    None."""
     tokens = batch["tokens"]
     B, S = tokens.shape
+    enc_out = None
     x = emb.embed_tokens(cfg, params["embed"], tokens.reshape(-1))
+    if cfg.is_encoder_decoder:
+        enc_out = encode(cfg, params, batch["enc_frames"], flags)
+        x = x + params["pos_dec"].to(x.dtype)[:S].repeat(B, 1)
     x, aux, metrics, caches = _run_blocks(
         cfg, params, x, B=B, S=S, step=step, rng=rng, train=train,
-        flags=flags, want_cache=want_cache)
+        flags=flags, want_cache=want_cache, enc_out=enc_out)
     return L.apply_norm(cfg, params["final_norm"], x), aux, metrics, caches
 
 
@@ -306,71 +403,142 @@ def loss_fn(cfg: ModelConfig, params, batch, *, step=None, rng=None,
 def init_block_cache(cfg: ModelConfig, kind: str, batch: int, device,
                      seq_len: Optional[int] = None,
                      lead=()) -> Dict[str, Any]:
-    """One layer's zeroed decode cache: for "attn" the KV cache of
-    `seq_len` positions ({"self": {"k", "v"}}, `layers.init_decode_cache`,
-    with the leading dims `lead`); for "rwkv" the wkv state and the last
+    """One layer's zeroed decode cache: for "attn" / "swa" the KV cache of
+    `seq_len` positions (a rolling cache of min(window, seq_len) for
+    "swa"; {"self": {"k", "v"}}, `layers.init_decode_cache`, with the
+    leading dims `lead`); for "rglru" its recurrence and conv state
+    ({"rglru": {"h", "conv"}}); for "rwkv" the wkv state and the last
     normed inputs of the time mix and the channel mix (no length: the
-    state does not grow)."""
-    if kind == "attn":
+    state does not grow); in an encoder-decoder also the cross cache of
+    `cfg.encoder_seq_len` positions ({"cross": {"k", "v"}})."""
+    cache: Dict[str, Any] = {}
+    if kind in ("attn", "swa"):
         if seq_len is None:
             raise ValueError("an attention model's decode cache needs "
                              "seq_len")
-        return {"self": L.init_decode_cache(cfg, batch, seq_len, device,
-                                            lead=lead)}
-    return {"rwkv": rwkv_lib.init_decode_state(cfg, batch, device),
-            "cmix_prev": torch.zeros((batch, cfg.d_model),
-                                     dtype=L.dtype_of(cfg.compute_dtype),
-                                     device=device)}
+        cache["self"] = L.init_decode_cache(cfg, batch, seq_len, device,
+                                            window=_window(cfg, kind),
+                                            lead=lead)
+    elif kind == "rglru":
+        cache["rglru"] = rglru_lib.init_decode_state(cfg, batch, device)
+    else:
+        cache["rwkv"] = rwkv_lib.init_decode_state(cfg, batch, device)
+        cache["cmix_prev"] = torch.zeros(
+            (batch, cfg.d_model), dtype=L.dtype_of(cfg.compute_dtype),
+            device=device)
+    if cfg.is_encoder_decoder:
+        cache["cross"] = L.init_decode_cache(
+            cfg, batch, cfg.encoder_seq_len, device, lead=lead)
+    return cache
 
 
 def init_caches(cfg: ModelConfig, batch: int, device,
                 seq_len: Optional[int] = None):
-    """Zeroed dense decode caches with a leading layer dim; `seq_len` is
-    the KV caches' length (attention models), ignored by rwkv."""
+    """Zeroed dense decode caches: a leading layer dim (`stacked`) or a
+    list of per-layer caches.  `seq_len` is the KV caches' length
+    (attention layers), ignored by recurrent ones; an encoder-decoder's
+    cross caches hold `cfg.encoder_seq_len` positions."""
     check_ported_blocks(cfg)
+    if not stacked(cfg):
+        return [init_block_cache(cfg, cfg.block_kind(i), batch, device,
+                                 seq_len)
+                for i in range(cfg.n_layers)]
     kind = cfg.block_pattern[0]
-    if kind == "attn":      # views of padded storage: not a stack's copy
+    if kind in ("attn", "swa"):   # views of padded storage: not a stack
         return init_block_cache(cfg, kind, batch, device, seq_len,
                                 lead=(cfg.n_layers,))
     one = init_block_cache(cfg, kind, batch, device, seq_len)
     return _stack([one] * cfg.n_layers)
 
 
+class TickViews:
+    """The page views (`layers.dense_page_view`) of one decode tick, one
+    per cache length and kind, built on first use: the layers of one
+    length share it."""
+
+    def __init__(self, batch: int, pos, device):
+        self.batch, self.pos, self.device = batch, pos, device
+        self._views = {}
+
+    def __call__(self, S: int, cross: bool = False):
+        key = (S, cross)
+        if key not in self._views:
+            self._views[key] = L.dense_page_view(
+                self.batch, S, S - 1 if cross else self.pos, self.device)
+        return self._views[key]
+
+
 def block_decode(cfg: ModelConfig, params, x, cache, pos=None, *, kind: str,
                  ffn: str = "moe", flags: RunFlags = DEFAULT_FLAGS,
-                 view=None):
-    """One layer of the decode tick: x (B, d); `cache` the layer's views
-    into the stacked caches, updated in place; `pos` the position every
-    sequence writes (attention; rwkv carries it in its state) and `view`
-    the tick's page view of the KV cache (`layers.dense_page_view`).
-    Returns (x, cache)."""
-    if kind == "attn":
+                 views: Optional[TickViews] = None):
+    """One layer of the decode tick: x (B, d); `cache` the layer's cache
+    (views into stacked caches, or a list's entry), updated in place;
+    `pos` the position every sequence writes (attention; the recurrent
+    kinds carry it in their state) and `views` the tick's page views of
+    the KV caches.  Returns (x, cache)."""
+    if kind == "rwkv":
         h = L.apply_norm(cfg, params["norm1"], x)
+        partial, _ = rwkv_lib.time_mix_decode(cfg, params["tmix"], h,
+                                              cache["rwkv"])
+        x = x + partial
+        h = L.apply_norm(cfg, params["norm2"], x)
+        partial, gate = rwkv_lib.channel_mix(cfg, params["cmix"], h,
+                                             cache["cmix_prev"])
+        cache["cmix_prev"].copy_(h)
+        return x + gate * partial, cache
+    views = views or TickViews(x.shape[0], pos, x.device)
+    h = L.apply_norm(cfg, params["norm1"], x)
+    if kind == "rglru":
+        partial = rglru_lib.decode_step(cfg, params["rec"], h,
+                                        cache["rglru"])
+    else:
         partial, _ = L.decode_attention(
             cfg, params["attn"], h, cache["self"], pos,
-            paged_attn=flags.paged_attn, view=view)
-        return _block_ffn(cfg, params, x + partial, ffn, flags), cache
-    h = L.apply_norm(cfg, params["norm1"], x)
-    partial, _ = rwkv_lib.time_mix_decode(cfg, params["tmix"], h,
-                                          cache["rwkv"])
+            window=_window(cfg, kind), paged_attn=flags.paged_attn,
+            view=views(cache["self"]["k"].shape[1]))
     x = x + partial
-    h = L.apply_norm(cfg, params["norm2"], x)
-    partial, gate = rwkv_lib.channel_mix(cfg, params["cmix"], h,
-                                         cache["cmix_prev"])
-    cache["cmix_prev"].copy_(h)
-    return x + gate * partial, cache
+    if "xattn" in params:
+        h = L.apply_norm(cfg, params["norm_x"], x)
+        partial, _ = L.decode_attention(
+            cfg, params["xattn"], h, cache["cross"], pos, cross=True,
+            paged_attn=flags.paged_attn,
+            view=views(cache["cross"]["k"].shape[1], cross=True))
+        x = x + partial
+    return _block_ffn(cfg, params, x, ffn, flags), cache
+
+
+def _expand_layer_cache(cfg: ModelConfig, cache, kind: str,
+                        seq_len: Optional[int]):
+    """A layer's prefill cache laid out for the ticks
+    (`layers.expand_cache_from_prefill`): the self-attention cache at
+    seq_len (a rolling window's at min(window, seq_len)), the cross cache
+    at its own length; recurrent state as it is."""
+    out = dict(cache)
+    if "self" in cache:
+        out["self"] = L.expand_cache_from_prefill(cache["self"], seq_len,
+                                                  _window(cfg, kind))
+    if "cross" in cache:
+        out["cross"] = L.expand_cache_from_prefill(cache["cross"])
+    return out
 
 
 def prefill_logits(cfg: ModelConfig, params, batch,
                    flags: RunFlags = DEFAULT_FLAGS,
                    seq_len: Optional[int] = None):
-    """The prompt batch ["tokens"] (B, S) -> (logits (B, Vp) fp32 at each
-    sequence's last token, caches).  Attention caches hold the prompt's S
-    positions, or `seq_len` (zero rows after the prompt's) when given."""
+    """The prompt batch ["tokens"] (B, S) (and ["enc_frames"] for an
+    encoder-decoder) -> (logits (B, Vp) fp32 at each sequence's last
+    token, caches).  Attention caches hold the prompt's S positions, or
+    `seq_len` (zero rows after the prompt's) when given; a sliding
+    window's, min(window, that); a prompt longer than the window
+    raises."""
     x, _, _, caches = forward(cfg, params, batch, train=False, flags=flags,
                               want_cache=True)
-    if "self" in caches:
-        caches = L.expand_cache_from_prefill(caches, seq_len)
+    if stacked(cfg):
+        caches = _expand_layer_cache(cfg, caches, cfg.block_pattern[0],
+                                     seq_len)
+    else:
+        caches = [_expand_layer_cache(cfg, c, cfg.block_kind(i), seq_len)
+                  for i, c in enumerate(caches)]
     B, S = batch["tokens"].shape
     last = x.reshape(B, S, -1)[:, -1]
     return emb.serve_logits(cfg, params["embed"], last), caches
@@ -383,24 +551,33 @@ def prefill(cfg: ModelConfig, params, batch,
     return emb.sharded_argmax(logits).to(torch.int32), caches
 
 
+def _attends(cfg: ModelConfig) -> bool:
+    return cfg.is_encoder_decoder or any(
+        cfg.block_kind(i) in ("attn", "swa") for i in range(cfg.n_layers))
+
+
 def decode_logits(cfg: ModelConfig, params, caches, token, pos=None,
                   flags: RunFlags = DEFAULT_FLAGS):
     """One token per sequence -> (logits (B, Vp) fp32, caches); the
     caches update in place.  Attention models read `pos`, the position
-    every sequence writes (an int)."""
+    every sequence writes (an int); an encoder-decoder adds its learned
+    position `pos_dec[pos]` to the embedding."""
     x = emb.embed_tokens(cfg, params["embed"], token)          # (B, d)
-    kind = cfg.block_pattern[0]
-    ffn = _ffn_kind(cfg, cfg.n_layers - 1)
-    view = None
-    if kind == "attn":
-        if pos is None:
-            raise ValueError("an attention model's decode tick needs pos")
-        B, S = caches["self"]["k"].shape[1:3]
-        view = L.dense_page_view(B, S, pos, x.device)
+    if pos is None and _attends(cfg):
+        raise ValueError("an attention model's decode tick needs pos")
+    if cfg.is_encoder_decoder:
+        n_pos = params["pos_dec"].shape[0]
+        if not 0 <= int(pos) < n_pos:
+            raise ValueError(f"decode position {int(pos)} is past the "
+                             f"{n_pos} learned positions (pos_dec; "
+                             f"Runner.max_seq)")
+        x = x + params["pos_dec"][int(pos)].to(x.dtype)[None]
+    views = TickViews(x.shape[0], pos, x.device)
     for i in range(cfg.n_layers):
         x, _ = block_decode(cfg, layer_params(params["blocks"], i), x,
-                            layer_params(caches, i), pos, kind=kind,
-                            ffn=ffn, flags=flags, view=view)
+                            layer_params(caches, i), pos,
+                            kind=cfg.block_kind(i), ffn=_layer_ffn(cfg, i),
+                            flags=flags, views=views)
     x = L.apply_norm(cfg, params["final_norm"], x)
     return emb.serve_logits(cfg, params["embed"], x), caches
 
@@ -409,11 +586,11 @@ def decode_step(cfg: ModelConfig, params, caches, token, pos, sample=None,
                 flags: RunFlags = DEFAULT_FLAGS):
     """One decode step: token (B,) -> (next (B,) int32, caches).  `pos`,
     the position being written (shared by every sequence), is the
-    reference's argument: attention blocks write and attend by it; rwkv
-    blocks carry their position in the state and do not read it (nor any
-    RunFlags knob), but a sampled step keys its draws by it.  Greedy by
-    default; `sample=(seeds, temperature, top_p, top_k)`, (B,) each,
-    draws under the online paged path's (seed, pos, stream) schedule."""
+    reference's argument: attention blocks write and attend by it; the
+    recurrent blocks carry their position in the state and do not read
+    it, but a sampled step keys its draws by it.  Greedy by default;
+    `sample=(seeds, temperature, top_p, top_k)`, (B,) each, draws under
+    the online paged path's (seed, pos, stream) schedule."""
     logits, caches = decode_logits(cfg, params, caches, token, pos, flags)
     if sample is None:
         return emb.sharded_argmax(logits).to(torch.int32), caches

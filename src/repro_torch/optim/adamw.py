@@ -29,17 +29,23 @@ class AdamWConfig:
 
 
 def leaves(tree) -> List[torch.Tensor]:
-    """Leaves in the reference's pytree order (sorted dict keys)."""
+    """Leaves in the reference's pytree order (`jax.tree.leaves`: sorted
+    dict keys, list entries in index order)."""
     if isinstance(tree, dict):
         return [t for k in sorted(tree) for t in leaves(tree[k])]
+    if isinstance(tree, list):
+        return [t for node in tree for t in leaves(node)]
     return [tree]
 
 
 def init_opt_state(params) -> Dict[str, Any]:
-    zeros = lambda tree: (
-        {k: zeros(v) for k, v in tree.items()} if isinstance(tree, dict)
-        else torch.zeros(tree.shape, dtype=torch.float32,
-                         device=tree.device))
+    def zeros(tree):
+        if isinstance(tree, dict):
+            return {k: zeros(v) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [zeros(v) for v in tree]
+        return torch.zeros(tree.shape, dtype=torch.float32,
+                           device=tree.device)
     device = leaves(params)[0].device
     return {"m": zeros(params), "v": zeros(params),
             "count": torch.zeros((), dtype=torch.int32, device=device)}

@@ -401,15 +401,26 @@ def test_dense_cache_refusals(smoke):
                                             cfg.head_dim)
     with pytest.raises(ValueError, match="storage of 32 rows"):
         TL.dense_pages(odd[0].clone())
-    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
-        TL.init_decode_cache(runner.cfg, 2, 32, "cpu", window=8)
-    caches = runner.init_caches(2, 32)
-    x = torch.zeros((2, runner.cfg.d_model))
+    # a sliding window's cache is rolling: min(window, seq_len) rows over
+    # whole pages of storage, its tick writing slot pos % rows
+    win = TL.init_decode_cache(cfg, 2, 32, "cpu", window=8)
+    assert win["k"].shape == (2, 8, cfg.n_kv_heads, cfg.head_dim)
+    x = torch.randn((2, cfg.d_model), generator=torch.Generator()
+                    .manual_seed(0)).to(TL.dtype_of(cfg.compute_dtype))
     lp = TM.layer_params(params["blocks"], 0)["attn"]
-    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
-        TL.decode_attention(runner.cfg, lp, x,
-                            TM.layer_params(caches, 0)["self"], 0,
-                            cross=True)
+    for pos in (3, 11):
+        out, _ = TL.decode_attention(cfg, lp, x, win, pos, window=8)
+        assert torch.isfinite(out).all()
+    assert win["k"][:, 3].any() and torch.equal(win["k"][:, 3],
+                                                win["k"][:, 11 % 8])
+    # a cross cache is read whole and never written
+    caches = runner.init_caches(2, 32)
+    cross = TM.layer_params(caches, 0)["self"]
+    cross["k"].normal_(generator=torch.Generator().manual_seed(1))
+    cross["v"].normal_(generator=torch.Generator().manual_seed(2))
+    before = cross["k"].clone()
+    out, _ = TL.decode_attention(cfg, lp, x, cross, 0, cross=True)
+    assert torch.isfinite(out).all() and torch.equal(cross["k"], before)
     with pytest.raises(ValueError, match="exceeds"):
         runner.make_prefill(seq_len=16)(
             params, {"tokens": torch.zeros((1, 20), dtype=torch.long)})

@@ -91,7 +91,9 @@ def test_full_size_init_shapes_match_reference_specs():
     assert all(t.device.type == "meta" for _, t in _leaves(port))
 
 
-@pytest.mark.parametrize("arch", ["ling-lite", "rwkv6-3b", "h2o-danube-1.8b"])
+@pytest.mark.parametrize("arch", ["ling-lite", "rwkv6-3b", "h2o-danube-1.8b",
+                                  "nemotron-4-15b", "whisper-tiny",
+                                  "recurrentgemma-2b"])
 def test_config_copies_match_reference(arch):
     for get in ("get_config", "get_smoke_config"):
         ours = dataclasses.asdict(getattr(tbase, get)(arch))
@@ -100,8 +102,14 @@ def test_config_copies_match_reference(arch):
 
 
 def test_unported_arch_raises():
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        tbase.get_config("recurrentgemma-2b")
+    """Every arch of the reference registry resolves in the port; an
+    unknown one raises."""
+    with pytest.raises(KeyError, match="unknown arch"):
+        tbase.get_config("gpt-2")
+    assert tbase.PORTED == tuple(jbase.ARCH_IDS)
+    for arch in jbase.ARCH_IDS:
+        assert tbase.get_config(arch).arch_id == arch
+        assert tbase.get_smoke_config(arch).arch_id == arch
 
 
 def _imports(path: Path):

@@ -83,6 +83,9 @@ CASES = {
     "prefill_ps5": dict(Q=8, ps=5, n_lp=14, ctx=[33, 0, 66]),
     "verify_ps16": dict(Q=3, ps=16, n_lp=10, ctx=[100, 0, 19]),
     "verify_ps12": dict(Q=3, ps=12, n_lp=7, ctx=[50, 0, 13]),
+    # recurrentgemma's heads: one kv head of 256 for a group of 10
+    "decode_hd256_g10": dict(Q=1, ps=16, n_lp=10, ctx=[37, 0, 120, 70],
+                             KV=1, g=10, hd=256),
 }
 
 

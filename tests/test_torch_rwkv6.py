@@ -296,17 +296,21 @@ def test_unported_paths_raise_naming_their_roadmap_item():
     loss, _ = TM.loss_fn(rwkv.cfg, params, batch)
     assert torch.isfinite(loss)
     # Ling's dense decode (queue 1 item 8) is ported: its caches need a
-    # length, and the prefill leaves one row per prompt position; sliding
-    # windows stay item 10's
+    # length, and the prefill leaves one row per prompt position; since
+    # item 10, sliding windows (a rolling cache) and mixed patterns (a
+    # list of per-layer blocks) are too
     ling = tapi.Runner(tcfg("ling-lite"), device="cpu")
     with pytest.raises(ValueError, match="seq_len"):
         ling.init_caches(1)
     _, caches = ling.make_prefill()(ling.init_params(0),
                                     {"tokens": batch["tokens"]})
     assert caches["self"]["k"].shape[1:3] == (1, 4)
-    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
-        TL.init_decode_cache(ling.cfg, 1, 16, "cpu", window=8)
+    win = TL.init_decode_cache(ling.cfg, 1, 16, "cpu", window=8)
+    assert win["k"].shape[:2] == (1, 8)
     mixed = dataclasses.replace(tcfg("ling-lite"),
                                 block_pattern=("attn", "rwkv"))
-    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
-        TM.init_model(mixed, device="meta")
+    blocks = TM.init_model(mixed, device="meta")["blocks"]
+    assert isinstance(blocks, list) and len(blocks) == mixed.n_layers
+    assert "attn" in blocks[0] and "tmix" in blocks[1]
+    caches = TM.init_caches(mixed, 1, "cpu", 16)
+    assert "self" in caches[0] and "rwkv" in caches[1]

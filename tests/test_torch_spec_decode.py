@@ -372,8 +372,17 @@ def test_config_drafter_vocab_guard(smoke):
 
 
 def test_swa_config_is_not_built_as_a_model():
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tapi.Runner(tcfg("h2o-danube-1.8b"), device="cpu")
+    """danube's "swa" blocks build as a model since they were ported; the
+    online engine refuses it, as the reference's `check_paged_support`
+    does (a drafter takes it only through `adapt_drafter_config`)."""
+    runner = tapi.Runner(tcfg("h2o-danube-1.8b"), device="cpu")
+    params = runner.init_params(0)
+    assert "attn" in params["blocks"]
+    with pytest.raises(ValueError, match="all-'attn'"):
+        OnlineEngine(runner, params, OnlineConfig(max_slots=2,
+                                                  max_context=32,
+                                                  page_size=8,
+                                                  prefill_chunk=8))
 
 
 def test_page_allocator_trim():
