@@ -63,7 +63,13 @@ Phases, each failing loudly (non-zero exit, no result line):
      rolling cache of 2048, whisper's cross attention over 1504), and K5
      on nemotron's (256000 x 6144), danube's (32000 x 2560),
      recurrentgemma's (256000 x 2560) and whisper's (51865 x 384) fp32
-     heads at T=8;
+     heads at T=8; and at the shapes a tp = 2 mesh gives them (phase
+     9b's): K1 over the rows rank 0 receives in the "ep" dispatch (T=8
+     and T=2048 tokens over the tp group, 32 local experts, gate 1), K2
+     and the weight gradient at the step's received rows, K3/K4 at a
+     decode tick over ps_loc = 8 of a page's 16 offsets (ranks 0 and 1)
+     and K5 on a rank's 63232-row vocab shard of Ling-Lite's head (T=8,
+     T=1);
   4. gradients: one full-width MoE layer at T=256, `FusedFFN`'s grads of
      x, w1, w2, w3 and the gates on the kernels against autograd through
      a plain fp32 composition, before and after the cast to bf16;
@@ -225,16 +231,35 @@ Phases, each failing loudly (non-zero exit, no result line):
      kernel launched, peak memory under 80 GB, step time and tokens/s
      printed (nemotron-4-15b trains on the CPU only: its embedding and
      head alone are 50 GB of training state);
-  9. the `kernels` JSON line, the card line, and the result line.
+  9a. the mesh code on NCCL at world size 1: one spawned rank builds an
+     NCCL process group and a (1, 1) mesh, serves 8 of phase 5's prompts
+     through the OnlineEngine (streams phase 5's bit for bit) and takes
+     MESH_STEPS of phase 8's steps (losses and grad norms phase 8's bit
+     for bit), then the same steps at one microbatch (9b's reference);
+  9b. two ranks over gloo on the one card (`mesh_gloo`): Ling-Lite at
+     full width, 28 layers, served on (1, 2) (8 of phase 5's prompts cut
+     to 64 tokens, prefill and 32 greedy ticks; both ranks' streams
+     equal, launches per step as phase 5's; one request teacher-forced
+     through the kernels against the mesh's plain modes within phase
+     7b's bar, and its gap to phase 6's (1, 1) logits printed with the
+     dropped slots), then phase 8's 4-layer step at one microbatch at
+     (1, 2) and (2, 1) against 9a's (1, 1) run of it, and (2, 1)'s first
+     step again bit for bit; the backend, which collectives ran on CUDA
+     tensors and which through pinned host buffers, bytes and seconds
+     per step;
+  10. the `kernels` JSON line (launches of phase 9's paths too), the
+     card line, and the result line.
 """
 from __future__ import annotations
 
 import contextlib
 import gc
 import json
+import pickle
 import re
 import subprocess
 import sys
+import tempfile
 import time
 import types
 from pathlib import Path
@@ -305,6 +330,18 @@ PA_ARCH_CASES = {
         ("phi3", "phi3-mini-3.8b", ("decode",)))
     for shape in shapes}
 K2_ARCH = "granite-moe-3b-a800m"
+# phase 3's cases at the shapes sharding over tp = 2 gives the kernels
+# (phase 9b's serving and training): K1 over the rows a rank receives in
+# the "ep" dispatch (label -> T tokens over the tp group: a decode tick of
+# 8 slots, the 4-layer step's microbatch of 2 x 1024), 32 local experts,
+# gate 1; K2 and the weight gradient at the step's received rows; K3/K4
+# at a decode tick over ps_loc = 8 of a page's 16 in-page offsets (ranks
+# 0 and 1); K5 on a rank's vocab shard of Ling-Lite's head (63232 rows)
+MESH_TP = 2
+EP_CASES = {"ep decode T=8 tp=2": 8, "ep train T=2048 tp=2": 2048}
+PA_MESH_CASES = {f"decode tp=2 ps_loc=8 rank {r}": r for r in range(2)}
+K5_MESH_CASES = {"ling head shard tp=2 T=8": ("ling-lite", 8),
+                 "ling head shard tp=2 T=1": ("ling-lite", 1)}
 # phase 7b: (arch, layers served or None for all): Ling-Plus at full
 # width cut to 8 of its 80 layers (3.51 B parameters a layer, 7.02 GB in
 # bf16, plus 2.07 GB of embedding and a 4.14 GB fp32 head: ~62 GB on an
@@ -513,24 +550,58 @@ def kernel_split(fn, prefixes, iters: int = 20):
     return out if any(out.values()) else None
 
 
-def check_k1(cfg, T: int, gen):
-    """K1 at Ling-Lite widths with a random router's routing.  Times the
-    wrapper (checks, allocation and host dispatch included) and the C
-    entry alone on prepared arguments (its kernels' time, also split by
-    kernel with the profiler: up, down, and the combine with its index
-    passes)."""
+def ep_case(cfg, T: int, gen, tp: int = MESH_TP):
+    """K1's operands on rank 0 of the "ep" dispatch over tp ranks: one
+    MoE layer's bf16 weights (rank 0's E / tp experts), T random bf16
+    tokens split into tp owned slices, each routed by the random router
+    and bucketed by destination (`moe.ep_send_layout`), and the rows every
+    source sends rank 0, sorted by local expert (`moe.ep_recv_layout`):
+    (params, x_recv (tp*cap, d), order, gate 1 (0 for empty rows),
+    group_sizes)."""
+    import torch
+    from repro_torch import sharding
+    from repro_torch.core import moe, router
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import layers as L
+    p = moe.init_moe(cfg, L.Init(device=torch.device("cuda"),
+                                 generator=gen))
+    x = torch.randn((T, cfg.d_model), generator=gen, device="cuda") \
+        .to(torch.bfloat16)
+    T_loc, rows, keys = T // tp, [], []
+    for s in range(tp):
+        env = sharding.make_axis_env(Mesh.at(1, tp, s, "cuda"))
+        xs = x[s * T_loc:(s + 1) * T_loc]
+        tok_send, key_send, _, _ = moe.ep_send_layout(
+            cfg, env, *router.route(cfg, p["router"], xs))
+        cap = key_send.shape[1]
+        rows.append(xs[tok_send].reshape(tp, cap, -1)[0])
+        keys.append(key_send[0])
+    e_loc = cfg.moe.n_experts // tp
+    order, gs, valid = moe.ep_recv_layout(torch.cat(keys), e_loc)
+    p = {k: p[k][:e_loc].contiguous() for k in ("we1", "we2", "we3")}
+    return p, torch.cat(rows), order, valid.to(torch.bfloat16), gs
+
+
+def check_k1(cfg, T: int, gen, case=None):
+    """K1 at Ling-Lite widths with a random router's routing (or on
+    `case`, (params, x, tok, gates, group_sizes) as `moe_case` gives
+    them: `ep_case`'s received rows).  Times the wrapper (checks,
+    allocation and host dispatch included) and the C entry alone on
+    prepared arguments (its kernels' time, also split by kernel with the
+    profiler: up, down, and the combine with its index passes)."""
     import torch
     from repro_torch.kernels import build
     from repro_torch.kernels import grouped_matmul as gm
     from repro_torch.kernels import ops
     m = cfg.moe
-    p, x, tok, gates, group_sizes = moe_case(cfg, T, gen)
+    p, x, tok, gates, group_sizes = case or moe_case(cfg, T, gen)
+    T = x.shape[0]
     cap = tok.shape[0]
     bm = min(128, max(8, cap))
     row_idx, g, tile_group = ops._fused_layout(tok, gates, group_sizes, T,
                                                bm)
     args = (x, p["we1"], p["we2"], p["we3"], row_idx, g, tile_group)
-    path = gm.k1_path(row_idx.shape[0], bm, m.n_experts)
+    path = gm.k1_path(row_idx.shape[0], bm, group_sizes.shape[0])
     out = gm.fused_moe_ffn(*args)
     ref = gm.fused_moe_ffn_ref(*args)
     torch.cuda.synchronize()
@@ -557,7 +628,8 @@ def check_k1(cfg, T: int, gen):
     split = kernel_split(lambda: entry(*c_args),
                          ("moe_up", "moe_down", "moe_combine"))
     shape = (f"T={T} cap={cap} bm={bm} tiles={tile_group.numel()} "
-             f"experts_routed={n_experts} path={path}")
+             f"experts_routed={n_experts} of {group_sizes.shape[0]} "
+             f"path={path}")
     report("fused_moe_ffn", shape, err, tol, ref.abs().max().item(), ms,
            plain_ms, b_ms, b_by)
     parts = ("not measured" if split is None else
@@ -574,17 +646,22 @@ def check_k1(cfg, T: int, gen):
                 device_split_ms=split)
 
 
-def paged_case(cfg, *, B, Q, ctx, base, n_pages, gen):
+def paged_case(cfg, *, B, Q, ctx, base, n_pages, gen, tp=1, rank=0):
     """Random pools, page tables and queries for one paged-attention
     check.  ctx[b] = tokens the slot holds after this step (0 = inactive:
-    its table row stays on the scratch page and every row is masked)."""
+    its table row stays on the scratch page and every row is masked).
+    Over tp the pools hold rank `rank`'s 16 / tp in-page offsets and the
+    mask is that rank's (`layers.paged_valid_mask`)."""
     import torch
+    from repro_torch import sharding
+    from repro_torch.launch.mesh import Mesh
     from repro_torch.models import layers as L
     from repro_torch.kernels import ops
     dev = "cuda"
     ps, KV, hd, H = 16, cfg.n_kv_heads, cfg.head_dim, cfg.n_heads
+    env = sharding.make_axis_env(Mesh.at(1, tp, rank, dev))
     n_lp = 512 // ps
-    pool = lambda: torch.randn((n_pages, ps, KV, hd), generator=gen,
+    pool = lambda: torch.randn((n_pages, ps // tp, KV, hd), generator=gen,
                                device=dev).to(torch.bfloat16)
     k_pool, v_pool = pool(), pool()
     table = torch.zeros((B, n_lp), dtype=torch.int32, device=dev)
@@ -598,11 +675,11 @@ def paged_case(cfg, *, B, Q, ctx, base, n_pages, gen):
                        device=dev)
     if base is not None:
         pos = base + torch.arange(Q, device=dev)[None]
-    mask = L.paged_valid_mask(table, pos, page_size=ps)
+    mask = L.paged_valid_mask(table, pos, page_size=ps, env=env)
     q = torch.randn((B, Q, H, hd), generator=gen, device=dev) \
         .to(torch.bfloat16)
     gq = ops._pa_group_q(q, KV)
-    mask4 = mask.reshape(B, Q, n_lp, ps)
+    mask4 = mask.reshape(B, Q, n_lp, ps // tp)
     return gq, k_pool, v_pool, table, mask4
 
 
@@ -729,15 +806,17 @@ def _fp32_first(fp32_operand, candidates):
     return [c for c in candidates if "fp32" not in c[0]]
 
 
-def check_k2(cfg, gen):
+def check_k2(cfg, gen, case=None):
     """K2 at the MoE backward's shapes (T=2048 tokens routed by a random
     router: at Ling-Lite 12288 rows over 64 experts, at granite 16384
-    over 40, bm=128) and the grouped weight gradient, each in every
-    operand form the backward launches, against their plain versions."""
+    over 40, bm=128; or `case`, as `check_k1` takes it: `ep_case`'s
+    12288 received rows over 32 local experts) and the grouped weight
+    gradient, each in every operand form the backward launches, against
+    their plain versions."""
     import torch
     from repro_torch.kernels import grouped_matmul as gm
     from repro_torch.kernels import ops
-    p, x, tok, gates, gs = moe_case(cfg, 2048, gen)
+    p, x, tok, gates, gs = case or moe_case(cfg, 2048, gen)
     cap, G, bm = tok.shape[0], gs.shape[0], 128
     d, ff = cfg.d_model, cfg.moe.expert_d_ff
     lay = ops.align_layout(gs, cap, bm)
@@ -844,12 +923,14 @@ def check_k2(cfg, gen):
     return rows, wrows
 
 
-def k5_case(arch: str, T: int, gen):
-    """A random fp32 head (V, d) of `arch`'s widths and bf16 x (T, d)."""
+def k5_case(arch: str, T: int, gen, tp: int = 1):
+    """A random fp32 head (V, d) of `arch`'s widths (over tp a rank's
+    vocab shard: V padded to tp * 128, over tp) and bf16 x (T, d)."""
     import torch
     from repro_torch.configs.base import get_config
     cfg = get_config(arch)
-    w = 0.02 * torch.randn((cfg.vocab_size, cfg.d_model), generator=gen,
+    V = cfg.vocab_size if tp == 1 else -(-cfg.vocab_size // (tp * 128)) * 128
+    w = 0.02 * torch.randn((V, cfg.d_model), generator=gen,
                            device="cuda")
     x = torch.randn((T, cfg.d_model), generator=gen, device="cuda") \
         .to(torch.bfloat16)
@@ -2330,25 +2411,15 @@ def rwkv_serve(card):
 def train(card):
     """4 optimizer steps of the port's Trainer on Ling-Lite at full width,
     depth cut to 4 layers: 16 B/param of training state (fp32 master,
-    grad, two moments) is ~45 GB at 4 layers against ~269 GB at 28."""
-    import dataclasses
+    grad, two moments) is ~45 GB at 4 layers against ~269 GB at 28.
+    Returns (launches, the Trainer's history)."""
     import torch
-    from repro_torch import api
-    from repro_torch.configs.base import get_config
-    from repro_torch.data.pipeline import DataPipeline, PipelineConfig
     from repro_torch.kernels import build
     from repro_torch.optim import adamw
-    from repro_torch.training.trainer import TrainConfig, Trainer
-    cfg = dataclasses.replace(get_config("ling-lite"), n_layers=4)
-    B, S, accum, steps = 2, 1024, 2, 4
+    steps = 4
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    runner = api.Runner(cfg, device="cuda")
-    pipe = DataPipeline(PipelineConfig(vocab_size=cfg.vocab_size,
-                                       seq_len=S, batch_size=B, seed=0))
-    trainer = Trainer(runner, pipe, TrainConfig(
-        n_steps=steps, accum_steps=accum, log_every=1, seed=0,
-        debug_guards=True))
+    trainer, cfg, (B, S, accum) = train_setup(steps)
     torch.cuda.synchronize()
     n_par = sum(t.numel() for t in adamw.leaves(trainer.params))
     print(f"[train] ling-lite d={cfg.d_model} layers={cfg.n_layers} (of 28) "
@@ -2399,7 +2470,31 @@ def train(card):
         fail(f"training launches per step {per_step} != {want}")
     if not peak < 80e9:
         fail(f"training peak memory {peak / 1e9:.2f} GB >= 80 GB")
-    return launches
+    return launches, hist
+
+
+def train_setup(steps: int, mesh=None, debug_guards: bool = True,
+                accum: int = 2):
+    """Phase 8's Trainer: Ling-Lite at full width cut to 4 layers, fp32
+    masters from seed 0, seq 1024, microbatch 2, accum 2 (phase 9b: 1),
+    the default spike guard, WSD schedule and router warmup; on `mesh`
+    (phase 9) each rank's shards.  Returns (trainer, cfg, (B, S,
+    accum))."""
+    import dataclasses
+    from repro_torch import api
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.pipeline import DataPipeline, PipelineConfig
+    from repro_torch.training.trainer import TrainConfig, Trainer
+    cfg = dataclasses.replace(get_config("ling-lite"), n_layers=4)
+    B, S = 2, 1024
+    runner = api.Runner(cfg, device=mesh.device if mesh else "cuda",
+                        mesh=mesh)
+    pipe = DataPipeline(PipelineConfig(vocab_size=cfg.vocab_size,
+                                       seq_len=S, batch_size=B, seed=0))
+    trainer = Trainer(runner, pipe, TrainConfig(
+        n_steps=steps, accum_steps=accum, log_every=1, seed=0,
+        debug_guards=debug_guards))
+    return trainer, cfg, (B, S, accum)
 
 
 # ---------------------------------------------------------------------------
@@ -3010,13 +3105,17 @@ def train_families(card):
 E2E_CHUNK, E2E_STEPS = 64, 8     # the teacher-forced request's shape
 
 
-def teacher_forced(cfg, params, tokens, flags):
+def teacher_forced(cfg, params, tokens, flags, env=None):
     """Logits (1 + E2E_STEPS, Vp) of one request teacher-forced through
     the paged serving steps with `flags`: a prefill chunk of the first
     E2E_CHUNK tokens, then a decode tick per following token (slot 0 of
-    8 active, pages of 16, a 512-position table)."""
+    8 active, pages of 16, a 512-position table).  Over a tp mesh (`env`)
+    the pools hold the rank's in-page offsets and each step's vocab
+    shards are gathered over tp."""
     import torch
+    from repro_torch import sharding
     from repro_torch.models import model as M
+    env = env or sharding.LOCAL
     dev = tokens.device
     B, C, ps, n_lp, steps = 8, E2E_CHUNK, 16, 32, E2E_STEPS
     table = torch.zeros((B, n_lp), dtype=torch.int32, device=dev)
@@ -3024,13 +3123,13 @@ def teacher_forced(cfg, params, tokens, flags):
         1, 1 + (C + steps + ps - 1) // ps, dtype=torch.int32, device=dev)
     active = torch.zeros((B,), dtype=torch.bool, device=dev)
     active[0] = True
-    pools = M.init_paged_caches(cfg, 1 + n_lp, ps, dev)
+    pools = M.init_paged_caches(cfg, 1 + n_lp, ps, dev, env)
     out = []
     with torch.no_grad():
         lg, _ = M._paged_prefill_logits(cfg, params, pools, tokens[:C], 0,
                                         C, table[0], page_size=ps,
-                                        flags=flags)
-        out.append(lg[0])
+                                        flags=flags, env=env)
+        out.append(env.all_gather_tp(lg, axis=1)[0])
         for i in range(steps):
             tok = torch.zeros((B,), dtype=torch.long, device=dev)
             tok[0] = tokens[C + i]
@@ -3038,8 +3137,8 @@ def teacher_forced(cfg, params, tokens, flags):
             pos[0] = C + i
             lg, _ = M._paged_decode_logits(cfg, params, pools, tok, pos,
                                            table, active, page_size=ps,
-                                           flags=flags)
-            out.append(lg[0])
+                                           flags=flags, env=env)
+            out.append(env.all_gather_tp(lg, axis=1)[0])
     return torch.stack(out)
 
 
@@ -3110,6 +3209,399 @@ def end_to_end(cfg, params, gen, plain_head: bool = False,
     return err, agree
 
 
+# ---------------------------------------------------------------------------
+# phase 9: Ling-Lite on a mesh of torch.distributed ranks
+# ---------------------------------------------------------------------------
+
+MESH_TIMEOUT_S = 600.0     # every process group's and every join's limit
+MESH_PROMPTS, MESH_TICKS, MESH_STEPS = 8, 32, 2
+# phase 9b's prompts: phase 5's cut to one 64-token chunk each (as phase
+# 6c cuts them): two ranks on one card exchange every collective through
+# gloo, ~2 ms a call (phase 9b's counters print it), ~7 calls a layer and
+# step
+MESH_PROMPT_LEN = 64
+# phase 9b's training bars against the (1, 1) run: (loss, grad norm)
+# relative; (1, 2) at the reference's own cross-mesh bound
+# (tests/test_sharded_parity.py: 5e-2)
+MESH_TRAIN_TOL = {"2x1": (1e-3, 1e-2), "1x2": (5e-2, 5e-2)}
+# phase 9b's steps take one microbatch (phase 8's accum 2 would double the
+# ~12 GB of FSDP gathers and gradient reduce-scatters a microbatch that
+# two ranks on one card exchange through gloo, well under 1 GB/s: phase
+# 9b's counters print it); phase 9a takes the same steps at (1, 1) as
+# their reference
+MESH_ACCUM = 1
+
+
+def _spawn(fn, world: int, *args):
+    """fn(rank, world, tmp, *args) in `world` spawned processes that meet
+    at a file store in a fresh temporary directory (removed after); each
+    returns a picklable result.  Fails the phase if a rank raises, exits
+    non-zero or outlives MESH_TIMEOUT_S (it is killed then)."""
+    import torch.multiprocessing as mp
+    ctx = mp.get_context("spawn")
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = [ctx.Process(target=_rank_run, args=(fn, r, world, tmp, args))
+                 for r in range(world)]
+        for p in procs:
+            p.start()
+        end = time.time() + MESH_TIMEOUT_S
+        for p in procs:
+            p.join(max(1.0, end - time.time()))
+        hung = [r for r, p in enumerate(procs) if p.is_alive()]
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        if hung:
+            fail(f"{fn.__name__}: ranks {hung} outlived {MESH_TIMEOUT_S}s")
+        bad = [(r, p.exitcode) for r, p in enumerate(procs) if p.exitcode]
+        if bad:
+            fail(f"{fn.__name__}: ranks exited with {bad}")
+        out = []
+        for r in range(world):
+            with open(f"{tmp}/rank{r}.pkl", "rb") as f:
+                out.append(pickle.load(f))
+    return out
+
+
+def _rank_run(fn, rank, world, tmp, args):
+    """A spawned rank: the one card, fp32 products in fp32, the kernels
+    the parent built (loaded, never rebuilt), fn's result pickled."""
+    import torch
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = fn(rank, world, tmp, *args)
+    with open(f"{tmp}/rank{rank}.pkl", "wb") as f:
+        pickle.dump(out, f)
+
+
+def _serve_prompts(runner, params, prompts, max_new: int,
+                   debug_guards: bool):
+    """The prompts submitted at once to an OnlineEngine of phase 5's
+    geometry (8 slots, context 512, page 16, chunk 64), greedy: (streams,
+    step calls, wall seconds, the tick p50 in ms)."""
+    import numpy as np
+    import torch
+    from repro_torch.serving.online import (OnlineConfig, OnlineEngine,
+                                            OnlineRequest)
+    eng = OnlineEngine(runner, params, OnlineConfig(
+        max_slots=8, max_context=512, page_size=16, prefill_chunk=64,
+        debug_guards=debug_guards))
+    eng.submit_many([OnlineRequest(rid=i, prompt=np.asarray(p, np.int32),
+                                   max_new=max_new)
+                     for i, p in enumerate(prompts)])
+    t0 = time.perf_counter()
+    eng.run(max_ticks=10_000)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    streams = [list(eng.reqs[i].out) for i in range(len(prompts))]
+    return (streams, dict(eng.step_calls), wall,
+            eng.registry.get("serve_tick_ms").percentile(50))
+
+
+@contextlib.contextmanager
+def count_drops():
+    """Counts the "ep" dispatch's routed slots and the ones it kept (each
+    call of `moe._ep_moe_ffn`) into the yielded dict, read on exit."""
+    from repro_torch.core import moe
+    orig, calls = moe._ep_moe_ffn, []
+
+    def counted(*a, **k):
+        out = orig(*a, **k)
+        calls.append((out[2], out[3]))
+        return out
+    box = {}
+    moe._ep_moe_ffn = counted
+    try:
+        yield box
+    finally:
+        moe._ep_moe_ffn = orig
+        box["slots"] = sum(n for _, n in calls)
+        box["dropped"] = box["slots"] - sum(int(k) for k, _ in calls)
+
+
+@contextlib.contextmanager
+def plain_moe_head():
+    """The plain modes of the mesh's serving path (the "ep" dispatch is
+    its one MoE mode): K1's and K5's plain versions on CUDA tensors,
+    beside paged_attn="gathered"; no launch counted."""
+    from repro_torch.kernels import grouped_matmul as gm
+    saved = gm.fused_moe_ffn
+    gm.fused_moe_ffn = gm.fused_moe_ffn_ref
+    try:
+        with plain_k5_k6():
+            yield
+    finally:
+        gm.fused_moe_ffn = saved
+
+
+def _nccl_rank(rank, world, tmp, prompts):
+    """Phase 9a's one rank: NCCL at world size 1, the process group code
+    on Ling-Lite's serving (phase 5's prompts) and phase 8's step."""
+    import torch
+    from repro_torch import api
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import build
+    from repro_torch.launch import mesh as tmesh
+    tmesh.init_distributed(rank, world, init_method=f"file://{tmp}/store",
+                           backend="nccl", timeout_s=MESH_TIMEOUT_S)
+    mesh = tmesh.make_local_mesh(1, 1, device="cuda:0",
+                                 timeout_s=MESH_TIMEOUT_S)
+    print(f"[mesh-9a] {mesh.describe()}; world "
+          f"{torch.distributed.get_world_size()} over "
+          f"{torch.distributed.get_backend()}", flush=True)
+    runner = api.Runner(get_config("ling-lite"), device="cuda", mesh=mesh)
+    params = runner.init_params(0)
+    build.reset_launches()
+    streams, calls, wall, tick = _serve_prompts(runner, params, prompts, 32,
+                                                debug_guards=True)
+    out = {"streams": streams, "calls": calls, "serve_s": wall,
+           "tick_ms": tick, "serve_launches": dict(build.LAUNCHES)}
+    del params, runner
+    gc.collect()
+    torch.cuda.empty_cache()
+    build.reset_launches()
+    trainer, _, _ = train_setup(MESH_STEPS, mesh=mesh)
+    try:
+        trainer.train(MESH_STEPS)
+    finally:
+        trainer.close()
+    out["hist"] = [(r["loss"], r["grad_norm"]) for r in trainer.history]
+    out["train_launches"] = dict(build.LAUNCHES)
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    trainer, _, _ = train_setup(MESH_STEPS, mesh=mesh, accum=MESH_ACCUM)
+    try:
+        trainer.train(MESH_STEPS)
+    finally:
+        trainer.close()
+    out["hist_9b"] = [{k: r[k] for k in ("loss", "grad_norm")}
+                      for r in trainer.history]
+    torch.distributed.destroy_process_group()
+    return out
+
+
+def _gloo_rank(rank, world, tmp, prompts, tf_tokens):
+    """Phase 9b's rank: two of them over gloo on the one card.  Serving on
+    (1, 2) at full depth (the prompts, prefill and MESH_TICKS greedy
+    ticks; one request teacher-forced through the kernels, the plain
+    modes and the fp64-attention witness), then phase 8's step at (1, 2),
+    at (2, 1), and (2, 1)'s first step again."""
+    import torch
+    from repro_torch import api
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import build
+    from repro_torch.launch import mesh as tmesh
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw
+    tmesh.init_distributed(rank, world, init_method=f"file://{tmp}/store",
+                           backend="gloo", timeout_s=MESH_TIMEOUT_S)
+    mesh = tmesh.make_local_mesh(1, 2, device="cuda:0",
+                                 timeout_s=MESH_TIMEOUT_S)
+    cfg = get_config("ling-lite")
+    t0 = time.perf_counter()
+    runner = api.Runner(cfg, device=mesh.device, mesh=mesh)
+    params = runner.init_params(0)
+    torch.cuda.synchronize()
+    out = {"describe": mesh.describe(), "init_s": time.perf_counter() - t0}
+    build.reset_launches()
+    streams, calls, wall, tick = _serve_prompts(
+        runner, params, prompts, MESH_TICKS + 1, debug_guards=False)
+    out.update(streams=streams, calls=calls, serve_s=wall, tick_ms=tick,
+               serve_stats={k: dict(v) for k, v in mesh.stats.items()},
+               serve_launches=dict(build.LAUNCHES),
+               serve_peak=torch.cuda.max_memory_allocated())
+    tf = torch.as_tensor(tf_tokens, device=mesh.device)
+    with count_drops() as drops:
+        fused = teacher_forced(cfg, params, tf, M.RunFlags(), runner.env)
+    with plain_moe_head():
+        plain = teacher_forced(cfg, params, tf,
+                               M.RunFlags(paged_attn="gathered"), runner.env)
+        with fp64_attention():
+            other = teacher_forced(cfg, params, tf, M.RunFlags(),
+                                   runner.env)
+    out.update(fused=fused.cpu(), plain=plain.cpu(), other=other.cpu(),
+               drops=drops)
+    del params, runner, fused, plain, other
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["train"] = {}
+    keep = None
+    # (2, 1) runs MESH_STEPS steps, then its first step again: ~24 GB of
+    # FSDP gathers and gradient reduce-scatters a step go through gloo
+    for label, shape, n_steps in (("1x2", (1, 2), MESH_STEPS),
+                                  ("2x1", (2, 1), MESH_STEPS),
+                                  ("2x1 again", (2, 1), 1)):
+        m = tmesh.make_local_mesh(*shape, device="cuda:0",
+                                  timeout_s=MESH_TIMEOUT_S)
+        torch.cuda.reset_peak_memory_stats()
+        build.reset_launches()
+        trainer, _, _ = train_setup(n_steps, mesh=m, debug_guards=False,
+                                    accum=MESH_ACCUM)
+        times = []
+        try:
+            for k in range(1, n_steps + 1):
+                t1 = time.perf_counter()
+                trainer.train(k)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t1)
+                if label == "2x1" and k == 1:
+                    keep = [t.detach().clone()
+                            for t in adamw.leaves(trainer.params)]
+        finally:
+            trainer.close()
+        rec = {"hist": [(r["loss"], r["grad_norm"], r["moe/dropped_frac"])
+                        for r in trainer.history],
+               "times": times,
+               "stats": {k: dict(v) for k, v in m.stats.items()},
+               "launches": dict(build.LAUNCHES),
+               "peak": torch.cuda.max_memory_allocated(),
+               "describe": m.describe()}
+        if label == "2x1 again":
+            rec["same_params"] = all(
+                torch.equal(a, b)
+                for a, b in zip(keep, adamw.leaves(trainer.params)))
+            keep = None
+        out["train"][label] = rec
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+    torch.distributed.destroy_process_group()
+    return out
+
+
+def _collective_line(stats, n: int, what: str) -> str:
+    """Per-`what` figures of the collectives: calls, bytes, bytes staged
+    through the host and host seconds (peers' waits included)."""
+    parts = []
+    for op, v in sorted(stats.items()):
+        parts.append(f"{op}: {v['calls'] / n:.1f} calls {v['bytes'] / n / 1e6:.3f}MB "
+                     f"(host {v['host_bytes'] / n / 1e6:.3f}MB) "
+                     f"{1e3 * v['seconds'] / n:.2f}ms")
+    host = sum(v["host_bytes"] for v in stats.values()) / n
+    secs = sum(v["seconds"] for v in stats.values()) / n
+    return (f"per {what}: {'; '.join(parts)}; staged through the host "
+            f"{host / 1e6:.3f}MB, collectives {1e3 * secs:.2f}ms")
+
+
+def mesh_nccl(card, base, train_hist):
+    """Phase 9a: one spawned rank with an NCCL process group of world size
+    1 (the mesh code at (1, 1)): 8 of phase 5's prompts through the
+    OnlineEngine, streams equal to phase 5's bit for bit; phase 8's
+    4-layer step from the same seed, MESH_STEPS steps, losses and grad
+    norms equal to phase 8's bit for bit; then the same steps at
+    MESH_ACCUM microbatches, phase 9b's (1, 1) reference.  Returns (the
+    launches, that reference's history)."""
+    t0 = time.perf_counter()
+    prompts = base["prompts"][:MESH_PROMPTS]
+    (r,) = _spawn(_nccl_rank, 1, prompts)
+    want = base["outputs"][:MESH_PROMPTS]
+    same = sum(a == b for a, b in zip(r["streams"], want))
+    ref = [(h["loss"], h["grad_norm"]) for h in train_hist[:MESH_STEPS]]
+    print(f"[mesh-9a] NCCL world 1: {same}/{MESH_PROMPTS} streams equal "
+          f"phase 5's; step calls {r['calls']}, tick p50 "
+          f"{r['tick_ms']:.2f}ms; training {r['hist']} vs phase 8's {ref}; "
+          f"launches serve {r['serve_launches']} train "
+          f"{r['train_launches']}; {time.perf_counter() - t0:.1f}s [{card}]")
+    if same != MESH_PROMPTS:
+        fail(f"phase 9a: {MESH_PROMPTS - same} streams differ from phase 5's")
+    if r["hist"] != ref:
+        fail(f"phase 9a: losses and grad norms {r['hist']} != phase 8's {ref}")
+    return ({"nccl_serve": r["serve_launches"],
+             "nccl_train": r["train_launches"]}, r["hist_9b"])
+
+
+def mesh_gloo(card, base, tf_tokens, tf_one, train_hist):
+    """Phase 9b: two ranks over gloo on the one card (NCCL refuses two
+    ranks on one device).  Serving Ling-Lite at full width, all 28
+    layers, on (1, 2): 8 of phase 5's prompts cut to MESH_PROMPT_LEN
+    tokens, prefill and MESH_TICKS greedy ticks on the "ep" dispatch (K1,
+    K3/K4 on 8 of 16 in-page offsets, K5 on a 63232-row head shard), both
+    ranks' streams equal bit for bit and the launches phase 5's formula;
+    one request teacher-forced through the kernels, the plain modes
+    (gathered attention, K1's and K5's plain versions) and a witness in
+    another rounding that launches no kernel (those plain versions with
+    the attention in fp64, `fp64_attention`): logits within phase 7b's
+    bar, max(2^-5 of the largest, twice the rounding floor), and their
+    gap to phase 6's (1, 1) run printed with the dropped-slot count.
+    Then phase 8's 4-layer step at MESH_ACCUM microbatches, MESH_STEPS
+    steps from the same parameters and batches, at (1, 2) and at (2, 1),
+    against phase 9a's (1, 1) run of the same steps (`train_hist`) within
+    MESH_TRAIN_TOL, and (2, 1)'s first step again (the same bits: loss,
+    grad norm, parameters).  Prints the backend, which
+    collectives ran on CUDA tensors and which through host buffers, the
+    bytes and seconds per tick and per step.  Returns the launches."""
+    import torch
+    from repro_torch.configs.base import get_config
+    t0 = time.perf_counter()
+    cfg = get_config("ling-lite")
+    prompts = [p[:MESH_PROMPT_LEN] for p in base["prompts"][:MESH_PROMPTS]]
+    r0, r1 = _spawn(_gloo_rank, 2, prompts, tf_tokens)
+    print(f"[mesh-9b] {r0['describe']}; init {r0['init_s']:.1f}s")
+    n = r0["calls"]["prefill"] + r0["calls"]["decode"]
+    want_k = cfg.n_layers * n
+    print(f"[mesh-9b] serving (1, 2), {cfg.n_layers} layers: step calls "
+          f"{r0['calls']}, wall {r0['serve_s']:.2f}s, tick p50 "
+          f"{r0['tick_ms']:.2f}ms, peak {r0['serve_peak'] / 1e9:.2f}GB a "
+          f"rank; launches {r0['serve_launches']} (expected {want_k} of "
+          f"K1/K3/K4, {n} of K5) [{card}]")
+    print(f"[mesh-9b] collectives, rank 0, "
+          f"{_collective_line(r0['serve_stats'], n, 'serving step')}")
+    if r0["streams"] != r1["streams"]:
+        fail("phase 9b: the two ranks' streams differ")
+    if any(len(s) != MESH_TICKS + 1 for s in r0["streams"]):
+        fail(f"phase 9b: stream lengths {[len(s) for s in r0['streams']]}")
+    for name, got in r0["serve_launches"].items():
+        want = (want_k if name in SERVE_KERNELS else
+                n if name == "normhead_matmul" else 0)
+        if got != want:
+            fail(f"phase 9b: {name} launched {got} times, expected {want}")
+    fused, plain, other = r0["fused"], r0["plain"], r0["other"]
+    big = plain.abs().max().item()
+    err = (fused - plain).abs().max().item()
+    flo = (other - plain).abs().max().item()
+    tol = max(2.0 ** -5 * big, 2 * flo)
+    gap = (fused - tf_one).abs().max().item()
+    d = r0["drops"]
+    print(f"[mesh-9b] teacher-forced (1 chunk + {E2E_STEPS} ticks): kernels "
+          f"vs plain modes {err:.4e} = {err / big:.4f} of the largest "
+          f"(bar {tol:.4e}: rounding floor {flo:.4e}); gap to the (1, 1) "
+          f"kernels' logits {gap:.4e} = {gap / big:.4f} with "
+          f"{d['dropped']} of {d['slots']} routed slots dropped; greedy "
+          f"agreement {(fused.argmax(-1) == tf_one.argmax(-1)).float().mean():.3f}")
+    if not err <= tol:
+        fail(f"phase 9b: kernels vs plain logits {err} > {tol}")
+    ref = train_hist[:MESH_STEPS]
+    for label, rec in r0["train"].items():
+        steps = len(rec["hist"])
+        print(f"[mesh-9b] training {label}: {rec['describe']}; (loss, grad "
+              f"norm, dropped frac) {rec['hist']} vs (1, 1) "
+              f"{[(h['loss'], h['grad_norm']) for h in ref]}; step times "
+              f"{[round(t, 3) for t in rec['times']]}s; peak "
+              f"{rec['peak'] / 1e9:.2f}GB a rank; launches "
+              f"{rec['launches']} [{card}]")
+        print(f"[mesh-9b] collectives, rank 0, "
+              f"{_collective_line(rec['stats'], steps, 'step')}")
+        tl, tg = MESH_TRAIN_TOL[label.split()[0]]
+        for (loss, gn, _), h in zip(rec["hist"], ref):
+            if not (abs(loss - h["loss"]) <= tl * abs(h["loss"])
+                    and abs(gn - h["grad_norm"]) <= tg * h["grad_norm"]):
+                fail(f"phase 9b: training {label} (loss, grad norm) "
+                     f"{(loss, gn)} vs (1, 1) {(h['loss'], h['grad_norm'])}"
+                     f" past ({tl}, {tg}) relative")
+    a, b = r0["train"]["2x1"], r0["train"]["2x1 again"]
+    if a["hist"][:1] != b["hist"] or not (b["same_params"]
+                                          and r1["train"]["2x1 again"]
+                                          ["same_params"]):
+        fail(f"phase 9b: the (2, 1) step run twice differs: {a['hist']} vs "
+             f"{b['hist']}, params equal {b['same_params']}")
+    print(f"[mesh-9b] phase 9b took {time.perf_counter() - t0:.1f}s")
+    return {"mesh_serve": r0["serve_launches"],
+            "mesh_train_2x1": a["launches"],
+            "mesh_train_1x2": r0["train"]["1x2"]["launches"]}
+
+
 def main():
     src = Path(__file__).resolve().parent / "src"
     sys.path.insert(0, str(src))
@@ -3174,13 +3666,27 @@ def main():
     for label, (arch, S, pos) in PA_FAMILY_CASES.items():
         k3[label], k4[label] = check_pa(get_config(arch), label,
                                         dense_case(arch, S, pos, gen))
+    for label, rank in PA_MESH_CASES.items():
+        k3[label], k4[label] = check_pa(cfg, label, paged_case(
+            cfg, gen=gen, tp=MESH_TP, rank=rank, **PA_CASES["decode"]))
     k2, wgrad = check_k2(cfg, gen)
     rows, wrows = check_k2(get_config(K2_ARCH), gen)
     k2.update({f"granite {k}": v for k, v in rows.items()})
     wgrad.update({f"granite {k}": v for k, v in wrows.items()})
+    for label, T in EP_CASES.items():
+        case = ep_case(cfg, T, gen)
+        k1[label] = check_k1(cfg, T, gen, case=case)
+        if T == max(EP_CASES.values()):
+            rows, wrows = check_k2(cfg, gen, case=case)
+            k2.update({f"{label} {k}": v for k, v in rows.items()})
+            wgrad.update({f"{label} {k}": v for k, v in wrows.items()})
+        del case
+        torch.cuda.empty_cache()
     del rows, wrows
     k5 = {label: check_k5(label, *k5_case(arch, T, gen))
           for label, (arch, T) in K5_CASES.items()}
+    k5.update({label: check_k5(label, *k5_case(arch, T, gen, tp=MESH_TP))
+               for label, (arch, T) in K5_MESH_CASES.items()})
     k6 = {label: check_k6(label, *k6_case(*case, gen))
           for label, case in K6_CASES.items()}
     decay = {label: check_decay(label, *decay_case(M, dt, gen))
@@ -3212,6 +3718,14 @@ def main():
 
     # -- 6. end to end ------------------------------------------------------
     end_to_end(cfg, params, gen)
+    # phase 9b's teacher-forced request, here at (1, 1) on the kernels
+    from repro_torch.models import model as M
+    tf_tokens = torch.randint(
+        0, cfg.vocab_size, (E2E_CHUNK + E2E_STEPS,),
+        generator=torch.Generator(device="cuda").manual_seed(9),
+        device="cuda")
+    tf_one = teacher_forced(cfg, params, tf_tokens, M.RunFlags()).cpu()
+    tf_tokens = tf_tokens.tolist()
 
     # -- 6b. sampling and speculative decoding -------------------------------
     spec_launches = serve_sampled(cfg, params, base, card)
@@ -3242,7 +3756,7 @@ def main():
     print(f"[families] phase 7c took {time.perf_counter() - t0:.1f}s")
 
     # -- 8. training --------------------------------------------------------
-    train_launches = train(card)
+    train_launches, train_hist = train(card)
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -3270,8 +3784,16 @@ def main():
     t0 = time.perf_counter()
     family_train_launches = train_families(card)
     print(f"[families-train] phase 8e took {time.perf_counter() - t0:.1f}s")
+    gc.collect()
+    torch.cuda.empty_cache()
 
-    # -- 9. results ---------------------------------------------------------
+    # -- 9. Ling-Lite on a mesh of ranks ------------------------------------------
+    t0 = time.perf_counter()
+    mesh_launches, hist_9b = mesh_nccl(card, base, train_hist)
+    print(f"[mesh-9a] phase 9a took {time.perf_counter() - t0:.1f}s")
+    mesh_launches.update(mesh_gloo(card, base, tf_tokens, tf_one, hist_9b))
+
+    # -- 10. results --------------------------------------------------------
     # (source, TPU kernel it replaces, the row's shape, the path whose
     # launch count the row reports)
     meta = {"fused_moe_ffn": ("src/repro_torch/kernels/csrc/fused_moe_ffn.cu",
@@ -3313,7 +3835,8 @@ def main():
                 **{f"serve_{a}": family_launches[a]
                    for a, _ in FAMILY_SERVE},
                 **{f"train_{a}": family_train_launches[a]
-                   for a, _ in FAMILY_TRAIN}}
+                   for a, _ in FAMILY_TRAIN},
+                **mesh_launches}
     rows = []
     for name, shapes in results.items():
         src_path, replaces, main_shape, path = meta[name]

@@ -1,8 +1,10 @@
-"""Fine-grained Mixture-of-Experts FFN at tp=1 (counterpart of
-`repro.core.moe`).
+"""Fine-grained Mixture-of-Experts FFN (counterpart of `repro.core.moe`).
 
-At tp=1 the dispatch buffer holds all T*k slots (dropless).  Slots are
-stably sorted by expert; two dispatch modes compute the routed experts:
+Routed experts are sharded over tp on their leading dim (`ep_spec`: rank
+r owns experts [r*E_loc, (r+1)*E_loc)) and FSDP-sharded over dp on
+another.  At tp=1 the dispatch buffer holds all T*k slots (dropless).
+Slots are stably sorted by expert; two dispatch modes compute the routed
+experts at tp=1:
 
   "fused"   `FusedFFN`, the counterpart of the reference's `fused_ffn`
             custom-vjp.  Forward: kernel K1 through `ops.moe_fused_ffn`
@@ -17,31 +19,77 @@ stably sorted by expert; two dispatch modes compute the routed experts:
             plain mode (it reads group_sizes on the host), not K1's plain
             version (which keeps h in fp32).
 
-"auto" resolves to "fused".  The always-on shared expert adds into the
-same output in both modes.
+At tp > 1 the one mode is "ep" (`_ep_moe_ffn`), the reference's default
+off the TPU: rank r routes its owned T/tp token slice, an all-to-all
+sends each routed slot to the shard owning its expert (at most
+`ep_capacity` slots a shard pair: the earliest win, the rest drop), the
+received rows run through `FusedFFN` with gate 1 (K1 forward, K2 and the
+weight gradient backward, as at tp=1), and a second all-to-all brings the
+outputs home, where the gates scale them into the owned slice.  "ep"
+needs T % tp == 0; the reference's "batched" fallback and its "fused" /
+"ragged" modes at tp > 1 are not ported (ROADMAP item 9).
+
+"auto" resolves to "fused" at tp=1 and "ep" at tp > 1.  The always-on
+shared expert (a tensor-parallel FFN) adds into the same output in every
+mode.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
+from repro_torch import sharding
 from repro_torch.core import router as router_lib
 from repro_torch.kernels import ops as kops
 from repro_torch.models import layers as L
+from repro_torch.sharding import LOCAL, AxisEnv
+
+
+def padded_experts(cfg, env: AxisEnv = LOCAL) -> Tuple[int, int]:
+    """(E_padded, E_local): experts padded to a multiple of tp."""
+    ep = sharding.pad_to_multiple(cfg.moe.n_experts, env.tp)
+    return ep, ep // env.tp
+
+
+def capacity(cfg, env: AxisEnv, n_tokens: int) -> int:
+    """Static per-rank dispatch-buffer rows: all T*k slots at tp=1
+    (dropless), else T*k*capacity_factor/tp rounded up to 8 (at most
+    T*k)."""
+    m = cfg.moe
+    slots = n_tokens * m.top_k
+    if env.tp == 1:
+        return slots
+    cap = int(slots * m.capacity_factor / env.tp)
+    return min(sharding.pad_to_multiple(max(cap, 8), 8), slots)
+
+
+def ep_capacity(cfg, env: AxisEnv, n_tokens_local: int) -> int:
+    """Rows per (source, destination) shard pair of the EP exchange:
+    `capacity` of the rank's owned token count."""
+    return capacity(cfg, env, n_tokens_local)
 
 
 def init_moe(cfg, init: L.Init) -> Dict:
     m = cfg.moe
     d = cfg.d_model
     wdt = init.weight_dtype(cfg)
+    env = init.env
+    ep, _ = padded_experts(cfg, env)
+    if ep != m.n_experts:
+        raise NotImplementedError(
+            f"{m.n_experts} experts over tp={env.tp}: padded experts are "
+            f"not yet ported (ROADMAP item 9)")
     out_scale = 0.02 / max(cfg.n_layers, 1) ** 0.5
     params: Dict = {"router": router_lib.init_router(cfg, init)}
-    params["we1"] = init.normal((m.n_experts, d, m.expert_d_ff), wdt)
+    params["we1"] = init.normal((m.n_experts, d, m.expert_d_ff), wdt,
+                                spec=sharding.ep_spec(env, 3, 1, 0))
     params["we2"] = init.normal((m.n_experts, m.expert_d_ff, d), wdt,
-                                out_scale)
+                                out_scale, spec=sharding.ep_spec(env, 3, 2, 0))
     if cfg.mlp_act in L.GATED_ACTS:
-        params["we3"] = init.normal((m.n_experts, d, m.expert_d_ff), wdt)
+        params["we3"] = init.normal((m.n_experts, d, m.expert_d_ff), wdt,
+                                    spec=sharding.ep_spec(env, 3, 1, 0))
     if m.n_shared_experts > 0:
         params["shared"] = L.init_mlp(cfg, init, d_ff=m.shared_ff,
                                       scale_out=out_scale)
@@ -153,15 +201,33 @@ def fused_ffn(act, x, w1, w2, w3, tok, gate, group_sizes):
     return FusedFFN.apply(act, x, w1, w2, w3, tok, gate, group_sizes)
 
 
-def resolve_dispatch(cfg, dispatch: str) -> str:
+def resolve_dispatch(cfg, dispatch: str, env: AxisEnv = LOCAL,
+                     n_tokens: Optional[int] = None) -> str:
+    """RunFlags.moe_dispatch -> "fused" | "ragged" (tp=1) or "ep" (tp >
+    1).  At tp > 1 "ep" needs the call's T (`n_tokens`) divisible by tp:
+    the reference falls back to its "batched" mode there, which is not
+    ported, so the port raises naming the constraint."""
     if dispatch == "auto":
         dispatch = cfg.moe.dispatch
-    if dispatch in ("auto", "ep"):      # ep buys nothing at tp=1
-        dispatch = "fused"
-    if dispatch not in ("fused", "ragged"):
+    if env.tp == 1:
+        if dispatch in ("auto", "ep"):      # ep buys nothing at tp=1
+            dispatch = "fused"
+        if dispatch not in ("fused", "ragged"):
+            raise NotImplementedError(
+                f"moe dispatch {dispatch!r} is not yet ported (tp=1 "
+                f"supports fused and ragged)")
+        return dispatch
+    if dispatch == "auto":
+        dispatch = "ep"
+    if dispatch != "ep":
         raise NotImplementedError(
-            f"moe dispatch {dispatch!r} is not yet ported (tp=1 supports "
-            f"fused and ragged)")
+            f"moe dispatch {dispatch!r} at tp={env.tp} is not yet ported "
+            f"(ROADMAP item 9); tp > 1 runs 'ep'")
+    if n_tokens is not None and n_tokens % env.tp:
+        raise ValueError(
+            f"dispatch='ep' needs T ({n_tokens}) divisible by tp "
+            f"({env.tp}): the reference's 'batched' fallback is not ported "
+            f"(round the batch up with serving.flood.quantize_microbatch)")
     return dispatch
 
 
@@ -190,24 +256,139 @@ def sort_slots(cfg, top_w, top_i):
     return tok, gates, group_sizes, valid.sum()
 
 
-def moe_ffn(cfg, params, x: torch.Tensor, *, dispatch: str = "auto",
-            train: bool = False, step: Optional[int] = None,
-            eps: Optional[torch.Tensor] = None):
-    """x (T, d) -> (y (T, d) in compute dtype, metrics); with `train`
-    (y, aux, metrics) as the reference returns them: the router's aux
-    losses, and its metrics beside `moe/dropped_frac`.  `step` and the
-    warmup noise `eps` (T, E) feed the router's stochastic warmup."""
+def ep_send_layout(cfg, env: AxisEnv, top_w, top_i):
+    """The send side of the EP exchange for a rank's T_loc routed tokens:
+    the T_loc*k slots bucketed by destination shard with a stable sort
+    (token order), the earliest `ep_capacity` of each (source,
+    destination) pair kept and the rest dropped.  Returns (tok_send
+    (tp*cap,) the owned token of each row, key_send (tp, cap) int32 its
+    expert at the destination (E_loc where the row is empty), gates
+    (tp*cap,) fp32 its router weight (0 where empty), n_kept)."""
+    m = cfg.moe
+    tp = env.tp
+    dev = top_i.device
+    _, e_loc = padded_experts(cfg, env)
+    S = top_i.numel()
+    cap = ep_capacity(cfg, env, top_i.shape[0])
+    flat_i = top_i.reshape(-1)
+    dest = flat_i // e_loc
+    lkey = flat_i - dest * e_loc
+    order = torch.argsort(dest, stable=True)
+    sorted_dest = dest[order]
+    ids = torch.arange(tp, device=dev, dtype=sorted_dest.dtype)
+    offsets = torch.searchsorted(sorted_dest, ids)
+    counts = torch.searchsorted(sorted_dest, ids, right=True) - offsets
+    ar = torch.arange(cap, device=dev)
+    pos_valid = ar[None, :] < torch.clamp(counts, max=cap)[:, None]
+    slot = order[(offsets[:, None] + ar[None, :]).clamp(0, S - 1)]
+    key_send = torch.where(pos_valid, lkey[slot], e_loc).to(torch.int32)
+    gates = torch.where(pos_valid, top_w.reshape(-1)[slot], 0.0)
+    return ((slot // m.top_k).reshape(-1), key_send, gates.reshape(-1),
+            pos_valid.sum())
+
+
+def ep_recv_layout(keys, e_loc: int):
+    """The receive side: keys (R,) each received row's local expert (E_loc
+    for an empty row) -> (order (R,) the rows sorted stably by expert,
+    empty rows last; group_sizes (E_loc,); valid (R,) bool in sorted
+    order), `FusedFFN`'s tok, group sizes and gate 1."""
+    keys = keys.long()
+    order = torch.argsort(keys, stable=True)
+    skey = keys[order]
+    eids = torch.arange(e_loc, device=keys.device, dtype=skey.dtype)
+    group_sizes = (torch.searchsorted(skey, eids, right=True)
+                   - torch.searchsorted(skey, eids))
+    return order, group_sizes, skey < e_loc
+
+
+def _ep_moe_ffn(cfg, env: AxisEnv, params, x, w1, w2, w3, *, train: bool,
+                step, eps):
+    """The expert-parallel dispatch (the reference's `_ep_moe_ffn`).
+
+    x (T, d) replicated over tp.  Rank r owns the r-th T/tp slice and
+    routes only it (the statistics over dp and tp; `eps` is the slice's
+    warmup noise, drawn under the layer key folded with r).  Its slots
+    are bucketed by destination shard (`ep_send_layout`), the rows and
+    their local-expert keys exchanged in one `ep_all_to_all` (each key an
+    extra column of its row, exact in the compute dtype for up to 256
+    local experts), the received rows sorted by local expert
+    (`ep_recv_layout`) and run through
+    `FusedFFN` with gate 1 (K1; K2 and the weight gradient in the
+    backward), the outputs exchanged back and scatter-added with the
+    gates into the owned slice (`index_put` with accumulate, the port's
+    determinism contract).  Returns (y (T, d) zero outside the owned
+    slice: the caller's combine over tp assembles it, routed, n_kept,
+    n_slots)."""
     m = cfg.moe
     T, d = x.shape
     cdt = L.dtype_of(cfg.compute_dtype)
-    dispatch = resolve_dispatch(cfg, dispatch)
+    tp, r = env.tp, env.tp_index()
+    _, e_loc = padded_experts(cfg, env)
+    T_loc = T // tp
+    x_loc = x[r * T_loc:(r + 1) * T_loc]
+    routed = router_lib.route(cfg, params["router"], x_loc, train=train,
+                              step=step, eps=eps, ep=True, env=env)
+    tok_send, key_send, gates, n_kept = ep_send_layout(cfg, env, *routed[:2])
+    cap = key_send.shape[1]
+    if e_loc > 256:
+        raise NotImplementedError(f"{e_loc} local experts: the EP keys ride "
+                                  f"the rows in the compute dtype (<= 256)")
 
-    w1 = params["we1"].to(cdt)
-    w2 = params["we2"].to(cdt)
-    w3 = params["we3"].to(cdt) if "we3" in params else None
+    # the exchange: each row in the compute dtype (differentiable), its key
+    # beside it
+    group = env.mesh.tp_group
+    recv = kops.ep_all_to_all(torch.cat(
+        [x_loc[tok_send].reshape(tp, cap, d).to(cdt),
+         key_send[..., None].to(cdt)], dim=-1), group=group)
+    R = tp * cap
+    order, group_sizes, valid = ep_recv_layout(recv[..., d].reshape(R),
+                                               e_loc)
+
+    # the shard's experts over the received rows, gate 1
+    y_r = fused_ffn(cfg.mlp_act, recv[..., :d].reshape(R, d).contiguous(),
+                    w1, w2, w3, order, valid.to(cdt), group_sizes)
+
+    # home again: the gates scale each slot's output into the owned slice
+    y_back = kops.ep_all_to_all(y_r.to(cdt).reshape(tp, cap, d),
+                                group=group)
+    y_loc = torch.zeros((T_loc, d), dtype=cdt, device=x.device).index_put(
+        (tok_send,), y_back.reshape(R, d) * gates.to(cdt)[:, None],
+        accumulate=True)
+    y = F.pad(y_loc, (0, 0, r * T_loc, T - (r + 1) * T_loc))
+    return y, routed, n_kept, T_loc * m.top_k
+
+
+def moe_ffn(cfg, params, x: torch.Tensor, *, dispatch: str = "auto",
+            train: bool = False, step: Optional[int] = None,
+            eps: Optional[torch.Tensor] = None, env: AxisEnv = LOCAL):
+    """x (T, d) -> (y (T, d) in compute dtype, metrics); with `train`
+    (y, aux, metrics) as the reference returns them: the router's aux
+    losses, and its metrics beside `moe/dropped_frac`.  `step` and the
+    warmup noise `eps` (T, E) feed the router's stochastic warmup (under
+    "ep", (T / tp, E): the owned slice's).  Over tp, y is the rank's
+    partial sum, combined by the caller."""
+    m = cfg.moe
+    T, d = x.shape
+    cdt = L.dtype_of(cfg.compute_dtype)
+    dispatch = resolve_dispatch(cfg, dispatch, env, T)
+
+    w1 = env.gather_fsdp(params["we1"], 1, dtype=cdt)
+    w2 = env.gather_fsdp(params["we2"], 2, dtype=cdt)
+    w3 = (env.gather_fsdp(params["we3"], 1, dtype=cdt)
+          if "we3" in params else None)
+
+    if dispatch == "ep":
+        y, routed, n_kept, n_local = _ep_moe_ffn(
+            cfg, env, params, x, w1, w2, w3, train=train, step=step, eps=eps)
+        y, metrics = _moe_tail(cfg, params, x, y, n_kept=n_kept,
+                               n_local=n_local, env=env, train=train)
+        if not train:
+            return y, metrics
+        _, _, aux, router_metrics = routed
+        return y, aux, {**router_metrics, **metrics}
 
     routed = router_lib.route(cfg, params["router"], x, train=train,
-                              step=step, eps=eps)
+                              step=step, eps=eps, env=env)
     tok, gates, group_sizes, n_kept = sort_slots(cfg, *routed[:2])
     if dispatch == "fused":
         y = fused_ffn(cfg.mlp_act, x.to(cdt), w1, w2, w3, tok, gates,
@@ -218,18 +399,30 @@ def moe_ffn(cfg, params, x: torch.Tensor, *, dispatch: str = "auto",
         y = torch.zeros((T, d), dtype=cdt, device=x.device).index_add_(
             0, tok, out * gates[:, None])
     y, metrics = _moe_tail(cfg, params, x, y, n_kept=n_kept,
-                           n_local=T * m.top_k)
+                           n_local=T * m.top_k, env=env, train=train)
     if not train:
         return y, metrics
     _, _, aux, router_metrics = routed
     return y, aux, {**router_metrics, **metrics}
-def _moe_tail(cfg, params, x, y, *, n_kept, n_local):
-    """Dropped-slot telemetry (0 at tp=1: dropless) and the always-on
-    shared expert added into the same output."""
+
+
+def _moe_tail(cfg, params, x, y, *, n_kept, n_local, env: AxisEnv = LOCAL,
+              train: bool = True):
+    """Dropped-slot telemetry (0 at tp=1: dropless; in training over tp
+    the fraction of every rank's slots, averaged over dp; the serving
+    steps, which drop the metric, get the rank's own fraction, as the
+    reference's compiled steps drop those collectives as dead code) and
+    the always-on shared expert added into the same output."""
     m = cfg.moe
     cdt = L.dtype_of(cfg.compute_dtype)
-    dropped = (n_local - n_kept).clamp_min(0)
-    metrics = {"moe/dropped_frac": dropped.float() / max(n_local, 1)}
+    dropped = (n_local - n_kept).clamp_min(0).float()
+    if env.tp == 1 or not train:
+        frac = dropped / max(n_local, 1)
+    else:
+        d_all, n_all = env.psum_tp((dropped, torch.full(
+            (), float(n_local), device=dropped.device)))
+        frac = d_all / n_all.clamp_min(1.0)
+    metrics = {"moe/dropped_frac": env.pmean_dp(frac) if train else frac}
     if m.n_shared_experts > 0:
-        y = y + L.apply_mlp(cfg, params["shared"], x.to(cdt))
+        y = y + L.apply_mlp(cfg, params["shared"], x.to(cdt), env=env)
     return y, metrics

@@ -12,6 +12,11 @@ reference casts at use (attention, expert, shared-expert and embedding
 weights), fp32 for the router, the norm scales and the LM head.  numpy
 has no bf16, so the reference's fp32 master weights are handed over as
 fp32 (exact) and cast once here.
+
+Over a mesh (`env`) the reference's global pytree is cut into the rank's
+shards by the port's spec tree (`model.param_specs`), so the tests can
+feed both packages the same weights at any mesh; `shard_tree` does the
+same for any tree laid out like the parameters (gradients, moments).
 """
 from __future__ import annotations
 
@@ -20,19 +25,35 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
+from repro_torch import sharding
+from repro_torch.models import layers as L
 from repro_torch.models import model as M
+from repro_torch.sharding import LOCAL, AxisEnv
+
+
+def shard_tree(tree, specs, env: AxisEnv):
+    """A global pytree of numpy arrays -> the rank's slices under the spec
+    tree `specs` (same layout)."""
+    if isinstance(specs, dict):
+        return {k: shard_tree(tree[k], specs[k], env) for k in specs}
+    if isinstance(specs, list):
+        return [shard_tree(t, s, env) for t, s in zip(tree, specs)]
+    return np.asarray(sharding.shard(np.asarray(tree), specs, env))
 
 
 def params_from_numpy(tree: Dict[str, Any], cfg, *, device="cuda",
-                      masters: bool = False) -> Dict[str, Any]:
-    """Reference params (numpy leaves) -> the port's params on `device`,
-    in training storage when `masters`, else in serving storage.  Raises
-    if the key sets, list lengths or shapes differ from the port's
-    layout.  An encoder-decoder's `max_seq` is read off its `pos_dec`."""
+                      masters: bool = False,
+                      env: AxisEnv = LOCAL) -> Dict[str, Any]:
+    """Reference params (numpy leaves, global) -> the port's params on
+    `device` (the rank's shards over `env`'s mesh), in training storage
+    when `masters`, else in serving storage.  Raises if the key sets,
+    list lengths or shapes differ from the port's layout.  An
+    encoder-decoder's `max_seq` is read off its `pos_dec`."""
     max_seq = (np.shape(tree["pos_dec"])[0] if "pos_dec" in tree
                else 4096)
+    init = L.Init(device=torch.device("meta"), masters=masters, env=env)
     layout = M.init_model(cfg, device="meta", masters=masters,
-                          max_seq=max_seq)
+                          max_seq=max_seq, env=env, init=init)
 
     def convert(ref, spec, path):
         if isinstance(spec, dict):
@@ -47,7 +68,8 @@ def params_from_numpy(tree: Dict[str, Any], cfg, *, device="cuda",
                                f"!= port list of {len(spec)}")
             return [convert(r, t, f"{path}/{i}")
                     for i, (r, t) in enumerate(zip(ref, spec))]
-        arr = np.array(ref, dtype=np.float32)          # writable copy
+        arr = np.array(sharding.shard(np.asarray(ref), init.spec_of(spec),
+                                      env), dtype=np.float32)  # writable copy
         if arr.shape != tuple(spec.shape):
             raise ValueError(f"{path}: reference shape {arr.shape} != port "
                              f"shape {tuple(spec.shape)}")

@@ -181,6 +181,37 @@ def paged_attention_accumulate(q, k_pool, v_pool, table, mask, m_safe):
     return _pa_ungroup(num, Qn, Hp), _pa_ungroup(den, Qn, Hp)
 
 
+# ---------------------------------------------------------------------------
+# EP token exchange: the expert-parallel MoE dispatch's all-to-all
+# ---------------------------------------------------------------------------
+
+
+class _EPAllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return group.all_to_all(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        # out[dst][src] = in[src][dst] is an involution: each cotangent
+        # block travels straight back to the rank that sent the row
+        return ctx.group.all_to_all(g), None
+
+
+def ep_all_to_all(x, *, group):
+    """Expert-parallel token exchange over a mesh axis' group
+    (`launch.mesh.Group`): x (tp, cap, ...), block j this rank's payload
+    addressed to rank j -> (tp, cap, ...), block s the one rank s sent.
+    An autograd Function over `all_to_all_single` whose backward is the
+    same exchange, as the reference's custom-vjp pins it: gradient
+    blocks retrace the forward routes.  A one-rank group passes x
+    through."""
+    if group.size == 1:
+        return x
+    return _EPAllToAll.apply(x, group)
+
+
 def normhead_logits(x, w):
     """Fused NormHead (K5): x (T, d) @ normalize_rows(w (V, d)).T ->
     (T, V) fp32.  Inference only (raises where autograd would track x or

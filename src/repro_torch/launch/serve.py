@@ -50,6 +50,13 @@ modes.
         --device cpu --overload slo --slo-ttft-ms 50 --metrics-port 0 \
         --trace-out /tmp/serve_trace.json
 
+    # a (1, 2) mesh: 2 gloo ranks on the CPU, or 2 ranks on the card(s)
+    # (NCCL with a card per rank, gloo when they share one), Ling-Lite only
+    PYTHONPATH=src python -m repro_torch.launch.serve --online --smoke \
+        --device cpu --tp 2
+    PYTHONPATH=src python -m repro_torch.launch.serve --online --tp 2 \
+        --slots 8 --prefill-chunk 64 --seq 512 --prompt-len 128
+
 Offline builds a Runner with random weights (`Runner.init_params(0)`)
 and drives the FloodEngine (segment KV cache, S+1 in-flight
 micro-batches) on the sampled dense decode step (dense KV caches of
@@ -61,8 +68,12 @@ warm-up load, then reports one Poisson load per `--rates` entry: tok/s,
 TTFT and inter-token latency percentiles.  `--metrics-port` serves the
 engine's registry as a Prometheus scrape while it runs and
 `--trace-out` writes its Chrome trace (scheduler phases, slots,
-counter tracks) at the end.  The reference's `--tp` is the one flag not
-taken: multi-device is not yet ported.
+counter tracks) at the end.  `--tp` serves on a (1, tp) mesh, one
+process per rank (`launch.mesh.run_ranks`: torchrun's environment where
+it is set, else spawned ranks), every rank running the same scheduler,
+rank 0 printing; the slots, the prefill chunk and Flood's micro-batch
+must divide over tp (`quantize_microbatch`), and speculative decoding
+and the SLO gate are refused there (ROADMAP item 9).
 """
 from __future__ import annotations
 
@@ -76,11 +87,13 @@ import torch
 
 from repro_torch import api
 from repro_torch.configs.base import cut_depth, get_config, get_smoke_config
+from repro_torch.launch.mesh import run_ranks
 from repro_torch.models import model as M
 from repro_torch.serving.draft import (ConfigDrafter, SelfDrafter,
                                        adapt_drafter_config)
 from repro_torch.serving.flood import (FloodEngine, GenRequest,
-                                       baseline_step_engine)
+                                       baseline_step_engine,
+                                       quantize_microbatch)
 from repro_torch.serving.online import (OnlineConfig, OnlineEngine,
                                         run_poisson_load)
 from repro_torch.serving.segment_cache import SegmentCache
@@ -171,11 +184,23 @@ def run_flags(args) -> M.RunFlags:
                       paged_attn=args.paged_attn)
 
 
-def run_offline(cfg, args):
+def make_runner(cfg, args, mesh):
+    runner = api.Runner(cfg, flags=run_flags(args),
+                        device=mesh.device if mesh.size > 1 else args.device,
+                        mesh=mesh)
+    if mesh.size > 1:
+        print(f"[serve] {mesh.describe()}")
+    return runner
+
+
+def run_offline(cfg, args, mesh):
     """The Flood engine (or `--baseline`) over `--requests` random prompts
-    of `--prompt-len` tokens (numpy seed 0).  Returns the PipelineStats."""
-    runner = api.Runner(cfg, flags=run_flags(args), device=args.device)
+    of `--prompt-len` tokens (numpy seed 0), on micro-batches of
+    `--microbatch` rounded up to a multiple of tp.  Returns the
+    PipelineStats."""
+    runner = make_runner(cfg, args, mesh)
     params = runner.init_params(0)
+    micro = quantize_microbatch(args.microbatch, mesh.tp)
     rs = np.random.RandomState(0)
     reqs = [GenRequest(rid=i,
                        prompt=rs.randint(0, cfg.vocab_size,
@@ -183,7 +208,7 @@ def run_offline(cfg, args):
                        max_new=args.max_new)
             for i in range(args.requests)]
     embed_fn, stage_fns, head_fn = build_model_engine(
-        runner, params, args.stages, args.microbatch, args.seq,
+        runner, params, args.stages, micro, args.seq,
         temperature=args.temperature, top_p=args.top_p, top_k=args.top_k,
         seed=args.seed)
     if args.baseline:
@@ -193,7 +218,7 @@ def run_offline(cfg, args):
                           cache=SegmentCache(max_tokens=1 << 16,
                                              initial_segment=32,
                                              extend_chunk=32),
-                          microbatch=args.microbatch)
+                          microbatch=micro, batch_multiple=mesh.tp)
         eng.submit(reqs)
         stats = eng.run()
         print("cache stats:", eng.cache.stats)
@@ -202,10 +227,10 @@ def run_offline(cfg, args):
     return stats
 
 
-def run_online(cfg, args) -> list:
+def run_online(cfg, args, mesh) -> list:
     """Online continuous batching under a Poisson load at each rate;
     returns the load reports."""
-    runner = api.Runner(cfg, flags=run_flags(args), device=args.device)
+    runner = make_runner(cfg, args, mesh)
     params = runner.init_params(0)
     budgets = parse_tenant_budgets(args.tenant_budgets)
     slo = None
@@ -257,7 +282,7 @@ def run_online(cfg, args) -> list:
         if rep["slo"] is not None:
             print(f"[online] slo {rep['slo']}")
         reports.append(rep)
-    if args.report:
+    if args.report and mesh.rank == 0:
         with open(args.report, "w") as f:
             json.dump({"bench": "online continuous-batching serving (paged "
                                 "KV), PyTorch port",
@@ -274,7 +299,7 @@ def run_online(cfg, args) -> list:
                                   if k not in ("prompts", "outputs")}
                                  for r in reports]}, f, indent=1)
         print(f"[online] report -> {args.report}")
-    if args.trace_out:
+    if args.trace_out and mesh.rank == 0:
         n = write_chrome_trace(args.trace_out, timer=eng.timer,
                                request_log=eng.rlog, registry=eng.registry)
         print(f"[online] trace ({n} events) -> {args.trace_out} "
@@ -387,7 +412,11 @@ def main(argv=None):
     ap.add_argument("--moe-dispatch", default="auto",
                     choices=["auto", "fused", "ragged", "ep"],
                     help="MoE dispatch: fused (K1) or the plain ragged "
-                         "composition; 'ep' is 'fused' at tp=1")
+                         "composition; 'ep' is 'fused' at tp=1 and the one "
+                         "mode at tp > 1 (the expert-parallel all-to-all, "
+                         "K1 on each shard)")
+    ap.add_argument("--tp", type=int, default=1,
+                    help="serve on a (1, tp) mesh, one process per rank")
     ap.add_argument("--paged-attn", default="auto",
                     choices=["auto", "fused", "gathered"],
                     help="paged and dense attention: 'fused' (K3/K4, the "
@@ -397,9 +426,19 @@ def main(argv=None):
     args = ap.parse_args(argv)
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     cfg = cut_depth(cfg, args.layers)
+    if args.tp < 1:
+        ap.error("--tp takes a size >= 1")
+    if args.tp > 1 and cfg.arch_id not in M.MESH_ARCHS:
+        ap.error(f"{args.arch} on a (1, {args.tp}) mesh is not yet ported "
+                 f"(ROADMAP item 9)")
+    return run_ranks(serve_rank, 1, args.tp, args.device, cfg, args)
+
+
+def serve_rank(mesh, cfg, args):
+    """One rank's run (the whole run at tp=1)."""
     if args.online:
-        return run_online(cfg, args)
-    return run_offline(cfg, args)
+        return run_online(cfg, args, mesh)
+    return run_offline(cfg, args, mesh)
 
 
 if __name__ == "__main__":

@@ -23,7 +23,18 @@
     PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \
         --arch recurrentgemma-2b --steps 4 --batch 2 --seq 32
 
-Builds a Runner at tp=1, the synthetic `DataPipeline`, and the `Trainer`
+    # a (dp=2, tp=2) mesh of 4 gloo ranks on the CPU (Ling-Lite only)
+    PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \
+        --dp 2 --tp 2 --steps 2
+
+    # 2 ranks on the card(s): NCCL with a card per rank, gloo when they
+    # share one; or one process per rank under torchrun
+    PYTHONPATH=src python -m repro_torch.launch.train --dp 2 --steps 4 \
+        --batch 2 --seq 1024
+    PYTHONPATH=src torchrun --nproc-per-node 2 -m \
+        repro_torch.launch.train --tp 2 --steps 4 --batch 2 --seq 1024
+
+Builds a Runner, the synthetic `DataPipeline`, and the `Trainer`
 (AdamW + WSD schedule + accumulation or batch-size warmup + the device
 spike guard, PCache checkpoints), trains from fp32 masters drawn from
 `torch.Generator(device).manual_seed(0)` or resumes from the newest
@@ -32,10 +43,13 @@ the run's Chrome trace (the trainer's spans and the registry's series).
 `--edit-workers K` runs EDiT instead (`core.edit.EDiTTrainer`, as the
 reference's launcher: K workers one after the other on the device,
 `sync_every` 4, `max(1, steps // 4)` rounds, a constant `--lr`) and
-prints each round's record.  The reference's multi-device flags are
-accepted and refused: those paths are not yet ported.  An
-encoder-decoder (whisper-tiny) is refused: the synthetic pipeline feeds
-no encoder frames, so it trains through `api.Runner` alone.
+prints each round's record.  `--dp` / `--tp` train on a (dp, tp) mesh,
+one process per rank (`launch.mesh.run_ranks`: torchrun's environment
+where it is set, else spawned ranks), every rank over the same seeded
+pipeline, rank 0 printing; EDiT and checkpoints are refused there
+(ROADMAP item 9).  An encoder-decoder (whisper-tiny) is refused: the
+synthetic pipeline feeds no encoder frames, so it trains through
+`api.Runner` alone.
 """
 from __future__ import annotations
 
@@ -49,14 +63,13 @@ from repro_torch.configs.base import get_config, get_smoke_config
 from repro_torch.core import spikes as spikes_lib
 from repro_torch.core.edit import EDiTConfig, EDiTTrainer
 from repro_torch.data.pipeline import DataPipeline, PipelineConfig
+from repro_torch.launch.mesh import run_ranks
 from repro_torch.models import model as M
 from repro_torch.models import prng
 from repro_torch.optim import adamw
 from repro_torch.optim.schedule import AccumWarmup, WSDSchedule
 from repro_torch.telemetry import write_chrome_trace
 from repro_torch.training.trainer import TrainConfig, Trainer
-
-NOT_PORTED = ("dp", "tp")
 
 
 def main(argv=None):
@@ -75,10 +88,14 @@ def main(argv=None):
                          "accumulation dim: global batch grows START->END "
                          "sequences over STEPS steps while the microbatch "
                          "stays --batch; overrides --accum")
+    ap.add_argument("--dp", type=int, default=1)
+    ap.add_argument("--tp", type=int, default=1)
     ap.add_argument("--moe-dispatch", default="auto",
-                    choices=["auto", "fused", "ragged"],
+                    choices=["auto", "fused", "ragged", "ep"],
                     help="MoE dispatch: fused (K1 forward, K2 backward) or "
-                         "the plain ragged composition")
+                         "the plain ragged composition at tp=1; 'ep' (the "
+                         "expert-parallel all-to-all, K1 and K2 on each "
+                         "shard) at tp > 1")
     ap.add_argument("--spike-gnorm-sigma", type=float, default=None,
                     metavar="SIGMA",
                     help="also key the device spike guard on the grad norm "
@@ -93,20 +110,18 @@ def main(argv=None):
                          "--checkpoint-dir")
     ap.add_argument("--edit-workers", type=int, default=0,
                     help=">0 runs EDiT local-SGD with K workers")
-    # the reference's flags for paths that are not yet ported
-    ap.add_argument("--dp", type=int, default=None)
-    ap.add_argument("--tp", type=int, default=None)
     ap.add_argument("--trace-out", default=None,
                     help="write a Chrome trace-event JSON of the run "
                          "(XPUTimer spans + registry series), viewable at "
                          "https://ui.perfetto.dev")
     args = ap.parse_args(argv)
 
-    for name in NOT_PORTED:
-        v = getattr(args, name)
-        if v and v != 1:
-            ap.error(f"--{name.replace('_', '-')} is not yet ported to "
-                     f"repro_torch (tp=1, one device)")
+    if args.dp < 1 or args.tp < 1:
+        ap.error("--dp and --tp take sizes >= 1")
+    if args.dp * args.tp > 1 and (args.edit_workers > 0
+                                  or args.checkpoint_dir):
+        ap.error("EDiT's pod axis and sharded checkpoints on a mesh are not "
+                 "yet ported (ROADMAP item 9)")
     if args.resume and not args.checkpoint_dir:
         ap.error("--resume needs --checkpoint-dir")
     bs_warmup = None
@@ -126,8 +141,21 @@ def main(argv=None):
                  f"pipeline feeds no encoder frames (as the reference's); "
                  f"train it through api.Runner.make_train_step with "
                  f"batch['enc_frames']")
+    if args.dp * args.tp > 1 and cfg.arch_id not in M.MESH_ARCHS:
+        ap.error(f"{args.arch} on a (dp={args.dp}, tp={args.tp}) mesh is "
+                 f"not yet ported (ROADMAP item 9)")
+    run_ranks(train_rank, args.dp, args.tp, args.device, args, cfg,
+              bs_warmup)
+
+
+def train_rank(mesh, args, cfg, bs_warmup):
+    """One rank's run (the whole run at (1, 1)): the Runner on `mesh`, the
+    pipeline, the Trainer or EDiT, the report and the final loss."""
     runner = api.Runner(cfg, flags=M.RunFlags(moe_dispatch=args.moe_dispatch),
-                        device=args.device)
+                        device=mesh.device if mesh.size > 1 else args.device,
+                        mesh=mesh)
+    if mesh.size > 1:
+        print(f"[train] {mesh.describe()}")
     pipe = DataPipeline(PipelineConfig(vocab_size=cfg.vocab_size,
                                        seq_len=args.seq,
                                        batch_size=args.batch))
@@ -137,7 +165,7 @@ def main(argv=None):
         history = run_edit(args, runner, pipe, spike_cfg)
     else:
         history = run_trainer(args, runner, pipe, spike_cfg, bs_warmup)
-    if args.report:
+    if args.report and mesh.rank == 0:
         with open(args.report, "w") as f:
             json.dump(history, f, indent=1)
     if history:

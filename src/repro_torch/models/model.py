@@ -1,4 +1,4 @@
-"""Model assembly at tp=1 (counterpart of `repro.models.model`):
+"""Model assembly (counterpart of `repro.models.model`):
 parameter init; the forward (training, and the prefill with caches) and
 the loss (`forward`, `loss_fn`); dense decode caches and the `prefill` /
 `decode_step`; paged KV pools and the fixed shape serving steps of
@@ -22,6 +22,16 @@ per-layer trees (`blocks`, and `enc_blocks`).  A Python loop over layers
 replaces `lax.scan`.  The dense caches take the same layout (a leading
 layer dim, or a list) and the KV pools a leading layer dim; all are
 updated in place.
+
+Over a (dp, tp) mesh (`env`, a `sharding.AxisEnv`; default one rank)
+every function sees the rank's shards: `init_model` cuts each leaf of
+the same global parameters by its spec (`param_specs`), the training
+blocks gather their sequence-parallel inputs over tp and reduce-scatter
+their partial outputs back (`env.sp_gather` / `env.sp_scatter`), the
+loss is the vocab-sharded cross entropy summed over dp, and the serving
+steps keep activations replicated over tp (`sharding.denv`) and psum
+each block's partial outputs.  At dp * tp > 1 only Ling-Lite's blocks
+run (`check_mesh_support`).
 """
 from __future__ import annotations
 
@@ -33,6 +43,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import sharding
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import router as router_lib
 from repro_torch.core import moe as moe_lib
@@ -41,6 +52,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import prng
 from repro_torch.models import rglru as rglru_lib
 from repro_torch.models import rwkv6 as rwkv_lib
+from repro_torch.sharding import LOCAL, AxisEnv
 
 BLOCK_KINDS = ("attn", "swa", "rwkv", "rglru")
 
@@ -48,7 +60,8 @@ BLOCK_KINDS = ("attn", "swa", "rwkv", "rglru")
 @dataclasses.dataclass(frozen=True)
 class RunFlags:
     """Run knobs, with the reference's defaults.  moe_dispatch: "auto" |
-    "fused" | "ragged" ("auto" is the K1/K2 kernel path).  paged_attn:
+    "fused" | "ragged" | "ep" ("auto" is the K1/K2 kernel path: "fused"
+    at tp=1, "ep" at tp > 1).  paged_attn:
     "auto" | "fused" | "gathered" ("auto" is the K3/K4 kernel path).  On
     CPU tensors the kernel paths run their plain versions.  Training:
     `remat` recomputes each block and each loss chunk in the backward
@@ -93,6 +106,20 @@ def check_ported_blocks(cfg: ModelConfig):
                          f"(known: {list(BLOCK_KINDS)})")
 
 
+# the architectures held at dp * tp > 1 (ROADMAP item 9 lists the rest)
+MESH_ARCHS = ("ling-lite",)
+
+
+def check_mesh_support(cfg: ModelConfig, env: AxisEnv):
+    """Raises NotImplementedError for an architecture the port does not
+    run over a mesh of more than one rank."""
+    if env.dp * env.tp > 1 and cfg.arch_id not in MESH_ARCHS:
+        raise NotImplementedError(
+            f"{cfg.arch_id} on a (dp={env.dp}, tp={env.tp}) mesh is not "
+            f"yet ported (ROADMAP item 9: {', '.join(MESH_ARCHS)} runs "
+            f"over more than one rank)")
+
+
 def init_block(cfg: ModelConfig, init: L.Init, kind: str, ffn: str,
                cross: bool = False) -> Dict[str, Any]:
     params: Dict[str, Any] = {"norm1": L.init_norm(cfg, init)}
@@ -119,7 +146,9 @@ def init_block(cfg: ModelConfig, init: L.Init, kind: str, ffn: str,
 
 def init_model(cfg: ModelConfig, *, device="cuda",
                generator: Optional[torch.Generator] = None,
-               masters: bool = False, max_seq: int = 4096) -> Dict[str, Any]:
+               masters: bool = False, max_seq: int = 4096,
+               env: AxisEnv = LOCAL, init: Optional[L.Init] = None
+               ) -> Dict[str, Any]:
     """Random parameters with the reference's shapes and scales
     (`layers.dense_init`: normal * 0.02, output projections * 0.02 /
     sqrt(n_layers), norms at 1 (and 0 for LayerNorm's bias)), drawn on
@@ -130,10 +159,15 @@ def init_model(cfg: ModelConfig, *, device="cuda",
     stay fp32 (rwkv6.py and rglru.py say which of their leaves stay
     fp32).  An encoder-decoder also has learned positions: `pos_enc`
     (encoder_seq_len, d) and `pos_dec` (max_seq, d).  On the meta device
-    only shapes are built."""
+    only shapes are built.  Over a mesh (`env`) each rank gets its shards
+    of the same global parameters: every leaf is drawn whole and cut by
+    its spec (`L.Init`).  `init`, where given, is the factory to use
+    (`param_specs` reads the specs it records)."""
     check_ported_blocks(cfg)
+    check_mesh_support(cfg, env)
     device = torch.device(device)
-    init = L.Init(device=device, generator=generator, masters=masters)
+    init = init or L.Init(device=device, generator=generator,
+                          masters=masters, env=env)
     params: Dict[str, Any] = {"embed": emb.init_embedding(cfg, init),
                               "final_norm": L.init_norm(cfg, init)}
     if cfg.is_encoder_decoder:
@@ -155,6 +189,24 @@ def init_model(cfg: ModelConfig, *, device="cuda",
                                        _ffn_kind(cfg, i))
                             for i in range(cfg.n_layers)]
     return params
+
+
+def param_specs(cfg: ModelConfig, env: AxisEnv = LOCAL,
+                max_seq: int = 4096):
+    """The spec tree of `init_model`'s parameters over `env`'s mesh (a
+    `sharding.P` per leaf, the stacked layer dim whole), in the same
+    layout."""
+    init = L.Init(device=torch.device("meta"), env=env)
+    params = init_model(cfg, device="meta", max_seq=max_seq, env=env,
+                        init=init)
+
+    def spec(t):
+        if isinstance(t, dict):
+            return {k: spec(v) for k, v in t.items()}
+        if isinstance(t, list):
+            return [spec(v) for v in t]
+        return init.spec_of(t)
+    return spec(params)
 
 
 def layer_params(blocks, i: int):
@@ -183,13 +235,16 @@ def choose_block(s: int, target: int = 1024) -> int:
     return max(b for b in range(1, target + 1) if s % b == 0)
 
 
-def warmup_noise(cfg: ModelConfig, rng, step, T: int):
+def warmup_noise(cfg: ModelConfig, rng, step, T: int,
+                 env: AxisEnv = LOCAL):
     """Each layer's router-warmup noise for T tokens, as the reference
     draws it: layer i's eps is `normal(key_i, (T, n_experts))` with the
     layer keys `split(rng, n_layers)` (stacked blocks) or `fold_in(rng,
-    i)` (a list), all layers in one draw: (L, T, E) fp32.  None where no
-    warmup mix applies (no rng, no MoE, no warmup, or step past it, where
-    alpha = 1 gives the learned logits whatever eps is)."""
+    i)` (a list), all layers in one draw: (L, T, E) fp32.  Over tp (the
+    "ep" dispatch) rank r routes T / tp owned tokens under key_i folded
+    with r.  None where no warmup mix applies (no rng, no MoE, no warmup,
+    or step past it, where alpha = 1 gives the learned logits whatever
+    eps is)."""
     m = cfg.moe
     if (rng is None or m is None or m.router_warmup_steps <= 0
             or step is None or step >= m.router_warmup_steps):
@@ -201,6 +256,9 @@ def warmup_noise(cfg: ModelConfig, rng, step, T: int):
     else:
         keys = torch.stack([prng.fold_in(rng, i)
                             for i in range(cfg.n_layers)])
+    if env.tp > 1:
+        keys = prng.fold_in(keys, env.tp_index())
+        T = T // env.tp
     return router_lib.warmup_noise(keys, (T, m.n_experts))
 
 
@@ -226,9 +284,12 @@ def _rwkv_block(cfg: ModelConfig, params, x, *, B: int, S: int,
 def block_forward(cfg: ModelConfig, params, x, eps, *, B: int, S: int,
                   kind: str, ffn: str, step=None, train: bool = True,
                   flags: RunFlags = DEFAULT_FLAGS, want_cache: bool = False,
-                  causal: bool = True, enc_out=None):
+                  causal: bool = True, enc_out=None, env: AxisEnv = LOCAL):
     """One block: x (T, d) -> (x, aux, metrics, cache or None).  eps
-    (T, E) is the layer's router-warmup noise, or None.  Every kind runs
+    (T, E) is the layer's router-warmup noise, or None.  Over tp x is the
+    rank's sequence-parallel slice (T / tp, d): each sublayer gathers its
+    normed input (`env.sp_gather`) and reduce-scatters its partial output
+    (`env.sp_scatter`).  Every kind runs
     for training and, with `train=False`, for inference (the MoE on the
     serving router; rwkv: K6 and the decay kernel), where `want_cache`
     returns the layer's decode cache: {"self": {"k", "v"}} ("attn",
@@ -243,17 +304,18 @@ def block_forward(cfg: ModelConfig, params, x, eps, *, B: int, S: int,
         return x, zero, {}, (cache if want_cache else None)
     d = cfg.d_model
     cache = {}
-    h = L.apply_norm(cfg, params["norm1"], x).reshape(B, S, d)
+    h = env.sp_gather(L.apply_norm(cfg, params["norm1"], x, env)) \
+        .reshape(B, S, d)
     if kind == "rglru":
         partial, cache["rglru"] = rglru_lib.recurrent_block(
             cfg, params["rec"], h)
     else:
         partial = L.apply_attention(cfg, params["attn"], h, causal=causal,
                                     window=_window(cfg, kind),
-                                    return_cache=want_cache)
+                                    return_cache=want_cache, env=env)
         if want_cache:
             partial, cache["self"] = partial
-    x = x + partial.reshape(B * S, d)
+    x = x + env.sp_scatter(partial.reshape(B * S, d))
     if "xattn" in params:
         h = L.apply_norm(cfg, params["norm_x"], x).reshape(B, S, d)
         partial = L.apply_attention(cfg, params["xattn"], h, causal=False,
@@ -262,18 +324,20 @@ def block_forward(cfg: ModelConfig, params, x, eps, *, B: int, S: int,
         if want_cache:
             partial, cache["cross"] = partial
         x = x + partial.reshape(B * S, d)
-    h = L.apply_norm(cfg, params["norm2"], x)
+    h = env.sp_gather(L.apply_norm(cfg, params["norm2"], x, env))
     aux, metrics = zero, {}
     if ffn == "moe" and train:
         partial, aux, metrics = moe_lib.moe_ffn(
             cfg, params["moe"], h, dispatch=flags.moe_dispatch, train=True,
-            step=step, eps=eps)
+            step=step, eps=eps, env=env)
     elif ffn == "moe":
         partial, metrics = moe_lib.moe_ffn(cfg, params["moe"], h,
-                                           dispatch=flags.moe_dispatch)
+                                           dispatch=flags.moe_dispatch,
+                                           env=env)
     else:
-        partial = L.apply_mlp(cfg, params["mlp"], h)
-    return x + partial, aux, metrics, (cache if want_cache else None)
+        partial = L.apply_mlp(cfg, params["mlp"], h, env=env)
+    return (x + env.sp_scatter(partial), aux, metrics,
+            (cache if want_cache else None))
 
 
 def _stack(trees):
@@ -285,14 +349,14 @@ def _stack(trees):
 
 def _run_blocks(cfg: ModelConfig, params, x, *, B: int, S: int, step,
                 rng, train: bool, flags: RunFlags, want_cache: bool,
-                enc_out=None):
+                enc_out=None, env: AxisEnv = LOCAL):
     """The layer loop.  In training with `flags.remat` every block runs
     under torch.utils.checkpoint and is recomputed in the backward.  The
     warmup noise (`warmup_noise`) is drawn here, outside the checkpointed
     blocks, so the recompute routes as the forward did.  Returns (x, aux
     summed over layers, metrics averaged over the layers that report
     them, caches in `init_caches`' layout or None)."""
-    noise = warmup_noise(cfg, rng, step, x.shape[0]) if train else None
+    noise = warmup_noise(cfg, rng, step, B * S, env) if train else None
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     metrics_all, caches = [], []
     for i in range(cfg.n_layers):
@@ -301,7 +365,8 @@ def _run_blocks(cfg: ModelConfig, params, x, *, B: int, S: int, step,
                                kind=cfg.block_kind(i),
                                ffn=_layer_ffn(cfg, i), step=step,
                                train=train, flags=flags,
-                               want_cache=want_cache, enc_out=enc_out)
+                               want_cache=want_cache, enc_out=enc_out,
+                               env=env)
         lp = layer_params(params["blocks"], i)
         if flags.remat and train:
             x, a, mets, cache = checkpoint(fn, lp, x, eps,
@@ -339,8 +404,9 @@ def encode(cfg: ModelConfig, params, frames, flags: RunFlags = DEFAULT_FLAGS):
 
 def forward(cfg: ModelConfig, params, batch, *, step=None, rng=None,
             train: bool = True, flags: RunFlags = DEFAULT_FLAGS,
-            want_cache: bool = False):
-    """batch["tokens"] (B, S) -> (x_final (T, d), aux, metrics, caches);
+            want_cache: bool = False, env: AxisEnv = LOCAL):
+    """batch["tokens"] (B, S) (the rank's rows over dp) -> (x_final (T, d),
+    gathered over tp, aux, metrics, caches);
     an encoder-decoder also reads batch["enc_frames"] (B, S_enc, d).
     `rng`, a threefry key (`models.prng`), draws the router-warmup noise
     (`warmup_noise`); None draws none.  With `want_cache` (inference)
@@ -350,50 +416,45 @@ def forward(cfg: ModelConfig, params, batch, *, step=None, rng=None,
     tokens = batch["tokens"]
     B, S = tokens.shape
     enc_out = None
-    x = emb.embed_tokens(cfg, params["embed"], tokens.reshape(-1))
+    x = emb.embed_tokens(cfg, params["embed"], tokens.reshape(-1), env)
     if cfg.is_encoder_decoder:
         enc_out = encode(cfg, params, batch["enc_frames"], flags)
         x = x + params["pos_dec"].to(x.dtype)[:S].repeat(B, 1)
     x, aux, metrics, caches = _run_blocks(
         cfg, params, x, B=B, S=S, step=step, rng=rng, train=train,
-        flags=flags, want_cache=want_cache, enc_out=enc_out)
-    return L.apply_norm(cfg, params["final_norm"], x), aux, metrics, caches
+        flags=flags, want_cache=want_cache, enc_out=enc_out, env=env)
+    x = env.sp_gather(L.apply_norm(cfg, params["final_norm"], x, env))
+    return x, aux, metrics, caches
 
 
-def _chunk_xent(cfg: ModelConfig, embed, xc, lc):
-    """Summed cross entropy of one token chunk over valid labels (>= 0);
-    the logits of vocab padding rows are -1e30."""
-    logits = emb.lm_logits(cfg, embed, xc)                # (C, Vp) fp32
-    vp = logits.shape[-1]
-    gid = torch.arange(vp, device=xc.device)
-    logits = torch.where(gid[None, :] < cfg.vocab_size, logits, -1e30)
-    m = torch.max(logits, dim=-1).values.detach()
-    lse = m + torch.log(torch.sum(torch.exp(logits - m[:, None]), dim=-1))
-    in_range = (lc >= 0) & (lc < vp)
-    picked = torch.gather(logits, 1, lc.clamp(0, vp - 1)[:, None])[:, 0]
-    correct = torch.where(in_range, picked, 0.0)
-    return torch.sum(torch.where(lc >= 0, lse - correct, 0.0))
+def _chunk_xent(cfg: ModelConfig, embed, xc, lc, env: AxisEnv = LOCAL):
+    """Summed cross entropy of one token chunk over valid labels (>= 0),
+    over the tp-sharded vocab (`embedding.token_xent`)."""
+    return torch.sum(emb.token_xent(cfg, emb.lm_logits(cfg, embed, xc, env),
+                                    lc, env))
 
 
 def loss_fn(cfg: ModelConfig, params, batch, *, step=None, rng=None,
-            flags: RunFlags = DEFAULT_FLAGS):
+            flags: RunFlags = DEFAULT_FLAGS, env: AxisEnv = LOCAL):
     """Training loss: chunked NormHead cross entropy + MoE aux losses.
     Each chunk of `flags.loss_chunk` tokens is checkpointed under
     `flags.remat`, so its (chunk, V) fp32 logits live only inside it.
-    Returns (loss, metrics)."""
+    Over dp the sums of the losses and of the valid labels are taken over
+    every rank's rows.  Returns (loss, metrics)."""
     x, aux, block_metrics, _ = forward(cfg, params, batch, step=step,
-                                       rng=rng, flags=flags)
+                                       rng=rng, flags=flags, env=env)
     labels = batch["labels"].reshape(-1)
     T = x.shape[0]
     chunk = choose_block(T, flags.loss_chunk)
     total = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(0, T, chunk):
-        args = (cfg, params["embed"], x[i:i + chunk], labels[i:i + chunk])
+        args = (cfg, params["embed"], x[i:i + chunk], labels[i:i + chunk],
+                env)
         total = total + (checkpoint(_chunk_xent, *args, use_reentrant=False,
                                     preserve_rng_state=False)
                          if flags.remat else _chunk_xent(*args))
-    n_valid = torch.sum((labels >= 0).float())
-    ce = total / torch.clamp(n_valid, min=1.0)
+    n_valid = env.psum_dp(torch.sum((labels >= 0).float()))
+    ce = env.psum_dp(total) / torch.clamp(n_valid, min=1.0)
     return ce + aux, {"loss/ce": ce, "loss/aux": aux, **block_metrics}
 
 
@@ -402,7 +463,7 @@ def loss_fn(cfg: ModelConfig, params, batch, *, step=None, rng=None,
 
 def init_block_cache(cfg: ModelConfig, kind: str, batch: int, device,
                      seq_len: Optional[int] = None,
-                     lead=()) -> Dict[str, Any]:
+                     lead=(), env: AxisEnv = LOCAL) -> Dict[str, Any]:
     """One layer's zeroed decode cache: for "attn" / "swa" the KV cache of
     `seq_len` positions (a rolling cache of min(window, seq_len) for
     "swa"; {"self": {"k", "v"}}, `layers.init_decode_cache`, with the
@@ -418,7 +479,7 @@ def init_block_cache(cfg: ModelConfig, kind: str, batch: int, device,
                              "seq_len")
         cache["self"] = L.init_decode_cache(cfg, batch, seq_len, device,
                                             window=_window(cfg, kind),
-                                            lead=lead)
+                                            lead=lead, env=env)
     elif kind == "rglru":
         cache["rglru"] = rglru_lib.init_decode_state(cfg, batch, device)
     else:
@@ -433,12 +494,14 @@ def init_block_cache(cfg: ModelConfig, kind: str, batch: int, device,
 
 
 def init_caches(cfg: ModelConfig, batch: int, device,
-                seq_len: Optional[int] = None):
+                seq_len: Optional[int] = None, env: AxisEnv = LOCAL):
     """Zeroed dense decode caches: a leading layer dim (`stacked`) or a
     list of per-layer caches.  `seq_len` is the KV caches' length
-    (attention layers), ignored by recurrent ones; an encoder-decoder's
-    cross caches hold `cfg.encoder_seq_len` positions."""
+    (attention layers; over tp each rank holds seq_len / tp of the
+    positions), ignored by recurrent ones; an encoder-decoder's cross
+    caches hold `cfg.encoder_seq_len` positions."""
     check_ported_blocks(cfg)
+    check_mesh_support(cfg, env)
     if not stacked(cfg):
         return [init_block_cache(cfg, cfg.block_kind(i), batch, device,
                                  seq_len)
@@ -446,7 +509,7 @@ def init_caches(cfg: ModelConfig, batch: int, device,
     kind = cfg.block_pattern[0]
     if kind in ("attn", "swa"):   # views of padded storage: not a stack
         return init_block_cache(cfg, kind, batch, device, seq_len,
-                                lead=(cfg.n_layers,))
+                                lead=(cfg.n_layers,), env=env)
     one = init_block_cache(cfg, kind, batch, device, seq_len)
     return _stack([one] * cfg.n_layers)
 
@@ -454,28 +517,33 @@ def init_caches(cfg: ModelConfig, batch: int, device,
 class TickViews:
     """The page views (`layers.dense_page_view`) of one decode tick, one
     per cache length and kind, built on first use: the layers of one
-    length share it."""
+    length share it.  S is the rank's positions, offset by r*S over
+    tp."""
 
-    def __init__(self, batch: int, pos, device):
+    def __init__(self, batch: int, pos, device, env: AxisEnv = LOCAL):
         self.batch, self.pos, self.device = batch, pos, device
+        self.env = env
         self._views = {}
 
     def __call__(self, S: int, cross: bool = False):
         key = (S, cross)
         if key not in self._views:
+            tp = self.env.tp
             self._views[key] = L.dense_page_view(
-                self.batch, S, S - 1 if cross else self.pos, self.device)
+                self.batch, S, S * tp - 1 if cross else self.pos,
+                self.device, offset=self.env.tp_index() * S)
         return self._views[key]
 
 
 def block_decode(cfg: ModelConfig, params, x, cache, pos=None, *, kind: str,
                  ffn: str = "moe", flags: RunFlags = DEFAULT_FLAGS,
-                 views: Optional[TickViews] = None):
-    """One layer of the decode tick: x (B, d); `cache` the layer's cache
-    (views into stacked caches, or a list's entry), updated in place;
-    `pos` the position every sequence writes (attention; the recurrent
-    kinds carry it in their state) and `views` the tick's page views of
-    the KV caches.  Returns (x, cache)."""
+                 views: Optional[TickViews] = None, env: AxisEnv = LOCAL):
+    """One layer of the decode tick: x (B, d) (replicated over tp);
+    `cache` the layer's cache (views into stacked caches, or a list's
+    entry), updated in place; `pos` the position every sequence writes
+    (attention; the recurrent kinds carry it in their state) and `views`
+    the tick's page views of the KV caches.  Partial sublayer outputs are
+    summed over tp.  Returns (x, cache)."""
     if kind == "rwkv":
         h = L.apply_norm(cfg, params["norm1"], x)
         partial, _ = rwkv_lib.time_mix_decode(cfg, params["tmix"], h,
@@ -486,8 +554,8 @@ def block_decode(cfg: ModelConfig, params, x, cache, pos=None, *, kind: str,
                                              cache["cmix_prev"])
         cache["cmix_prev"].copy_(h)
         return x + gate * partial, cache
-    views = views or TickViews(x.shape[0], pos, x.device)
-    h = L.apply_norm(cfg, params["norm1"], x)
+    views = views or TickViews(x.shape[0], pos, x.device, env)
+    h = L.apply_norm(cfg, params["norm1"], x, env)
     if kind == "rglru":
         partial = rglru_lib.decode_step(cfg, params["rec"], h,
                                         cache["rglru"])
@@ -495,8 +563,8 @@ def block_decode(cfg: ModelConfig, params, x, cache, pos=None, *, kind: str,
         partial, _ = L.decode_attention(
             cfg, params["attn"], h, cache["self"], pos,
             window=_window(cfg, kind), paged_attn=flags.paged_attn,
-            view=views(cache["self"]["k"].shape[1]))
-    x = x + partial
+            view=views(cache["self"]["k"].shape[1]), env=env)
+    x = x + env.psum_tp(partial)
     if "xattn" in params:
         h = L.apply_norm(cfg, params["norm_x"], x)
         partial, _ = L.decode_attention(
@@ -504,19 +572,20 @@ def block_decode(cfg: ModelConfig, params, x, cache, pos=None, *, kind: str,
             paged_attn=flags.paged_attn,
             view=views(cache["cross"]["k"].shape[1], cross=True))
         x = x + partial
-    return _block_ffn(cfg, params, x, ffn, flags), cache
+    return _block_ffn(cfg, params, x, ffn, flags, env), cache
 
 
 def _expand_layer_cache(cfg: ModelConfig, cache, kind: str,
-                        seq_len: Optional[int]):
+                        seq_len: Optional[int], env: AxisEnv = LOCAL):
     """A layer's prefill cache laid out for the ticks
     (`layers.expand_cache_from_prefill`): the self-attention cache at
-    seq_len (a rolling window's at min(window, seq_len)), the cross cache
-    at its own length; recurrent state as it is."""
+    seq_len (a rolling window's at min(window, seq_len); over tp the
+    rank's positions), the cross cache at its own length; recurrent state
+    as it is."""
     out = dict(cache)
     if "self" in cache:
         out["self"] = L.expand_cache_from_prefill(cache["self"], seq_len,
-                                                  _window(cfg, kind))
+                                                  _window(cfg, kind), env)
     if "cross" in cache:
         out["cross"] = L.expand_cache_from_prefill(cache["cross"])
     return out
@@ -524,31 +593,32 @@ def _expand_layer_cache(cfg: ModelConfig, cache, kind: str,
 
 def prefill_logits(cfg: ModelConfig, params, batch,
                    flags: RunFlags = DEFAULT_FLAGS,
-                   seq_len: Optional[int] = None):
+                   seq_len: Optional[int] = None, env: AxisEnv = LOCAL):
     """The prompt batch ["tokens"] (B, S) (and ["enc_frames"] for an
-    encoder-decoder) -> (logits (B, Vp) fp32 at each sequence's last
-    token, caches).  Attention caches hold the prompt's S positions, or
-    `seq_len` (zero rows after the prompt's) when given; a sliding
-    window's, min(window, that); a prompt longer than the window
-    raises."""
+    encoder-decoder) -> (logits (B, V_loc) fp32 at each sequence's last
+    token, the rank's vocab rows, caches).  Attention caches hold the
+    prompt's S positions, or `seq_len` (zero rows after the prompt's)
+    when given (over tp the rank's share); a sliding window's,
+    min(window, that); a prompt longer than the window raises."""
     x, _, _, caches = forward(cfg, params, batch, train=False, flags=flags,
-                              want_cache=True)
+                              want_cache=True, env=env)
     if stacked(cfg):
         caches = _expand_layer_cache(cfg, caches, cfg.block_pattern[0],
-                                     seq_len)
+                                     seq_len, env)
     else:
         caches = [_expand_layer_cache(cfg, c, cfg.block_kind(i), seq_len)
                   for i, c in enumerate(caches)]
     B, S = batch["tokens"].shape
     last = x.reshape(B, S, -1)[:, -1]
-    return emb.serve_logits(cfg, params["embed"], last), caches
+    return emb.serve_logits(cfg, params["embed"], last, env), caches
 
 
 def prefill(cfg: ModelConfig, params, batch,
-            flags: RunFlags = DEFAULT_FLAGS, seq_len: Optional[int] = None):
+            flags: RunFlags = DEFAULT_FLAGS, seq_len: Optional[int] = None,
+            env: AxisEnv = LOCAL):
     """Greedy prefill: (first generated token (B,) int32, caches)."""
-    logits, caches = prefill_logits(cfg, params, batch, flags, seq_len)
-    return emb.sharded_argmax(logits).to(torch.int32), caches
+    logits, caches = prefill_logits(cfg, params, batch, flags, seq_len, env)
+    return emb.sharded_argmax(logits, env).to(torch.int32), caches
 
 
 def _attends(cfg: ModelConfig) -> bool:
@@ -557,12 +627,13 @@ def _attends(cfg: ModelConfig) -> bool:
 
 
 def decode_logits(cfg: ModelConfig, params, caches, token, pos=None,
-                  flags: RunFlags = DEFAULT_FLAGS):
-    """One token per sequence -> (logits (B, Vp) fp32, caches); the
+                  flags: RunFlags = DEFAULT_FLAGS, env: AxisEnv = LOCAL):
+    """One token per sequence -> (logits (B, V_loc) fp32, caches); the
     caches update in place.  Attention models read `pos`, the position
     every sequence writes (an int); an encoder-decoder adds its learned
     position `pos_dec[pos]` to the embedding."""
-    x = emb.embed_tokens(cfg, params["embed"], token)          # (B, d)
+    env = sharding.denv(env)
+    x = emb.embed_tokens(cfg, params["embed"], token, env)     # (B, d)
     if pos is None and _attends(cfg):
         raise ValueError("an attention model's decode tick needs pos")
     if cfg.is_encoder_decoder:
@@ -572,18 +643,18 @@ def decode_logits(cfg: ModelConfig, params, caches, token, pos=None,
                              f"{n_pos} learned positions (pos_dec; "
                              f"Runner.max_seq)")
         x = x + params["pos_dec"][int(pos)].to(x.dtype)[None]
-    views = TickViews(x.shape[0], pos, x.device)
+    views = TickViews(x.shape[0], pos, x.device, env)
     for i in range(cfg.n_layers):
         x, _ = block_decode(cfg, layer_params(params["blocks"], i), x,
                             layer_params(caches, i), pos,
                             kind=cfg.block_kind(i), ffn=_layer_ffn(cfg, i),
-                            flags=flags, views=views)
-    x = L.apply_norm(cfg, params["final_norm"], x)
-    return emb.serve_logits(cfg, params["embed"], x), caches
+                            flags=flags, views=views, env=env)
+    x = L.apply_norm(cfg, params["final_norm"], x, env)
+    return emb.serve_logits(cfg, params["embed"], x, env), caches
 
 
 def decode_step(cfg: ModelConfig, params, caches, token, pos, sample=None,
-                flags: RunFlags = DEFAULT_FLAGS):
+                flags: RunFlags = DEFAULT_FLAGS, env: AxisEnv = LOCAL):
     """One decode step: token (B,) -> (next (B,) int32, caches).  `pos`,
     the position being written (shared by every sequence), is the
     reference's argument: attention blocks write and attend by it; the
@@ -591,9 +662,10 @@ def decode_step(cfg: ModelConfig, params, caches, token, pos, sample=None,
     it, but a sampled step keys its draws by it.  Greedy by default;
     `sample=(seeds, temperature, top_p, top_k)`, (B,) each, draws under
     the online paged path's (seed, pos, stream) schedule."""
-    logits, caches = decode_logits(cfg, params, caches, token, pos, flags)
+    logits, caches = decode_logits(cfg, params, caches, token, pos, flags,
+                                   env)
     if sample is None:
-        return emb.sharded_argmax(logits).to(torch.int32), caches
+        return emb.sharded_argmax(logits, env).to(torch.int32), caches
     seeds, temp, top_p, top_k = sample
     B = token.shape[0]
     pos_b = (pos.expand(B) if isinstance(pos, torch.Tensor)
@@ -601,7 +673,7 @@ def decode_step(cfg: ModelConfig, params, caches, token, pos, sample=None,
                              device=token.device))
     nxt, _ = emb.sharded_sample(cfg, logits, seeds=seeds, pos=pos_b,
                                 temperature=temp, top_p=top_p, top_k=top_k,
-                                stream=emb.STREAM_SAMPLE)
+                                stream=emb.STREAM_SAMPLE, env=env)
     return nxt, caches
 
 
@@ -618,11 +690,13 @@ def check_paged_support(cfg: ModelConfig):
 
 
 def init_paged_caches(cfg: ModelConfig, n_pages: int, page_size: int,
-                      device) -> Dict[str, Dict[str, torch.Tensor]]:
+                      device, env: AxisEnv = LOCAL
+                      ) -> Dict[str, Dict[str, torch.Tensor]]:
     """Per-layer paged KV pools with a leading layer dim (page 0 is the
-    engine's scratch page)."""
+    engine's scratch page); over tp the rank's in-page offsets."""
     check_paged_support(cfg)
-    one = L.init_paged_kv_pool(cfg, n_pages, page_size, device)
+    check_mesh_support(cfg, env)
+    one = L.init_paged_kv_pool(cfg, n_pages, page_size, device, env)
     return {"self": {k: torch.zeros((cfg.n_layers,) + tuple(v.shape),
                                     dtype=v.dtype, device=v.device)
                      for k, v in one.items()}}
@@ -632,41 +706,50 @@ def _layer_pool(pools, i: int):
     return {"self": {k: v[i] for k, v in pools["self"].items()}}
 
 
-def _block_ffn(cfg, params, x, ffn: str, flags: RunFlags):
-    h = L.apply_norm(cfg, params["norm2"], x)
+def _block_ffn(cfg, params, x, ffn: str, flags: RunFlags,
+               env: AxisEnv = LOCAL):
+    """The FFN sublayer of a serving step (x replicated over tp, the
+    partial output summed over tp)."""
+    h = L.apply_norm(cfg, params["norm2"], x, env)
     if ffn == "moe":
         partial, _ = moe_lib.moe_ffn(cfg, params["moe"], h,
-                                     dispatch=flags.moe_dispatch)
+                                     dispatch=flags.moe_dispatch, env=env)
     else:
-        partial = L.apply_mlp(cfg, params["mlp"], h)
-    return x + partial
+        partial = L.apply_mlp(cfg, params["mlp"], h, env=env)
+    return x + env.psum_tp(partial)
 
 
 def block_decode_paged(cfg, params, x, pool, pos, table, active, *,
                        page_size: int, ffn: str,
-                       flags: RunFlags = DEFAULT_FLAGS, valid=None):
+                       flags: RunFlags = DEFAULT_FLAGS, valid=None,
+                       env: AxisEnv = LOCAL):
     """One layer of the paged decode tick: x (B, d)."""
-    h = L.apply_norm(cfg, params["norm1"], x)
+    h = L.apply_norm(cfg, params["norm1"], x, env)
     partial, _ = L.paged_decode_attention(
         cfg, params["attn"], h, pool["self"], pos, table, active,
-        page_size=page_size, paged_attn=flags.paged_attn, valid=valid)
-    return _block_ffn(cfg, params, x + partial, ffn, flags), pool
+        page_size=page_size, paged_attn=flags.paged_attn, valid=valid,
+        env=env)
+    return _block_ffn(cfg, params, x + env.psum_tp(partial), ffn, flags,
+                      env), pool
 
 
 def _paged_decode_logits(cfg: ModelConfig, params, pools, token, pos, table,
                          active, *, page_size: int,
-                         flags: RunFlags = DEFAULT_FLAGS):
-    """One token per slot -> (logits (B, Vp) fp32, pools)."""
-    x = emb.embed_tokens(cfg, params["embed"], token)         # (B, d)
+                         flags: RunFlags = DEFAULT_FLAGS,
+                         env: AxisEnv = LOCAL):
+    """One token per slot -> (logits (B, V_loc) fp32, pools)."""
+    env = sharding.denv(env)
+    x = emb.embed_tokens(cfg, params["embed"], token, env)    # (B, d)
     ffn = _ffn_kind(cfg, cfg.n_layers - 1)
-    valid = L.paged_valid_mask(table, pos[:, None], page_size=page_size)
+    valid = L.paged_valid_mask(table, pos[:, None], page_size=page_size,
+                               env=env)
     for i in range(cfg.n_layers):
         x, _ = block_decode_paged(
             cfg, layer_params(params["blocks"], i), x, _layer_pool(pools, i),
             pos, table, active, page_size=page_size, ffn=ffn, flags=flags,
-            valid=valid)
-    x = L.apply_norm(cfg, params["final_norm"], x)
-    return emb.serve_logits(cfg, params["embed"], x), pools
+            valid=valid, env=env)
+    x = L.apply_norm(cfg, params["final_norm"], x, env)
+    return emb.serve_logits(cfg, params["embed"], x, env), pools
 
 
 def _one(v, dtype, device) -> torch.Tensor:
@@ -679,7 +762,8 @@ def _one(v, dtype, device) -> torch.Tensor:
 
 def paged_decode_step(cfg: ModelConfig, params, pools, token, pos, table,
                       active, *, page_size: int,
-                      flags: RunFlags = DEFAULT_FLAGS, sample=None):
+                      flags: RunFlags = DEFAULT_FLAGS, sample=None,
+                      env: AxisEnv = LOCAL):
     """One decode tick over the slot batch.  token (B,) input token per
     slot; pos (B,) position being written; table (B, n_lp); active (B,)
     bool.  Inactive slots compute harmlessly (their writes land in the
@@ -689,13 +773,13 @@ def paged_decode_step(cfg: ModelConfig, params, pools, token, pos, table,
     (B,) int32, pools)."""
     logits, pools = _paged_decode_logits(cfg, params, pools, token, pos,
                                          table, active, page_size=page_size,
-                                         flags=flags)
+                                         flags=flags, env=env)
     if sample is None:
-        return emb.sharded_argmax(logits).to(torch.int32), pools
+        return emb.sharded_argmax(logits, env).to(torch.int32), pools
     seeds, temp, top_p, top_k = sample
     nxt, _ = emb.sharded_sample(cfg, logits, seeds=seeds, pos=pos,
                                 temperature=temp, top_p=top_p, top_k=top_k,
-                                stream=emb.STREAM_SAMPLE)
+                                stream=emb.STREAM_SAMPLE, env=env)
     return nxt, pools
 
 
@@ -827,39 +911,46 @@ def paged_verify_step(cfg: ModelConfig, params, pools, tokens, pos0, table,
 
 def block_prefill_paged(cfg, params, x, pool, base, n_valid, table_row, *,
                         page_size: int, ffn: str,
-                        flags: RunFlags = DEFAULT_FLAGS, valid=None):
+                        flags: RunFlags = DEFAULT_FLAGS, valid=None,
+                        env: AxisEnv = LOCAL):
     """One layer of chunked prefill for a single request: x (C, d)."""
-    h = L.apply_norm(cfg, params["norm1"], x)
+    h = L.apply_norm(cfg, params["norm1"], x, env)
     partial, _ = L.paged_prefill_attention(
         cfg, params["attn"], h, pool["self"], base, n_valid, table_row,
-        page_size=page_size, paged_attn=flags.paged_attn, valid=valid)
-    return _block_ffn(cfg, params, x + partial, ffn, flags), pool
+        page_size=page_size, paged_attn=flags.paged_attn, valid=valid,
+        env=env)
+    return _block_ffn(cfg, params, x + env.psum_tp(partial), ffn, flags,
+                      env), pool
 
 
 def _paged_prefill_logits(cfg: ModelConfig, params, pools, tokens, base,
                           n_valid, table_row, *, page_size: int,
-                          flags: RunFlags = DEFAULT_FLAGS):
-    """Prefill one chunk; returns (logits (1, Vp) fp32 at the last valid
-    chunk position, pools)."""
+                          flags: RunFlags = DEFAULT_FLAGS,
+                          env: AxisEnv = LOCAL):
+    """Prefill one chunk; returns (logits (1, V_loc) fp32 at the last
+    valid chunk position, pools)."""
+    env = sharding.denv(env)
     C = tokens.shape[0]
-    x = emb.embed_tokens(cfg, params["embed"], tokens)        # (C, d)
+    x = emb.embed_tokens(cfg, params["embed"], tokens, env)   # (C, d)
     ffn = _ffn_kind(cfg, cfg.n_layers - 1)
     posq = base + torch.arange(C, device=tokens.device)
     valid = L.paged_valid_mask(table_row[None], posq[None],
-                               page_size=page_size)
+                               page_size=page_size, env=env)
     for i in range(cfg.n_layers):
         x, _ = block_prefill_paged(
             cfg, layer_params(params["blocks"], i), x, _layer_pool(pools, i),
             base, n_valid, table_row, page_size=page_size, ffn=ffn,
-            flags=flags, valid=valid)
-    x = L.apply_norm(cfg, params["final_norm"], x)
+            flags=flags, valid=valid, env=env)
+    x = L.apply_norm(cfg, params["final_norm"], x, env)
     last = min(max(int(n_valid) - 1, 0), C - 1)
-    return emb.serve_logits(cfg, params["embed"], x[last:last + 1]), pools
+    return emb.serve_logits(cfg, params["embed"], x[last:last + 1],
+                            env), pools
 
 
 def paged_prefill_chunk(cfg: ModelConfig, params, pools, tokens, base,
                         n_valid, table_row, *, page_size: int,
-                        flags: RunFlags = DEFAULT_FLAGS, sample=None):
+                        flags: RunFlags = DEFAULT_FLAGS, sample=None,
+                        env: AxisEnv = LOCAL):
     """Prefill one chunk of one request's prompt into its pages.  tokens
     (C,) (tail past n_valid is padding); base (int) tokens already
     written; table_row (n_lp,).  Returns (next token, a 0-d int32 tensor
@@ -869,9 +960,10 @@ def paged_prefill_chunk(cfg: ModelConfig, params, pools, tokens, base,
     bit greedy at temperature <= 0)."""
     logits, pools = _paged_prefill_logits(cfg, params, pools, tokens, base,
                                           n_valid, table_row,
-                                          page_size=page_size, flags=flags)
+                                          page_size=page_size, flags=flags,
+                                          env=env)
     if sample is None:
-        return emb.sharded_argmax(logits)[0].to(torch.int32), pools
+        return emb.sharded_argmax(logits, env)[0].to(torch.int32), pools
     seed, temp, top_p, top_k = sample
     dev = logits.device
     nxt, _ = emb.sharded_sample(
@@ -879,5 +971,6 @@ def paged_prefill_chunk(cfg: ModelConfig, params, pools, tokens, base,
         pos=_one(base + n_valid - 1, torch.int64, dev),
         temperature=_one(temp, torch.float32, dev),
         top_p=_one(top_p, torch.float32, dev),
-        top_k=_one(top_k, torch.int64, dev), stream=emb.STREAM_SAMPLE)
+        top_k=_one(top_k, torch.int64, dev), stream=emb.STREAM_SAMPLE,
+        env=env)
     return nxt[0], pools

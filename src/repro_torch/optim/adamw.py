@@ -1,18 +1,23 @@
-"""AdamW at tp=1 (counterpart of `repro.optim.adamw`).
+"""AdamW (counterpart of `repro.optim.adamw`).
 
 Paper recipe (§3.4.1): beta1=0.9, beta2=0.95, eps=1e-8, weight_decay=0.1,
 global-norm gradient clipping at 1.0.  Parameters and moments are fp32
 tensors in the reference's nested-dict layout; `apply_updates` runs
 under `torch.no_grad()` and writes them in place (the reference returns
-new arrays and donates the old buffers).  At tp=1 no leaf is replicated,
-so the global norm counts every leaf once.
+new arrays and donates the old buffers).  Moments take the parameters'
+sharding, so the update is local; over a mesh the raw gradients are
+reduced first (`reduce_replicated_grads`) and the global norm counts a
+replicated leaf once (`global_grad_norm` with the spec tree).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Sequence
 
 import torch
+
+from repro_torch import sharding
+from repro_torch.sharding import LOCAL, AxisEnv, P
 
 # elements per slice of a leaf in `apply_updates`: bounds the update's
 # temporaries to a few times 256 MB whatever the leaf's size
@@ -51,15 +56,54 @@ def init_opt_state(params) -> Dict[str, Any]:
             "count": torch.zeros((), dtype=torch.int32, device=device)}
 
 
-def global_grad_norm(grads: List[torch.Tensor]) -> torch.Tensor:
-    """L2 norm over every leaf, fp32, summed leaf by leaf in order."""
+def opt_state_specs(param_specs) -> Dict[str, Any]:
+    """The moments take the parameters' specs; the count is
+    replicated."""
+    return {"m": param_specs, "v": param_specs, "count": P()}
+
+
+@torch.no_grad()
+def reduce_replicated_grads(grads: List[torch.Tensor],
+                            specs: Sequence[P], env: AxisEnv = LOCAL):
+    """In place: each raw gradient (in `leaves` order, beside its spec)
+    divided by N = dp * tp, then summed over every mesh axis its spec
+    leaves out.  Every rank seeds the cotangent of its own copy of the
+    loss, so the collectives' transposes give N times the true gradient;
+    a leaf replicated over an axis then receives the sum of its copies'
+    partials (the DP all-reduce, generalized), while a dim sharded over
+    an axis is exact after the division.  A no-op at one rank."""
+    n = env.dp * env.tp
+    if n == 1:
+        return grads
+    groups = {"dp": env.mesh.dp_group, "tp": env.mesh.tp_group}
+    for g, spec in zip(grads, specs):
+        g.div_(float(n))
+        missing = [a for a in ("dp", "tp") if a not in spec
+                   and groups[a].size > 1]
+        if len(missing) == 2:
+            g.copy_(env.mesh.world.all_reduce(g))
+        elif missing:
+            g.copy_(groups[missing[0]].all_reduce(g))
+    return grads
+
+
+def global_grad_norm(grads: List[torch.Tensor],
+                     specs: Optional[Sequence[P]] = None,
+                     env: AxisEnv = LOCAL) -> torch.Tensor:
+    """L2 norm over every leaf, fp32, summed leaf by leaf in order.  Over
+    a mesh (with the leaves' `specs`) a leaf held by several ranks counts
+    once: its sum of squares is divided by its replication, and the
+    ranks' sums are added over the mesh."""
     total = torch.zeros((), dtype=torch.float32, device=grads[0].device)
-    for g in grads:
-        g = g.reshape(-1)
-        for s in g.split(_SLICE):
+    for i, g in enumerate(grads):
+        rep = (sharding.replication(specs[i], env) if specs is not None
+               else 1)
+        part = total if rep == 1 else torch.zeros_like(total)
+        for s in g.reshape(-1).split(_SLICE):
             s = s.float()
-            total = total + torch.dot(s, s)
-    return torch.sqrt(total)
+            part = part + torch.dot(s, s)
+        total = part if rep == 1 else total + part / rep
+    return torch.sqrt(env.psum_all(total))
 
 
 @torch.no_grad()

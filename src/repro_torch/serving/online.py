@@ -46,6 +46,13 @@
   `telemetry.SLOTracker` over the windowed histograms sheds a request at
   submit time when admitting it would breach the configured TTFT/ITL p99
   deadlines.
+* **A (1, tp) mesh** (a runner built on one): every rank runs this same
+  host scheduler over the same requests, in lockstep.  Each decision
+  comes from host state and from the steps' tokens, which are equal on
+  every rank, so no rank can diverge (a divergence would hang a
+  collective; the mesh's groups carry a timeout).  `max_slots` and
+  `prefill_chunk` must divide over tp (the "ep" dispatch's batch); the
+  Poisson load agrees its clock across ranks (`Mesh.agree`).
 """
 from __future__ import annotations
 
@@ -61,6 +68,7 @@ import torch
 from repro_torch.analysis import contracts
 from repro_torch.models import layers as L
 from repro_torch.models import model as M
+from repro_torch.serving.flood import quantize_microbatch
 from repro_torch.serving.segment_cache import PageAllocator
 from repro_torch.telemetry.metrics import MetricsRegistry
 from repro_torch.telemetry.request_log import RequestLog
@@ -164,6 +172,23 @@ class OnlineEngine:
                  request_log: Optional[RequestLog] = None,
                  timer: Optional[XPUTimer] = None):
         M.check_paged_support(runner.cfg)
+        env = runner.env
+        tp = env.tp
+        if env.dp != 1:
+            raise ValueError(f"online serving runs on a (1, tp) mesh; "
+                             f"got dp={env.dp}")
+        for name in ("max_slots", "prefill_chunk"):
+            n = getattr(cfg, name)
+            if quantize_microbatch(n, tp) != n:
+                raise ValueError(
+                    f"{name}={n} violates the EP batch constraint ({name} "
+                    f"% tp == 0 for tp={tp}); round up with "
+                    f"serving.flood.quantize_microbatch({n}, {tp}) = "
+                    f"{quantize_microbatch(n, tp)}")
+        if tp > 1 and (cfg.spec_k > 0 or cfg.overload == "slo"):
+            raise NotImplementedError(
+                "speculative decoding and the SLO gate (rank-local clocks) "
+                "on a tp mesh are not yet ported (ROADMAP item 9)")
         n_pages = cfg.pool_pages()
         if n_pages - 1 < cfg.max_pages:
             raise ValueError(
@@ -891,6 +916,8 @@ def run_poisson_load(engine: OnlineEngine, *, rate: float, n_requests: int,
             raise RuntimeError(f"load run did not drain in {max_ticks} "
                                f"ticks ({submitted}/{n_requests} submitted)")
         now = time.perf_counter()
+        # over a tp mesh every rank admits by rank 0's clock
+        now = t0 + engine.runner.env.mesh.agree(now - t0)
         while (submitted < n_requests
                and arrivals[submitted] <= now - t0):
             r = reqs[submitted]

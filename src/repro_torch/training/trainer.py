@@ -1,4 +1,4 @@
-"""Training engine at tp=1 (counterpart of `repro.training.trainer`):
+"""Training engine (counterpart of `repro.training.trainer`):
 
   model (Runner) + AdamW + WSD schedule + microbatch grad accumulation
   + batch-size warmup via scheduled accumulation (§3.4.1) + device-side
@@ -23,6 +23,13 @@ Division of labour, as in the reference:
 Step i's router-warmup noise comes from the threefry key
 ``fold_in(prng_key(seed), i)``, as in the reference, so a resumed run
 draws what the unbroken run drew.
+
+On a (dp, tp) mesh every rank runs its own Trainer over the same seeded
+pipeline: each step gets the same global batch on every rank, the train
+step keeps the rank's dp rows (`api.local_rows`) and returns the mesh's
+reduced metrics, so every rank's host policy sees the same numbers.
+Checkpoints (saving shards and `_reshard` on restore) wait for ROADMAP
+item 9 and raise there.
 """
 from __future__ import annotations
 
@@ -111,6 +118,10 @@ class Trainer:
         self._pending: List[Any] = []
         self._prefetcher: Optional[Prefetcher] = None
         self._preload: List[Dict] = []     # restored batches packed ahead
+        if cfg.checkpoint_dir and runner.env.dp * runner.env.tp > 1:
+            raise NotImplementedError(
+                "checkpoints of a sharded run (saving shards, _reshard on "
+                "restore) are not yet ported (ROADMAP item 9)")
         self.pcache = (PCache(cfg.checkpoint_dir) if cfg.checkpoint_dir
                        else None)
 

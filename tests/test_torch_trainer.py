@@ -227,7 +227,8 @@ def test_train_launcher_on_the_cpu(capsys):
     assert "final loss:" in out and "nan" not in out.split("final loss:")[1]
 
 
-@pytest.mark.parametrize("flag", [["--tp", "2"], ["--dp", "2"]])
+@pytest.mark.parametrize("flag", [["--tp", "2", "--edit-workers", "2"],
+                                  ["--dp", "2", "--arch", "rwkv6-3b"]])
 def test_train_launcher_refuses_paths_not_yet_ported(flag):
     with pytest.raises(SystemExit):
         tlaunch.main(["--smoke", "--device", "cpu"] + flag)
