@@ -69,7 +69,13 @@ Phases, each failing loudly (non-zero exit, no result line):
      and the weight gradient at the step's received rows, K3/K4 at a
      decode tick over ps_loc = 8 of a page's 16 offsets (ranks 0 and 1)
      and K5 on a rank's 63232-row vocab shard of Ling-Lite's head (T=8,
-     T=1);
+     T=1); and at the shapes phase 9c gives them: K1 over rank 0's
+     capacity rows of the "fused" dispatch at tp = 2 (FUSED_MESH_CASES:
+     T=8, 64 and a k=4 verify pass's 40, the other rank's experts' rows
+     gated 0) and over the "ep" rows of the scoring call (T=4088),
+     K3/K4 at a verify pass (B=8, Q=5) over ps_loc = 8, K5 on the vocab
+     shard at T=40 and T=4088 (each K1 bound counts the rows that hold a
+     slot);
   4. gradients: one full-width MoE layer at T=256, `FusedFFN`'s grads of
      x, w1, w2, w3 and the gates on the kernels against autograd through
      a plain fp32 composition, before and after the cast to bf16;
@@ -93,7 +99,8 @@ Phases, each failing loudly (non-zero exit, no result line):
      at k=4 with a 4-layer self-draft (greedy streams phase 5's; K1, K3,
      K4 launched (k+1)*4 + 28 and K5 (k+1) + 1 times per spec tick, and
      28 + 4 and 2 per prefill chunk), with a 28-layer self-draft (every
-     draft accepted), and sampled at 0.8; each run's tokens/s, TTFT and
+     draft accepted; 16 of the 32 tokens, both waves of the 8 slots),
+     and sampled at 0.8; each run's tokens/s, TTFT and
      ITL p50/p99, ticks per token and acceptance, and one sampling call
      at 8 and 40 rows of the vocabulary (CUDA events);
   6c. dense KV-cache decode, offline Flood serving, scoring and the
@@ -247,6 +254,29 @@ Phases, each failing loudly (non-zero exit, no result line):
      step again bit for bit; the backend, which collectives ran on CUDA
      tensors and which through pinned host buffers, bytes and seconds
      per step;
+  9c. two ranks over gloo on the one card (`mesh_paths`), Ling-Lite at
+     full width on (1, 2), 28 layers: speculative decoding (k=4, a
+     1-layer self-draft) on 9b's prompts, 5 tokens each (greedy streams
+     the first 5 of 9b's bit for bit, both ranks equal, K1/K3/K4
+     (k+1) + 28 and K5 (k+1) + 1 launches per spec tick, 29 and 2 per
+     prefill chunk) and one request with a 28-layer self-draft (every
+     draft accepted, the stream 9b's), phase 6c's 8 x 512
+     `make_score_fn` (each token's log p within SCORE_TOL of the largest
+     logit from the mesh's plain modes; the gap to 6c's (1, 1) scores
+     printed), two harness items of 15 scored tokens (odd: each rank's
+     dispatch modes printed, "batched" among them), 6c's SLO engine with
+     a deadline that admits about 4 of the 16 requests (both ranks shed
+     the same rids, some but not all; each rank's own tracker's verdicts
+     printed); phase 8's 4-layer step at one microbatch
+     with int8 SP boundaries for 2 steps (loss and grad norm within
+     INT8_TOL of 9b's native (1, 2) steps; the SP collectives' bytes and
+     the bytes staged through the host beside native's); and the 1-layer
+     model's checkpoint (13.09 GB, into a temporary directory, removed
+     after; it fails naming the bytes if the disk lacks them) saved at
+     (2, 1) after a step, every rank writing its slices: fresh (2, 1)
+     trainers restore it and their next step is the unbroken run's bit
+     for bit, and (1, 2) ranks restore it, each slice the files' bit for
+     bit;
   10. the `kernels` JSON line (launches of phase 9's paths too), the
      card line, and the result line.
 """
@@ -255,6 +285,7 @@ from __future__ import annotations
 import contextlib
 import gc
 import json
+import os
 import pickle
 import re
 import subprocess
@@ -338,10 +369,22 @@ K2_ARCH = "granite-moe-3b-a800m"
 # at a decode tick over ps_loc = 8 of a page's 16 in-page offsets (ranks
 # 0 and 1); K5 on a rank's vocab shard of Ling-Lite's head (63232 rows)
 MESH_TP = 2
-EP_CASES = {"ep decode T=8 tp=2": 8, "ep train T=2048 tp=2": 2048}
-PA_MESH_CASES = {f"decode tp=2 ps_loc=8 rank {r}": r for r in range(2)}
+EP_CASES = {"ep decode T=8 tp=2": 8, "ep train T=2048 tp=2": 2048,
+            "ep score T=4088 tp=2": 4088}
+EP_TRAIN_T = 2048          # the EP case K2 and the weight gradient take
+PA_MESH_CASES = {f"{shape} tp=2 ps_loc=8 rank {r}": (shape, r)
+                 for shape in ("decode", "verify") for r in range(2)}
 K5_MESH_CASES = {"ling head shard tp=2 T=8": ("ling-lite", 8),
-                 "ling head shard tp=2 T=1": ("ling-lite", 1)}
+                 "ling head shard tp=2 T=1": ("ling-lite", 1),
+                 "ling head shard tp=2 T=40": ("ling-lite", 40),
+                 "ling head shard tp=2 T=4088": ("ling-lite", 4088)}
+# phase 3's K1 cases of the "fused" dispatch at tp = 2 (phase 9c and the
+# mesh tests' mode): rank 0's 32 local experts over the capacity rows
+# of all T tokens' slots sorted with the other rank's experts last (their
+# rows gated 0), label -> T: a decode tick of 8, a prefill chunk of 64,
+# a k = 4 verify pass of 8 x 5
+FUSED_MESH_CASES = {"fused T=8 tp=2": 8, "fused T=64 tp=2": 64,
+                    "fused T=40 tp=2 verify": 40}
 # phase 7b: (arch, layers served or None for all): Ling-Plus at full
 # width cut to 8 of its 80 layers (3.51 B parameters a layer, 7.02 GB in
 # bf16, plus 2.07 GB of embedding and a 4.14 GB fp32 head: ~62 GB on an
@@ -582,6 +625,30 @@ def ep_case(cfg, T: int, gen, tp: int = MESH_TP):
     return p, torch.cat(rows), order, valid.to(torch.bfloat16), gs
 
 
+def fused_tp_case(cfg, T: int, gen, tp: int = MESH_TP):
+    """K1's operands on rank 0 of the "fused" dispatch over tp ranks: one
+    MoE layer's bf16 weights (rank 0's E / tp experts), T random bf16
+    tokens all routed by the random router, and the first `capacity` of
+    the T*k slots sorted by local expert with the other ranks' experts
+    last (`moe.sort_slots` at rank 0's coordinates): (params, x, tok,
+    gates (0 on the trailing rows), group_sizes)."""
+    import torch
+    from repro_torch import sharding
+    from repro_torch.core import moe, router
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import layers as L
+    p = moe.init_moe(cfg, L.Init(device=torch.device("cuda"),
+                                 generator=gen))
+    x = torch.randn((T, cfg.d_model), generator=gen, device="cuda") \
+        .to(torch.bfloat16)
+    env = sharding.make_axis_env(Mesh.at(1, tp, 0, "cuda"))
+    tok, gates, gs, _ = moe.sort_slots(
+        cfg, *router.route(cfg, p["router"], x), env)
+    e_loc = cfg.moe.n_experts // tp
+    p = {k: p[k][:e_loc].contiguous() for k in ("we1", "we2", "we3")}
+    return p, x, tok, gates, gs
+
+
 def check_k1(cfg, T: int, gen, case=None):
     """K1 at Ling-Lite widths with a random router's routing (or on
     `case`, (params, x, tok, gates, group_sizes) as `moe_case` gives
@@ -612,11 +679,15 @@ def check_k1(cfg, T: int, gen, case=None):
     tol = 1e-4 * ref.abs().max().item()
     n_experts = int((group_sizes > 0).sum())
     w_bytes = n_experts * 3 * cfg.d_model * m.expert_d_ff * 2
+    # the operations of the rows that hold a slot (an "ep" or a tp > 1
+    # "fused" buffer's trailing rows are empty)
     b_ms, b_by = bound(w_bytes + nbytes(x, row_idx, g, tile_group)
                        + T * cfg.d_model * 4,
-                       2 * cap * 3 * cfg.d_model * m.expert_d_ff)
+                       2 * int(group_sizes.sum()) * 3 * cfg.d_model
+                       * m.expert_d_ff)
     ms = cuda_ms(lambda: gm.fused_moe_ffn(*args))
     plain_ms = cuda_ms(lambda: gm.fused_moe_ffn_ref(*args))
+    rows = int(group_sizes.sum())
     # the C entry alone, its checks and scratch allocation done once
     out_c, c_args, _held = gm._k1_launch(*args, act="swiglu")
     entry = build.entry("fused_moe_ffn")
@@ -627,7 +698,8 @@ def check_k1(cfg, T: int, gen, case=None):
     entry_ms = cuda_ms(lambda: entry(*c_args))
     split = kernel_split(lambda: entry(*c_args),
                          ("moe_up", "moe_down", "moe_combine"))
-    shape = (f"T={T} cap={cap} bm={bm} tiles={tile_group.numel()} "
+    shape = (f"T={T} cap={cap} rows={rows} bm={bm} "
+             f"tiles={tile_group.numel()} "
              f"experts_routed={n_experts} of {group_sizes.shape[0]} "
              f"path={path}")
     report("fused_moe_ffn", shape, err, tol, ref.abs().max().item(), ms,
@@ -1263,6 +1335,11 @@ def _burst(runner, params, ocfg, reqs, drafter=None):
     return [list(r.out) for r in reqs], fig, eng
 
 
+# phase 6b's full-depth self-draft serves the first FULL_DRAFT_NEW tokens
+# of phase 5's 32 a request (all 32 took 61-85 s of the script's 1200)
+FULL_DRAFT_NEW = 16
+
+
 def serve_sampled(cfg, params, base, card):
     """Phase 6b on phase 5's model and prompts: mixed-temperature serving
     (again with the radix cache off and with a pool that preempts),
@@ -1283,9 +1360,9 @@ def serve_sampled(cfg, params, base, card):
     hot = dict(temperature=0.8, top_p=0.95, top_k=64)
     K, DL = 4, 4
 
-    def reqs(mixed=True, **knobs):
+    def reqs(mixed=True, new=32, **knobs):
         return [OnlineRequest(
-            rid=i, prompt=p, max_new=32,
+            rid=i, prompt=p, max_new=new,
             **(dict(hot, seed=1000 + i) if mixed and i >= 8 else knobs))
             for i, p in enumerate(prompts)]
 
@@ -1347,14 +1424,19 @@ def serve_sampled(cfg, params, base, card):
             fail(f"phase 6b: {name} launched {n} times, expected {want} "
                  f"({per_tick.get(name, 0)} per spec tick)")
 
-    # 3. a full-depth self-draft accepts every draft
+    # 3. a full-depth self-draft accepts every draft (16 requests, two
+    # waves of the 8 slots; FULL_DRAFT_NEW tokens each, for the script's
+    # time)
     full, fig, eng = _burst(runner, params, OnlineConfig(**geo, spec_k=K),
-                            reqs(mixed=False), SelfDrafter(cfg.n_layers))
-    show(f"greedy spec k={K}, full-depth self-draft", fig)
-    if eng.spec_accepted != eng.spec_proposed or full != greedy:
+                            reqs(mixed=False, new=FULL_DRAFT_NEW),
+                            SelfDrafter(cfg.n_layers))
+    show(f"greedy spec k={K}, full-depth self-draft, {FULL_DRAFT_NEW} "
+         f"tokens a request", fig)
+    head = [g[:FULL_DRAFT_NEW] for g in greedy]
+    if eng.spec_accepted != eng.spec_proposed or full != head:
         fail(f"phase 6b: full-depth self-draft accepted "
              f"{eng.spec_accepted} of {eng.spec_proposed} drafts, streams "
-             f"equal phase 5's: {full == greedy}")
+             f"equal phase 5's: {full == head}")
 
     # 4. sampled speculation
     _, fig, _ = _burst(runner, params, OnlineConfig(**geo, spec_k=K),
@@ -1445,7 +1527,6 @@ def dense_serve(cfg, params, base, card):
     from repro_torch.kernels import normhead as nh
     from repro_torch.kernels import ops as kops
     from repro_torch.launch.serve import build_model_engine
-    from repro_torch.models import embedding as emb
     from repro_torch.models import model as M
     from repro_torch.serving.online import (OnlineConfig, OnlineEngine,
                                             OnlineRequest)
@@ -1564,26 +1645,14 @@ def dense_serve(cfg, params, base, card):
     got = score(params, seqs, mask)
     torch.cuda.synchronize()
     score_ms = 1e3 * (time.perf_counter() - t0)
+    base["score"] = (seqs, mask, got.cpu())         # phase 9c's (1, 1)
     score_launches = dict(build.LAUNCHES)
     _expect("scoring", score_launches,
             {"fused_moe_ffn": L_, "normhead_matmul": 1})
     # per token: each log p(token_t | tokens_<t) through the kernels and
     # through the plain modes (ragged MoE, plain K5), on the forward and
     # head that make_score_fn runs
-    tt = torch.from_numpy(seqs).long().cuda()
-
-    def token_logp(flags):
-        with torch.no_grad():
-            x, _, _, _ = M.forward(cfg, params, {"tokens": tt[:, :-1]},
-                                   train=False, flags=flags)
-            lg = emb.serve_logits(cfg, params["embed"], x)
-            del x
-            lg = lg.reshape(n_seq, s_len - 1, -1)[..., :cfg.vocab_size]
-            lp = torch.log_softmax(lg, dim=-1).gather(
-                -1, tt[:, 1:, None])[..., 0]
-            return lp, lg.abs().max().item()
-
-    lp, _ = token_logp(runner.flags)
+    lp, _ = token_logp(cfg, params, seqs, runner.flags)
     saved = kops.normhead_logits
     kops.normhead_logits = nh.normhead_matmul_ref
     try:
@@ -1591,7 +1660,7 @@ def dense_serve(cfg, params, base, card):
                                                  paged_attn="gathered"),
                            device="cuda")
         want = plain.make_score_fn()(params, seqs, mask)
-        lp_plain, top = token_logp(plain.flags)
+        lp_plain, top = token_logp(cfg, params, seqs, plain.flags)
     finally:
         kops.normhead_logits = saved
     torch.cuda.synchronize()
@@ -2474,7 +2543,7 @@ def train(card):
 
 
 def train_setup(steps: int, mesh=None, debug_guards: bool = True,
-                accum: int = 2):
+                accum: int = 2, sp_comm: str = "native"):
     """Phase 8's Trainer: Ling-Lite at full width cut to 4 layers, fp32
     masters from seed 0, seq 1024, microbatch 2, accum 2 (phase 9b: 1),
     the default spike guard, WSD schedule and router warmup; on `mesh`
@@ -2488,7 +2557,7 @@ def train_setup(steps: int, mesh=None, debug_guards: bool = True,
     cfg = dataclasses.replace(get_config("ling-lite"), n_layers=4)
     B, S = 2, 1024
     runner = api.Runner(cfg, device=mesh.device if mesh else "cuda",
-                        mesh=mesh)
+                        mesh=mesh, sp_comm=sp_comm)
     pipe = DataPipeline(PipelineConfig(vocab_size=cfg.vocab_size,
                                        seq_len=S, batch_size=B, seed=0))
     trainer = Trainer(runner, pipe, TrainConfig(
@@ -3597,9 +3666,481 @@ def mesh_gloo(card, base, tf_tokens, tf_one, train_hist):
         fail(f"phase 9b: the (2, 1) step run twice differs: {a['hist']} vs "
              f"{b['hist']}, params equal {b['same_params']}")
     print(f"[mesh-9b] phase 9b took {time.perf_counter() - t0:.1f}s")
+    base["mesh_9b"] = {"streams": r0["streams"], "tick_ms": r0["tick_ms"],
+                       "train_1x2": r0["train"]["1x2"]}
     return {"mesh_serve": r0["serve_launches"],
             "mesh_train_2x1": a["launches"],
             "mesh_train_1x2": r0["train"]["1x2"]["launches"]}
+
+
+# phase 9c: the rest of Ling-Lite's paths on (1, 2), and checkpoints
+# ---------------------------------------------------------------------------
+
+MESH_SPEC_K, MESH_DRAFT_LAYERS = 4, 1
+# phase 9c's spec run emits the first MESH_SPEC_NEW tokens of 9b's
+# greedy streams (9b's 17 a prompt take ~23 spec ticks of 1-2 s on gloo)
+MESH_SPEC_NEW = 5
+# phase 9c's bar on the int8-SP step against 9b's native (1, 2) step:
+# loss and grad norm relative, the reference's own int8 bar
+# (tests/test_sharded_parity.py)
+INT8_TOL = 0.08
+# harness items of 12 context and 4 option tokens: 15 scored tokens, odd,
+# so the MoE's "auto" dispatch takes "batched" at tp = 2
+MESH_HARNESS_ITEMS = 2
+# phase 9c's SLO deadline: the gate's forward TTFT estimate for the first
+# MESH_SLO_ADMIT of phase 5's 16 prompts (cut to MESH_PROMPT_LEN: a
+# prefill chunk each) queued at once, at 9b's tick p50, so that rank 0's
+# tracker admits about that many and sheds the rest; each admitted
+# request decodes MESH_SLO_NEW tokens
+MESH_SLO_ADMIT, MESH_SLO_NEW = 4, 2
+
+
+def token_logp(cfg, params, seqs, flags, env=None):
+    """Each token's log p(token_t | tokens_<t) from make_score_fn's
+    forward and K5 head (over `env`'s mesh: the vocab shards gathered over
+    tp), and the largest |logit| (phases 6c and 9c)."""
+    import torch
+    from repro_torch import sharding
+    from repro_torch.models import embedding as emb
+    from repro_torch.models import model as M
+    env = env or sharding.LOCAL
+    tt = torch.as_tensor(seqs).long().to(params["embed"]["table"].device)
+    n, s = tt.shape
+    with torch.no_grad():
+        x, _, _, _ = M.forward(cfg, params, {"tokens": tt[:, :-1]},
+                               train=False, flags=flags, env=env)
+        lg = env.all_gather_tp(emb.serve_logits(cfg, params["embed"], x,
+                                                env), axis=1)
+        del x
+        lg = lg.reshape(n, s - 1, -1)[..., :cfg.vocab_size]
+        lp = torch.log_softmax(lg, dim=-1).gather(-1, tt[:, 1:, None])[..., 0]
+        return lp, lg.abs().max().item()
+
+
+def _paths_rank(rank, world, tmp, prompts, seqs, mask, deadline,
+                slo_prompts, ck_root):
+    """Phase 9c's rank: two of them over gloo on the one card.  On (1, 2)
+    at full depth: speculative decoding (1-layer self-draft, k = 4),
+    make_score_fn on 8 x 512 (and the per-token log p through the
+    kernels and the plain modes), harness items of odd length, the SLO
+    engine; then phase 8's 4-layer step with sp_comm="int8"; then the
+    1-layer model's checkpoint saved at (2, 1), restored by fresh (2, 1)
+    trainers and by (1, 2) ranks."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch import api
+    from repro_torch.checkpoint import pcache as PC
+    from repro_torch.configs.base import get_config
+    from repro_torch.core import moe
+    from repro_torch.data.pipeline import DataPipeline, PipelineConfig
+    from repro_torch.evals import harness as H
+    from repro_torch.kernels import build
+    from repro_torch.launch import mesh as tmesh
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw
+    from repro_torch.serving.draft import SelfDrafter
+    from repro_torch.serving.online import (OnlineConfig, OnlineEngine,
+                                            OnlineRequest)
+    from repro_torch.telemetry.slo import SLOConfig
+    from repro_torch.training.trainer import TrainConfig, Trainer
+    tmesh.init_distributed(rank, world, init_method=f"file://{tmp}/store",
+                           backend="gloo", timeout_s=MESH_TIMEOUT_S)
+    mesh = tmesh.make_local_mesh(1, 2, device="cuda:0",
+                                 timeout_s=MESH_TIMEOUT_S)
+    cfg = get_config("ling-lite")
+    runner = api.Runner(cfg, device=mesh.device, mesh=mesh)
+    params = runner.init_params(0)
+    geo = dict(max_slots=8, max_context=512, page_size=16, prefill_chunk=64)
+    out = {}
+
+    # 1. speculative decoding, a 1-layer self-draft
+    eng = OnlineEngine(runner, params, OnlineConfig(**geo,
+                                                    spec_k=MESH_SPEC_K),
+                       drafter=SelfDrafter(draft_layers=MESH_DRAFT_LAYERS))
+    eng.submit_many([OnlineRequest(rid=i, prompt=np.asarray(p, np.int32),
+                                   max_new=MESH_SPEC_NEW)
+                     for i, p in enumerate(prompts)])
+    torch.cuda.synchronize()
+    build.reset_launches()
+    t0 = time.perf_counter()
+    eng.run(max_ticks=10_000)
+    torch.cuda.synchronize()
+    out["spec"] = {"streams": [list(eng.reqs[i].out)
+                               for i in range(len(prompts))],
+                   "wall": time.perf_counter() - t0,
+                   "launches": dict(build.LAUNCHES),
+                   "calls": dict(eng.step_calls),
+                   "tick_ms": eng.registry.get("serve_tick_ms")
+                   .percentile(50),
+                   "accept": eng.spec_accepted / max(eng.spec_proposed, 1)}
+    del eng
+    # ... and one request through a full-depth self-draft, whose drafts
+    # are all accepted: commits and page trims over each rank's offsets
+    eng = OnlineEngine(runner, params, OnlineConfig(**geo,
+                                                    spec_k=MESH_SPEC_K),
+                       drafter=SelfDrafter(draft_layers=cfg.n_layers))
+    eng.submit(OnlineRequest(rid=0, prompt=np.asarray(prompts[0], np.int32),
+                             max_new=MESH_SPEC_NEW))
+    t0 = time.perf_counter()
+    eng.run(max_ticks=1000)
+    torch.cuda.synchronize()
+    out["spec_full"] = {"stream": list(eng.reqs[0].out),
+                        "wall": time.perf_counter() - t0,
+                        "accepted": eng.spec_accepted,
+                        "proposed": eng.spec_proposed,
+                        "calls": dict(eng.step_calls)}
+    del eng
+
+    # 2. scoring 8 x 512, per token against the mesh's plain modes
+    score = runner.make_score_fn()
+    score(params, seqs[:1, :16], mask[:1, :16])           # warm-up
+    torch.cuda.synchronize()
+    build.reset_launches()
+    t0 = time.perf_counter()
+    got = score(params, seqs, mask)
+    torch.cuda.synchronize()
+    rec = {"got": got.cpu(), "ms": 1e3 * (time.perf_counter() - t0),
+           "launches": dict(build.LAUNCHES)}
+    lp, _ = token_logp(cfg, params, seqs, runner.flags, runner.env)
+    with plain_moe_head():
+        lp_plain, top = token_logp(
+            cfg, params, seqs, M.RunFlags(paged_attn="gathered"), runner.env)
+    rec.update(tok_err=(lp - lp_plain).abs().max().item(), top=top,
+               tok_mean=(lp - lp_plain).abs().mean().item(),
+               sum_err=(got - lp.sum(-1)).abs().max().item(),
+               lp_max=lp.abs().max().item())
+    out["score"] = rec
+    del lp, lp_plain
+
+    # 3. harness items of odd length: "auto" takes "batched"
+    modes, orig = [], moe.resolve_dispatch
+
+    def seen(*a, **k):
+        mode = orig(*a, **k)
+        modes.append(mode)
+        return mode
+    moe.resolve_dispatch = seen
+    try:
+        items = H.make_mc_dataset(MESH_HARNESS_ITEMS, cfg.vocab_size)
+        t0 = time.perf_counter()
+        rep = H.ppl_eval_content(items, lambda t, m: float(
+            score(params, t[None], m[None])[0]))
+    finally:
+        moe.resolve_dispatch = orig
+    out["harness"] = {"accuracy": rep["accuracy"], "modes": sorted(set(modes)),
+                      "ms": 1e3 * (time.perf_counter() - t0) / len(items),
+                      "lens": sorted({len(it.context) + len(o) for it in items
+                                      for o in it.options})}
+
+    # 4. the SLO engine: rank 0's tracker decides for both ranks
+    eng = OnlineEngine(runner, params, OnlineConfig(
+        **geo, overload="slo", slo=SLOConfig(ttft_p99_ms=deadline)))
+    eng.submit(OnlineRequest(rid=100, prompt=np.asarray(prompts[0], np.int32),
+                             max_new=9))
+    eng.run(max_ticks=1000)
+    own, should_shed = [], eng.slo.should_shed
+
+    def own_verdict(*a, **k):
+        v = should_shed(*a, **k)
+        own.append(v is not None)
+        return v
+    eng.slo.should_shed = own_verdict
+    took = [eng.submit(OnlineRequest(rid=i, prompt=np.asarray(p, np.int32),
+                                     max_new=MESH_SLO_NEW))
+            for i, p in enumerate(slo_prompts)]
+    eng.run(max_ticks=10_000)
+    out["slo"] = {"shed": [i for i, t in enumerate(took) if not t],
+                  "own": [i for i, v in enumerate(own) if v],
+                  "done": sum(len(eng.reqs[i].out) == MESH_SLO_NEW
+                              for i, t in enumerate(took) if t),
+                  "snapshot": eng.slo.snapshot()}
+    del eng, params, runner, score
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 5. phase 8's step at (1, 2), one microbatch, int8 SP boundaries
+    m = tmesh.make_local_mesh(1, 2, device="cuda:0", timeout_s=MESH_TIMEOUT_S)
+    build.reset_launches()
+    trainer, _, _ = train_setup(MESH_STEPS, mesh=m, debug_guards=False,
+                                accum=MESH_ACCUM, sp_comm="int8")
+    times = []
+    try:
+        for k in range(1, MESH_STEPS + 1):
+            t1 = time.perf_counter()
+            trainer.train(k)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t1)
+    finally:
+        trainer.close()
+    out["int8"] = {"hist": [(r["loss"], r["grad_norm"])
+                            for r in trainer.history],
+                   "times": times, "launches": dict(build.LAUNCHES),
+                   "stats": {k: dict(v) for k, v in m.stats.items()}}
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 6. checkpoints of the 1-layer model: saved at (2, 1) after a step
+    cfg1 = dataclasses.replace(cfg, n_layers=1)
+
+    def make(mesh_):
+        return Trainer(
+            api.Runner(cfg1, device=mesh_.device, mesh=mesh_),
+            DataPipeline(PipelineConfig(vocab_size=cfg1.vocab_size,
+                                        seq_len=1024, batch_size=2, seed=0)),
+            TrainConfig(n_steps=2, log_every=1, seed=0, debug_guards=False,
+                        checkpoint_dir=ck_root))
+    m21 = tmesh.make_local_mesh(2, 1, device="cuda:0",
+                                timeout_s=MESH_TIMEOUT_S)
+    a = make(m21)
+    try:
+        a.train(1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        a.save("step_1")
+        a.pcache.wait()
+        ck = {"save_s": time.perf_counter() - t0,
+              "save_bytes": a.pcache.last_save["bytes"]}
+        a.train(2)
+    finally:
+        a.close()
+    a_hist = [(r["loss"], r["grad_norm"]) for r in a.history]
+    a_params = [t.detach().clone() for t in adamw.leaves(a.params)]
+    del a
+    gc.collect()
+    torch.cuda.empty_cache()
+    b = make(m21)
+    try:
+        t0 = time.perf_counter()
+        ck["restored"] = b.restore("latest")
+        ck["restore_s"] = time.perf_counter() - t0
+        ck["restore_bytes"] = b.pcache.last_load["bytes"]
+        b.train(2)
+    finally:
+        b.close()
+    ck["same_step"] = [(r["loss"], r["grad_norm"])
+                       for r in b.history] == a_hist[1:]
+    ck["same_params"] = all(torch.equal(x, y) for x, y in zip(
+        a_params, adamw.leaves(b.params)))
+    ck["hist"] = (a_hist, [(r["loss"], r["grad_norm"]) for r in b.history])
+    del b, a_params
+    gc.collect()
+    torch.cuda.empty_cache()
+    m12 = tmesh.make_local_mesh(1, 2, device="cuda:0",
+                                timeout_s=MESH_TIMEOUT_S)
+    c = make(m12)
+    try:
+        t0 = time.perf_counter()
+        c.restore("step_1")
+        ck["restore_12_s"] = time.perf_counter() - t0
+        pc = PC.PCache(ck_root)
+        files = pc.manifest("step_1")["leaves"]
+        specs = adamw.leaves(c._state_specs())
+        bad = 0
+        for e, t, spec in zip(files, adamw.leaves(c._state_tree()), specs):
+            mm = np.load(os.path.join(ck_root, "step_1", e["file"]),
+                         mmap_mode="r")
+            want = np.array(mm[PC.slice_index(
+                tuple(spec), tuple(t.shape), c.runner.env)])
+            bad += not torch.equal(t.cpu(), torch.from_numpy(want))
+            del mm
+        ck["slices_equal"] = bad == 0
+        ck["n_leaves"] = len(files)
+    finally:
+        c.close()
+    out["ckpt"] = ck
+    del c
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.distributed.destroy_process_group()
+    return out
+
+
+def mesh_paths(card, base):
+    """Phase 9c: two ranks over gloo on the one card.  On (1, 2) at full
+    depth (28 layers): speculative decoding with a 1-layer self-draft at
+    k = 4 on 9b's prompts (greedy streams the first MESH_SPEC_NEW tokens
+    of 9b's bit for bit, both ranks equal, launches per spec tick and
+    chunk held) and one request with a full-depth self-draft (every
+    draft accepted, its stream 9b's), phase 6c's 8 x 512
+    make_score_fn (each token's log p within SCORE_TOL of the largest
+    logit from the mesh's plain modes; the gap to 6c's (1, 1) scores
+    printed), harness items of 15 scored tokens (each rank's dispatch
+    modes printed: "batched" must be among them), 6c's SLO engine with
+    a deadline of MESH_SLO_ADMIT prompts' chunks at 9b's tick p50 (both
+    ranks shed the same rids, some but not all 16); then phase 8's 4-layer step
+    at one microbatch with int8 SP boundaries (loss and grad norm within
+    INT8_TOL of 9b's native (1, 2) steps; the SP collectives' bytes and
+    those staged through the host beside native's); then the 1-layer
+    model's checkpoint (13 GB) saved at (2, 1) after one step: fresh (2,
+    1) trainers restore it and their next step is the unbroken run's bit
+    for bit, and (1, 2) ranks restore it with every slice the files' bit
+    for bit.  Returns the launches."""
+    import dataclasses
+    import math
+    import shutil
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw
+    t0 = time.perf_counter()
+    cfg = get_config("ling-lite")
+    prompts = [p[:MESH_PROMPT_LEN] for p in base["prompts"][:MESH_PROMPTS]]
+    seqs, mask, got11 = base["score"]
+    slo_prompts = [p[:MESH_PROMPT_LEN] for p in base["prompts"]]
+    deadline = base["mesh_9b"]["tick_ms"] * math.ceil(
+        sum(len(p) for p in slo_prompts[:MESH_SLO_ADMIT]) / 64)
+    n_par = sum(t.numel() for t in adamw.leaves(M.init_model(
+        dataclasses.replace(cfg, n_layers=1), device="meta", masters=True)))
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_mesh_ckpt_"))
+    try:
+        free, need = shutil.disk_usage(root).free, 12 * n_par + (1 << 30)
+        if free < need:
+            fail(f"phase 9c: {root} has {free / 1e9:.2f} GB free; the "
+                 f"checkpoint needs {need / 1e9:.2f} GB")
+        r0, r1 = _spawn(_paths_rank, 2, prompts, seqs, mask, deadline,
+                        slo_prompts, str(root))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    L_ = cfg.n_layers
+    failed = []
+
+    # 1. speculative decoding
+    sp = r0["spec"]
+    want = [s[:MESH_SPEC_NEW] for s in base["mesh_9b"]["streams"]]
+    calls = sp["calls"]
+    per_tick = {n: (MESH_SPEC_K + 1) * MESH_DRAFT_LAYERS + L_
+                for n in SERVE_KERNELS}
+    per_tick["normhead_matmul"] = (MESH_SPEC_K + 1) + 1
+    per_chunk = {n: L_ + MESH_DRAFT_LAYERS for n in SERVE_KERNELS}
+    per_chunk["normhead_matmul"] = 2
+    print(f"[mesh-9c] spec k={MESH_SPEC_K}, {MESH_DRAFT_LAYERS}-layer "
+          f"self-draft on (1, 2), {L_} layers: {calls}, wall "
+          f"{sp['wall']:.2f}s, tick p50 {sp['tick_ms']:.2f}ms, acceptance "
+          f"{sp['accept']:.3f}, {sum(map(len, sp['streams']))} tokens; "
+          f"launches {sp['launches']} [{card}]")
+    if sp["streams"] != r1["spec"]["streams"]:
+        failed.append("the ranks' spec streams differ")
+    if sp["streams"] != want:
+        bad = [i for i, (a, b) in enumerate(zip(sp["streams"], want))
+               if a != b]
+        failed.append(f"greedy spec streams differ from 9b's (requests "
+                      f"{bad})")
+    for name, n in sp["launches"].items():
+        w = (per_chunk.get(name, 0) * calls["prefill"]
+             + per_tick.get(name, 0) * calls["verify"])
+        if n != w:
+            failed.append(f"spec {name} launched {n} times, expected {w}")
+    fu = r0["spec_full"]
+    print(f"[mesh-9c] spec k={MESH_SPEC_K}, full-depth self-draft on (1, 2),"
+          f" request 0: {fu['calls']}, wall {fu['wall']:.2f}s, accepted "
+          f"{fu['accepted']} of {fu['proposed']} drafts [{card}]")
+    if fu["stream"] != r1["spec_full"]["stream"]:
+        failed.append("the ranks' full-depth spec streams differ")
+    if not (fu["proposed"] > 0 and fu["accepted"] == fu["proposed"]
+            and fu["stream"] == want[0]):
+        failed.append(f"full-depth self-draft accepted {fu['accepted']} of "
+                      f"{fu['proposed']} drafts, stream equals 9b's: "
+                      f"{fu['stream'] == want[0]}")
+
+    # 2. scoring
+    sc = r0["score"]
+    gap = (sc["got"] - got11).abs().max().item()
+    tok_tol = SCORE_TOL * sc["top"]
+    sum_tol = 1e-5 * (seqs.shape[1] - 1) * sc["lp_max"]
+    print(f"[mesh-9c] make_score_fn {seqs.shape[0]} x {seqs.shape[1]} on "
+          f"(1, 2): {sc['ms']:.2f}ms (launches {sc['launches']}); per token "
+          f"against the mesh's plain modes max {sc['tok_err']:.4e} nats "
+          f"(tolerance {tok_tol:.4e}), mean {sc['tok_mean']:.4e}; scores "
+          f"against their tokens' sums {sc['sum_err']:.4e} (tolerance "
+          f"{sum_tol:.4e}); gap to 6c's (1, 1) scores {gap:.4e} nats of "
+          f"{got11.abs().max().item():.2f} [{card}]")
+    if not torch.equal(sc["got"], r1["score"]["got"]):
+        failed.append("the ranks' scores differ")
+    if not (bool(torch.isfinite(sc["got"]).all())
+            and bool((sc["got"] < 0).all())):
+        failed.append(f"scores {sc['got'].tolist()} not finite and negative")
+    if not sc["tok_err"] <= tok_tol:
+        failed.append(f"a token's log p is {sc['tok_err']} from the plain "
+                      f"modes' (tolerance {tok_tol})")
+    if not sc["sum_err"] <= sum_tol:
+        failed.append(f"scores {sc['sum_err']} from their tokens' sums")
+
+    # 3. the harness at odd lengths
+    for r, rr in enumerate((r0, r1)):
+        h = rr["harness"]
+        print(f"[mesh-9c] harness ppl_eval_content rank {r}: {len(h['lens'])}"
+              f" scored lengths {h['lens']}, dispatch modes {h['modes']}, "
+              f"accuracy {h['accuracy']:.3f}, {h['ms']:.1f}ms per item")
+        if "batched" not in h["modes"]:
+            failed.append(f"rank {r}'s odd-length items took {h['modes']}")
+
+    # 4. the SLO gate
+    sl, n_slo = r0["slo"], len(slo_prompts)
+    print(f"[mesh-9c] SLO engine on (1, 2), deadline {deadline:.2f}ms (the "
+          f"first {MESH_SLO_ADMIT} prompts' prefill chunks at 9b's tick "
+          f"p50): shed {sl['shed']} of {n_slo} (rank 1 {r1['slo']['shed']});"
+          f" each rank's own tracker would shed {sl['own']} / "
+          f"{r1['slo']['own']}; {sl['done']} admitted requests finished; "
+          f"slo {sl['snapshot']} (rank 1 {r1['slo']['snapshot']}) [{card}]")
+    if sl["shed"] != r1["slo"]["shed"] or not 0 < len(sl["shed"]) < n_slo:
+        failed.append(f"SLO sheds {sl['shed']} vs {r1['slo']['shed']} of "
+                      f"{n_slo}")
+    if sl["shed"] != sl["own"]:
+        failed.append(f"rank 0 shed {sl['shed']}, its tracker said "
+                      f"{sl['own']}")
+    if sl["done"] != n_slo - len(sl["shed"]):
+        failed.append(f"{sl['done']} of {n_slo - len(sl['shed'])} admitted "
+                      f"SLO requests finished")
+
+    # 5. the int8 step against 9b's native (1, 2) step
+    i8, nat = r0["int8"], base["mesh_9b"]["train_1x2"]
+    steps = len(i8["hist"])
+    sp_ops = ("all_gather", "reduce_scatter", "all_to_all")
+
+    def sp_bytes(stats):
+        return (sum(stats.get(o, {}).get("bytes", 0) for o in sp_ops) / steps,
+                sum(v["host_bytes"] for v in stats.values()) / steps)
+    ib, ih = sp_bytes(i8["stats"])
+    nb, nh_ = sp_bytes(nat["stats"])
+    print(f"[mesh-9c] int8 SP step (1, 2), 4 layers: (loss, grad norm) "
+          f"{i8['hist']} vs native {[h[:2] for h in nat['hist']]}; step times "
+          f"{[round(t, 3) for t in i8['times']]}s (native "
+          f"{[round(t, 3) for t in nat['times']]}s); all-gather + "
+          f"reduce-scatter + all-to-all {ib / 1e6:.1f}MB a step (native "
+          f"{nb / 1e6:.1f}MB), staged through the host {ih / 1e6:.1f}MB "
+          f"(native {nh_ / 1e6:.1f}MB); launches {i8['launches']} [{card}]")
+    print(f"[mesh-9c] collectives, rank 0, "
+          f"{_collective_line(i8['stats'], steps, 'int8 step')}")
+    for (loss, gn), h in zip(i8["hist"], nat["hist"]):
+        if not (abs(loss - h[0]) <= INT8_TOL * abs(h[0])
+                and abs(gn - h[1]) <= INT8_TOL * h[1]):
+            failed.append(f"int8 (loss, grad norm) {(loss, gn)} vs native "
+                          f"{h[:2]} past {INT8_TOL} relative")
+
+    # 6. checkpoints
+    for r, rr in enumerate((r0, r1)):
+        ck = rr["ckpt"]
+        print(f"[mesh-9c] checkpoint rank {r}: saved at (2, 1) "
+              f"{ck['save_bytes'] / 1e9:.2f}GB of its slices in "
+              f"{ck['save_s']:.2f}s ({ck['save_bytes'] / 1e9 / ck['save_s']:.2f}"
+              f" GB/s), restored {ck['restore_bytes'] / 1e9:.2f}GB in "
+              f"{ck['restore_s']:.2f}s at (2, 1) ({ck['restored']}), "
+              f"{ck['restore_12_s']:.2f}s at (1, 2); resumed step = "
+              f"unbroken {ck['same_step']} ({ck['hist']}), params "
+              f"{ck['same_params']}; (1, 2) slices = files "
+              f"{ck['slices_equal']} ({ck['n_leaves']} leaves)")
+        if not (ck["same_step"] and ck["same_params"]
+                and ck["slices_equal"]):
+            failed.append(f"checkpoint rank {r}: step {ck['same_step']} "
+                          f"params {ck['same_params']} slices "
+                          f"{ck['slices_equal']}")
+    print(f"[mesh-9c] phase 9c took {time.perf_counter() - t0:.1f}s")
+    if failed:
+        fail("phase 9c: " + "; ".join(failed))
+    return {"mesh_spec": sp["launches"], "mesh_score": sc["launches"],
+            "mesh_train_int8": i8["launches"]}
 
 
 def main():
@@ -3666,9 +4207,9 @@ def main():
     for label, (arch, S, pos) in PA_FAMILY_CASES.items():
         k3[label], k4[label] = check_pa(get_config(arch), label,
                                         dense_case(arch, S, pos, gen))
-    for label, rank in PA_MESH_CASES.items():
+    for label, (shape, rank) in PA_MESH_CASES.items():
         k3[label], k4[label] = check_pa(cfg, label, paged_case(
-            cfg, gen=gen, tp=MESH_TP, rank=rank, **PA_CASES["decode"]))
+            cfg, gen=gen, tp=MESH_TP, rank=rank, **PA_CASES[shape]))
     k2, wgrad = check_k2(cfg, gen)
     rows, wrows = check_k2(get_config(K2_ARCH), gen)
     k2.update({f"granite {k}": v for k, v in rows.items()})
@@ -3676,13 +4217,16 @@ def main():
     for label, T in EP_CASES.items():
         case = ep_case(cfg, T, gen)
         k1[label] = check_k1(cfg, T, gen, case=case)
-        if T == max(EP_CASES.values()):
+        if T == EP_TRAIN_T:
             rows, wrows = check_k2(cfg, gen, case=case)
             k2.update({f"{label} {k}": v for k, v in rows.items()})
             wgrad.update({f"{label} {k}": v for k, v in wrows.items()})
         del case
         torch.cuda.empty_cache()
     del rows, wrows
+    for label, T in FUSED_MESH_CASES.items():
+        k1[label] = check_k1(cfg, T, gen, case=fused_tp_case(cfg, T, gen))
+    torch.cuda.empty_cache()
     k5 = {label: check_k5(label, *k5_case(arch, T, gen))
           for label, (arch, T) in K5_CASES.items()}
     k5.update({label: check_k5(label, *k5_case(arch, T, gen, tp=MESH_TP))
@@ -3792,6 +4336,7 @@ def main():
     mesh_launches, hist_9b = mesh_nccl(card, base, train_hist)
     print(f"[mesh-9a] phase 9a took {time.perf_counter() - t0:.1f}s")
     mesh_launches.update(mesh_gloo(card, base, tf_tokens, tf_one, hist_9b))
+    mesh_launches.update(mesh_paths(card, base))
 
     # -- 10. results --------------------------------------------------------
     # (source, TPU kernel it replaces, the row's shape, the path whose

@@ -22,8 +22,11 @@ the runner holds the rank's `AxisEnv` and spec tree: `init_params` gives
 the rank its shards of the same global parameters as at (1, 1), the
 train step takes the global batch and keeps the rank's dp rows
 (`batch_sharding`), and the serving steps run on a (1, tp) mesh with
-every rank's tokens equal.  Scoring, speculative decoding and every
-architecture but Ling-Lite raise there (ROADMAP item 9).
+every rank's tokens equal, speculative decoding's draft and verify
+steps included; `make_score_fn` splits the rows over dp and the
+vocabulary over tp.  `sp_comm="int8"` quantizes the sequence-parallel
+boundaries of the train step (`sharding.quant_rows`).  Every
+architecture but Ling-Lite raises there (ROADMAP item 9).
 """
 from __future__ import annotations
 
@@ -76,11 +79,12 @@ class Runner:
     device: Union[str, torch.device] = "cuda"
     max_seq: int = 4096     # an encoder-decoder's learned decoder positions
     mesh: Optional[Mesh] = None
+    sp_comm: str = "native"            # "native" | "int8"
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
         M.check_ported_blocks(self.cfg)
-        self.env = sharding.make_axis_env(self.mesh)
+        self.env = sharding.make_axis_env(self.mesh, sp_comm=self.sp_comm)
         M.check_mesh_support(self.cfg, self.env)
         if self.mesh is not None and self.mesh.size > 1 \
                 and self.mesh.device != self.device:
@@ -95,12 +99,6 @@ class Runner:
         if self._specs is None:
             self._specs = M.param_specs(self.cfg, self.env, self.max_seq)
         return self._specs
-
-    def _single(self, what: str):
-        if self.env.dp * self.env.tp > 1:
-            raise NotImplementedError(
-                f"{what} on a (dp={self.env.dp}, tp={self.env.tp}) mesh is "
-                f"not yet ported (ROADMAP item 9)")
 
     def init_params(self, seed: int = 0):
         """Random serving parameters on the runner's device from
@@ -283,31 +281,50 @@ class Runner:
         serving router); the logits come from the NormHead on K5
         (`embedding.serve_logits`), vocabulary padding is masked to -1e30
         and the log-sum-exp is fp32, as the reference's.  Any (B, S) is
-        taken (the reference fixes both for its shard_map).  One rank
-        only."""
-        self._single("make_score_fn")
-        cfg, flags, dev = self.cfg, self.flags, self.device
+        taken (the reference fixes both for its shard_map).
+
+        Over a mesh (every rank calls it with the same global tokens)
+        the rows split over dp (`batch_sharding`) and the vocabulary over
+        tp: K5 runs on the rank's vocab shard, the row max is taken over
+        tp (`pmax_tp`), the sum of exponentials and the picked logit
+        summed over tp, and every rank returns the whole (B,) scores,
+        gathered over dp.  Where the rank's B_loc * (S - 1) tokens do not
+        divide over tp the forward runs with SP off (the reference's
+        ``seq_parallel=False`` runner; its SP runner raises there), and
+        the MoE's "auto" dispatch takes "batched"."""
+        cfg, flags, dev, env = self.cfg, self.flags, self.device, self.env
 
         @torch.no_grad()
         def fn(params, tokens, mask):
             tokens = torch.as_tensor(tokens, device=dev).long()
             mask = torch.as_tensor(mask, device=dev)
+            B = tokens.shape[0]
+            rows = local_rows(env, {"tokens": tokens, "mask": mask})
+            tokens, mask = rows["tokens"], rows["mask"]
+            T = tokens.shape[0] * (tokens.shape[1] - 1)
+            fenv = env if T % env.tp == 0 else sharding.denv(env)
             labels = torch.where(mask[:, 1:] > 0, tokens[:, 1:], -1)
             x, _, _, _ = M.forward(cfg, params, {"tokens": tokens[:, :-1]},
-                                   train=False, flags=flags)
-            logits = emb.serve_logits(cfg, params["embed"], x)
-            vp = logits.shape[-1]
-            gid = torch.arange(vp, device=dev)
+                                   train=False, flags=flags, env=fenv)
+            logits = emb.serve_logits(cfg, params["embed"], x, env)
+            v_loc = logits.shape[-1]
+            lo = env.tp_index() * v_loc
+            gid = lo + torch.arange(v_loc, device=dev)
             logits = torch.where(gid[None, :] < cfg.vocab_size, logits,
                                  -1e30)
-            m = logits.max(dim=-1).values
-            lse = m + torch.log(torch.exp(logits - m[:, None]).sum(dim=-1))
-            lab = labels.reshape(-1)
+            m = env.pmax_tp(logits.max(dim=-1).values)
+            se = env.psum_tp(torch.exp(logits - m[:, None]).sum(dim=-1))
+            lse = m + torch.log(se)
+            loc = labels.reshape(-1) - lo
+            in_rng = (loc >= 0) & (loc < v_loc)
             picked = torch.gather(logits, 1,
-                                  lab.clamp(0, vp - 1)[:, None])[:, 0]
-            corr = torch.where(lab < vp, picked, 0.0)
-            tok_lp = torch.where(lab >= 0, corr - lse, 0.0)
-            return tok_lp.reshape(tokens.shape[0], -1).sum(dim=-1)
+                                  loc.clamp(0, v_loc - 1)[:, None])[:, 0]
+            corr = env.psum_tp(torch.where(in_rng, picked, 0.0))
+            tok_lp = torch.where(labels.reshape(-1) >= 0, corr - lse, 0.0)
+            scores = tok_lp.reshape(tokens.shape[0], -1).sum(dim=-1)
+            if env.dp > 1 and batch_sharding(env, B) is not None:
+                scores = env.mesh.dp_group.all_gather(scores, 0)
+            return scores
         return fn
 
     # -- paged serving (all-attn models) --------------------------------------
@@ -379,9 +396,9 @@ class Runner:
         ``(params, pools, token (B,), pos0 (B,), table, active, seeds,
         temperature, top_p, top_k) -> (drafts (B, k), draft_probs (B, k,
         Vp), pools)``, k+1 chained sampled decode ticks over the
-        drafter's own pools (stream STREAM_DRAFT).  One rank only."""
-        self._single("speculative decoding")
-        cfg, flags = self.cfg, self.flags
+        drafter's own pools (stream STREAM_DRAFT).  Over a (1, tp) mesh
+        every rank gets the same drafts and the whole-vocabulary q."""
+        cfg, flags, env = self.cfg, self.flags, self.env
 
         @torch.no_grad()
         def step(params, pools, token, pos0, table, active, seeds, temp,
@@ -389,7 +406,7 @@ class Runner:
             return M.paged_draft_propose(
                 cfg, params, pools, token, pos0, table, active,
                 (seeds, temp, top_p, top_k), k=k, page_size=page_size,
-                flags=flags)
+                flags=flags, env=env)
         return step
 
     def make_paged_verify_step(self, page_size: int, k: int):
@@ -397,10 +414,10 @@ class Runner:
         (B,), table, active, draft_probs (B, k, Vp), seeds, temperature,
         top_p, top_k) -> (n_acc (B,), out (B, k+1), pools)``: one
         prefill-shaped pass over all k+1 positions and the accept/reject
-        on the device (`models.model.paged_verify_step`).  One rank
-        only."""
-        self._single("speculative decoding")
-        cfg, flags = self.cfg, self.flags
+        on the device (`models.model.paged_verify_step`).  Over a (1, tp)
+        mesh K3/K4 run over the rank's in-page offsets and K5 on its
+        vocabulary shard, and every rank gets the same result."""
+        cfg, flags, env = self.cfg, self.flags, self.env
         del k                      # the shape of `tokens` carries it
 
         @torch.no_grad()
@@ -409,5 +426,5 @@ class Runner:
             return M.paged_verify_step(
                 cfg, params, pools, tokens, pos0, table, active, draft_probs,
                 (seeds, temp, top_p, top_k), page_size=page_size,
-                flags=flags)
+                flags=flags, env=env)
         return step

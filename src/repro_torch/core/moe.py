@@ -3,8 +3,8 @@
 Routed experts are sharded over tp on their leading dim (`ep_spec`: rank
 r owns experts [r*E_loc, (r+1)*E_loc)) and FSDP-sharded over dp on
 another.  At tp=1 the dispatch buffer holds all T*k slots (dropless).
-Slots are stably sorted by expert; two dispatch modes compute the routed
-experts at tp=1:
+Slots are stably sorted by expert; three dispatch modes compute the routed
+experts at tp=1 ("batched", below, is the third):
 
   "fused"   `FusedFFN`, the counterpart of the reference's `fused_ffn`
             custom-vjp.  Forward: kernel K1 through `ops.moe_fused_ffn`
@@ -19,19 +19,31 @@ experts at tp=1:
             plain mode (it reads group_sizes on the host), not K1's plain
             version (which keeps h in fp32).
 
-At tp > 1 the one mode is "ep" (`_ep_moe_ffn`), the reference's default
-off the TPU: rank r routes its owned T/tp token slice, an all-to-all
-sends each routed slot to the shard owning its expert (at most
-`ep_capacity` slots a shard pair: the earliest win, the rest drop), the
-received rows run through `FusedFFN` with gate 1 (K1 forward, K2 and the
-weight gradient backward, as at tp=1), and a second all-to-all brings the
-outputs home, where the gates scale them into the owned slice.  "ep"
-needs T % tp == 0; the reference's "batched" fallback and its "fused" /
-"ragged" modes at tp > 1 are not ported (ROADMAP item 9).
+At tp > 1 four modes, as the reference's:
 
-"auto" resolves to "fused" at tp=1 and "ep" at tp > 1.  The always-on
-shared expert (a tensor-parallel FFN) adds into the same output in every
-mode.
+  "ep"      (`_ep_moe_ffn`): rank r routes its owned T/tp token slice,
+            an all-to-all sends each routed slot to the shard owning its
+            expert (at most `ep_capacity` slots a shard pair: the
+            earliest win, the rest drop), the received rows run through
+            `FusedFFN` with gate 1 (K1 forward, K2 and the weight
+            gradient backward, as at tp=1), and a second all-to-all
+            brings the outputs home, where the gates scale them into the
+            owned slice.  Needs T % tp == 0.
+  "fused", "ragged"  the Megatron layout: every rank routes all T tokens
+            (x replicated over tp, the same warmup noise on every rank),
+            sorts the T*k slots with the other ranks' experts last and
+            keeps the first `capacity` of them; its E/tp local experts
+            run over those rows (`FusedFFN` or the bf16 composition),
+            the trailing non-local rows gated 0.
+  "batched" the per-expert-capacity layout (E_loc, C_e, d) of
+            `expert_capacity` rows an expert, plain einsums (no Pallas
+            form in the reference, so no kernel); at tp=1 too.
+
+"auto" resolves to "fused" at tp=1; at tp > 1 to "ep" when T % tp == 0
+and "batched" otherwise (the reference's choice off the TPU); an
+explicit "ep" with T % tp != 0 raises, as the reference's.  The
+always-on shared expert (a tensor-parallel FFN) adds into the same
+output in every mode.
 """
 from __future__ import annotations
 
@@ -63,6 +75,15 @@ def capacity(cfg, env: AxisEnv, n_tokens: int) -> int:
         return slots
     cap = int(slots * m.capacity_factor / env.tp)
     return min(sharding.pad_to_multiple(max(cap, 8), 8), slots)
+
+
+def expert_capacity(cfg, env: AxisEnv, n_tokens: int) -> int:
+    """Rows an expert of the "batched" mode: C_e = T*k*cf/E rounded up to
+    8 (at most T*k), the reference's global semantics (the rows of all
+    E_loc experts match the per-rank `capacity`)."""
+    m = cfg.moe
+    c = int(n_tokens * m.top_k * m.capacity_factor / m.n_experts)
+    return min(sharding.pad_to_multiple(max(c, 8), 8), n_tokens * m.top_k)
 
 
 def ep_capacity(cfg, env: AxisEnv, n_tokens_local: int) -> int:
@@ -201,59 +222,97 @@ def fused_ffn(act, x, w1, w2, w3, tok, gate, group_sizes):
     return FusedFFN.apply(act, x, w1, w2, w3, tok, gate, group_sizes)
 
 
+DISPATCHES = ("fused", "ragged", "batched", "ep")
+
+
 def resolve_dispatch(cfg, dispatch: str, env: AxisEnv = LOCAL,
                      n_tokens: Optional[int] = None) -> str:
-    """RunFlags.moe_dispatch -> "fused" | "ragged" (tp=1) or "ep" (tp >
-    1).  At tp > 1 "ep" needs the call's T (`n_tokens`) divisible by tp:
-    the reference falls back to its "batched" mode there, which is not
-    ported, so the port raises naming the constraint."""
+    """RunFlags.moe_dispatch -> "fused" | "ragged" | "batched" | "ep", as
+    the reference resolves it off the TPU: "auto" takes the config's
+    knob, then "fused" at tp=1 ("ep" buys nothing there) and at tp > 1
+    "ep" when the call's T (`n_tokens`) divides over tp, else "batched".
+    An explicit "ep" with T % tp != 0 raises."""
+    explicit = dispatch != "auto"
     if dispatch == "auto":
         dispatch = cfg.moe.dispatch
-    if env.tp == 1:
-        if dispatch in ("auto", "ep"):      # ep buys nothing at tp=1
-            dispatch = "fused"
-        if dispatch not in ("fused", "ragged"):
-            raise NotImplementedError(
-                f"moe dispatch {dispatch!r} is not yet ported (tp=1 "
-                f"supports fused and ragged)")
-        return dispatch
     if dispatch == "auto":
-        dispatch = "ep"
-    if dispatch != "ep":
-        raise NotImplementedError(
-            f"moe dispatch {dispatch!r} at tp={env.tp} is not yet ported "
-            f"(ROADMAP item 9); tp > 1 runs 'ep'")
-    if n_tokens is not None and n_tokens % env.tp:
-        raise ValueError(
-            f"dispatch='ep' needs T ({n_tokens}) divisible by tp "
-            f"({env.tp}): the reference's 'batched' fallback is not ported "
-            f"(round the batch up with serving.flood.quantize_microbatch)")
+        dispatch = "ep" if env.tp > 1 else "fused"
+    if dispatch not in DISPATCHES:
+        raise ValueError(f"unknown moe dispatch mode: {dispatch!r}")
+    if env.tp == 1:
+        return "fused" if dispatch == "ep" else dispatch
+    if dispatch == "ep" and n_tokens is not None and n_tokens % env.tp:
+        if explicit:
+            raise ValueError(f"dispatch='ep' needs T ({n_tokens}) "
+                             f"divisible by tp ({env.tp})")
+        dispatch = "batched"
     return dispatch
 
 
-def sort_slots(cfg, top_w, top_i):
-    """Sort the T*k routed slots stably by expert (dropless at tp=1).
-    Returns (tok (cap,) token per slot, gates (cap,) router weight per
-    slot in the compute dtype, group_sizes (E,) slots per expert,
-    n_kept)."""
+def _local_keys(cfg, env: AxisEnv, top_i):
+    """Each of the T*k slots' expert among this rank's E_loc (E_loc for
+    another rank's), and whether it is this rank's."""
+    _, e_loc = padded_experts(cfg, env)
+    local = top_i.reshape(-1) - env.tp_index() * e_loc
+    is_local = (local >= 0) & (local < e_loc)
+    return torch.where(is_local, local, e_loc), is_local
+
+
+def _group_sizes(key, n: int):
+    """Counts of the keys 0..n-1 (key n: none).  A scatter into a known
+    length: bincount would read the max back to the host on CUDA."""
+    return torch.zeros(n + 1, dtype=torch.long, device=key.device) \
+        .scatter_add_(0, key, torch.ones_like(key))[:n]
+
+
+def sort_slots(cfg, top_w, top_i, env: AxisEnv = LOCAL):
+    """The "fused" / "ragged" layout: the T*k routed slots sorted stably by
+    local expert, other ranks' experts last, the first `capacity` kept
+    (all of them, dropless, at tp=1).  Returns (tok (cap,) token per
+    slot, gates (cap,) router weight per slot in the compute dtype, 0 on
+    a row of another rank's expert, group_sizes (E_loc,) rows per local
+    expert, n_kept)."""
     m = cfg.moe
-    E = m.n_experts
-    cap = top_i.shape[0] * m.top_k
-    flat_i = top_i.reshape(-1)                     # (T*k,)
-    flat_w = top_w.reshape(-1)
-    order = torch.argsort(flat_i, stable=True)     # slots by expert
-    sel = order[:cap]
+    _, e_loc = padded_experts(cfg, env)
+    cap = capacity(cfg, env, top_i.shape[0])
+    key, _ = _local_keys(cfg, env, top_i)
+    sel = torch.argsort(key, stable=True)[:cap]
     tok = sel // m.top_k                           # token per slot
-    skey = flat_i[sel]
-    valid = skey < E
-    # scatter_add_ into a known length: bincount would read the max back
-    # to the host on CUDA, a sync per layer
-    key = torch.where(valid, skey, E)
-    group_sizes = torch.zeros(E + 1, dtype=torch.long,
-                              device=top_i.device) \
-        .scatter_add_(0, key, torch.ones_like(key))[:E]
-    gates = (flat_w[sel] * valid).to(L.dtype_of(cfg.compute_dtype))
-    return tok, gates, group_sizes, valid.sum()
+    skey = key[sel]
+    valid = skey < e_loc
+    gates = (top_w.reshape(-1)[sel] * valid).to(L.dtype_of(cfg.compute_dtype))
+    return tok, gates, _group_sizes(skey, e_loc), valid.sum()
+
+
+def batched_ffn(cfg, env: AxisEnv, x, w1, w2, w3, top_w, top_i):
+    """The "batched" mode (the reference's per-expert-capacity dispatch):
+    local expert e's slots, in sorted order, fill the first min(count_e,
+    C_e) of its C_e = `expert_capacity` rows of an (E_loc, C_e, d)
+    layout, the expert FFN is three batched einsums in the compute dtype
+    and the gated outputs are scatter-added.  Returns (y (T, d), n_kept)."""
+    m = cfg.moe
+    T, d = x.shape
+    cdt = L.dtype_of(cfg.compute_dtype)
+    _, e_loc = padded_experts(cfg, env)
+    c_e = expert_capacity(cfg, env, T)
+    key, _ = _local_keys(cfg, env, top_i)
+    order = torch.argsort(key, stable=True)
+    counts = _group_sizes(key, e_loc)
+    offsets = torch.cumsum(counts, 0) - counts
+    ar = torch.arange(c_e, device=x.device)
+    slot = order[(offsets[:, None] + ar[None, :]).clamp(0, order.shape[0] - 1)]
+    slot_valid = ar[None, :] < torch.clamp(counts, max=c_e)[:, None]
+    tok_e = (slot // m.top_k).reshape(-1)
+    xs = x[tok_e].to(cdt).reshape(e_loc, c_e, d)
+    h = L._act(cfg.mlp_act, torch.einsum("ecd,edf->ecf", xs, w1))
+    if w3 is not None:
+        h = h * torch.einsum("ecd,edf->ecf", xs, w3)
+    out = torch.einsum("ecf,efd->ecd", h, w2)
+    gates = (top_w.reshape(-1)[slot.reshape(-1)].reshape(e_loc, c_e)
+             * slot_valid).to(cdt)
+    y = torch.zeros((T, d), dtype=cdt, device=x.device).index_add_(
+        0, tok_e, (out * gates[..., None]).reshape(-1, d))
+    return y, torch.clamp(counts, max=c_e).sum()
 
 
 def ep_send_layout(cfg, env: AxisEnv, top_w, top_i):
@@ -389,17 +448,22 @@ def moe_ffn(cfg, params, x: torch.Tensor, *, dispatch: str = "auto",
 
     routed = router_lib.route(cfg, params["router"], x, train=train,
                               step=step, eps=eps, env=env)
-    tok, gates, group_sizes, n_kept = sort_slots(cfg, *routed[:2])
-    if dispatch == "fused":
-        y = fused_ffn(cfg.mlp_act, x.to(cdt), w1, w2, w3, tok, gates,
-                      group_sizes).to(cdt)
+    top_w, top_i = routed[:2]
+    if dispatch == "batched":
+        y, n_kept = batched_ffn(cfg, env, x, w1, w2, w3, top_w, top_i)
     else:
-        xs = x[tok].to(cdt)
-        out = grouped_ffn(cfg.mlp_act, xs, w1, w2, w3, group_sizes)
-        y = torch.zeros((T, d), dtype=cdt, device=x.device).index_add_(
-            0, tok, out * gates[:, None])
+        tok, gates, group_sizes, n_kept = sort_slots(cfg, top_w, top_i, env)
+        if dispatch == "fused":
+            y = fused_ffn(cfg.mlp_act, x.to(cdt), w1, w2, w3, tok, gates,
+                          group_sizes).to(cdt)
+        else:
+            xs = x[tok].to(cdt)
+            out = grouped_ffn(cfg.mlp_act, xs, w1, w2, w3, group_sizes)
+            y = torch.zeros((T, d), dtype=cdt, device=x.device).index_add_(
+                0, tok, out * gates[:, None])
+    n_local = _local_keys(cfg, env, top_i)[1].sum()
     y, metrics = _moe_tail(cfg, params, x, y, n_kept=n_kept,
-                           n_local=T * m.top_k, env=env, train=train)
+                           n_local=n_local, env=env, train=train)
     if not train:
         return y, metrics
     _, _, aux, router_metrics = routed
@@ -415,12 +479,13 @@ def _moe_tail(cfg, params, x, y, *, n_kept, n_local, env: AxisEnv = LOCAL,
     the always-on shared expert added into the same output."""
     m = cfg.moe
     cdt = L.dtype_of(cfg.compute_dtype)
-    dropped = (n_local - n_kept).clamp_min(0).float()
+    n_local = torch.as_tensor(n_local, dtype=torch.float32,
+                              device=x.device)
+    dropped = (n_local - n_kept).clamp_min(0)
     if env.tp == 1 or not train:
-        frac = dropped / max(n_local, 1)
+        frac = dropped / n_local.clamp_min(1.0)
     else:
-        d_all, n_all = env.psum_tp((dropped, torch.full(
-            (), float(n_local), device=dropped.device)))
+        d_all, n_all = env.psum_tp((dropped, n_local))
         frac = d_all / n_all.clamp_min(1.0)
     metrics = {"moe/dropped_frac": env.pmean_dp(frac) if train else frac}
     if m.n_shared_experts > 0:

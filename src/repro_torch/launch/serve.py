@@ -72,8 +72,14 @@ counter tracks) at the end.  `--tp` serves on a (1, tp) mesh, one
 process per rank (`launch.mesh.run_ranks`: torchrun's environment where
 it is set, else spawned ranks), every rank running the same scheduler,
 rank 0 printing; the slots, the prefill chunk and Flood's micro-batch
-must divide over tp (`quantize_microbatch`), and speculative decoding
-and the SLO gate are refused there (ROADMAP item 9).
+must divide over tp (`quantize_microbatch`); speculative decoding
+(`--spec-k`, the drafter on the same mesh) and `--overload slo` (rank
+0's tracker deciding for every rank) run there too:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --online --smoke \
+        --device cpu --tp 2 --spec-k 2 --draft-layers 1
+    PYTHONPATH=src python -m repro_torch.launch.serve --online --smoke \
+        --device cpu --tp 2 --overload slo --slo-ttft-ms 50
 """
 from __future__ import annotations
 
@@ -410,11 +416,13 @@ def main(argv=None):
     ap.add_argument("--report", default=None,
                     help="online: write the load reports as JSON here")
     ap.add_argument("--moe-dispatch", default="auto",
-                    choices=["auto", "fused", "ragged", "ep"],
-                    help="MoE dispatch: fused (K1) or the plain ragged "
-                         "composition; 'ep' is 'fused' at tp=1 and the one "
-                         "mode at tp > 1 (the expert-parallel all-to-all, "
-                         "K1 on each shard)")
+                    choices=["auto", "fused", "ragged", "batched", "ep"],
+                    help="MoE dispatch: fused (K1), the plain ragged "
+                         "composition or the per-expert-capacity batched "
+                         "einsums; 'ep' (the expert-parallel all-to-all, "
+                         "K1 on each shard) is 'fused' at tp=1; 'auto' is "
+                         "'fused' at tp=1, at tp > 1 'ep', or 'batched' "
+                         "where the tokens do not divide over tp")
     ap.add_argument("--tp", type=int, default=1,
                     help="serve on a (1, tp) mesh, one process per rank")
     ap.add_argument("--paged-attn", default="auto",

@@ -46,8 +46,17 @@ reference's launcher: K workers one after the other on the device,
 prints each round's record.  `--dp` / `--tp` train on a (dp, tp) mesh,
 one process per rank (`launch.mesh.run_ranks`: torchrun's environment
 where it is set, else spawned ranks), every rank over the same seeded
-pipeline, rank 0 printing; EDiT and checkpoints are refused there
-(ROADMAP item 9).  An encoder-decoder (whisper-tiny) is refused: the
+pipeline, rank 0 printing; EDiT is refused there.  Checkpoints of a
+mesh run keep each leaf whole on disk (every rank writes its slices),
+so `--resume` may take another mesh than the run that saved:
+
+    PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \
+        --dp 2 --tp 2 --steps 4 --checkpoint-dir /tmp/ckm \
+        --checkpoint-every 2
+    PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \
+        --dp 1 --tp 2 --steps 6 --checkpoint-dir /tmp/ckm \
+        --checkpoint-every 2 --resume
+  An encoder-decoder (whisper-tiny) is refused: the
 synthetic pipeline feeds no encoder frames, so it trains through
 `api.Runner` alone.
 """
@@ -91,11 +100,12 @@ def main(argv=None):
     ap.add_argument("--dp", type=int, default=1)
     ap.add_argument("--tp", type=int, default=1)
     ap.add_argument("--moe-dispatch", default="auto",
-                    choices=["auto", "fused", "ragged", "ep"],
-                    help="MoE dispatch: fused (K1 forward, K2 backward) or "
-                         "the plain ragged composition at tp=1; 'ep' (the "
+                    choices=["auto", "fused", "ragged", "batched", "ep"],
+                    help="MoE dispatch: fused (K1 forward, K2 backward), "
+                         "the plain ragged composition or the batched "
+                         "per-expert-capacity einsums; 'ep' (the "
                          "expert-parallel all-to-all, K1 and K2 on each "
-                         "shard) at tp > 1")
+                         "shard, the default) at tp > 1")
     ap.add_argument("--spike-gnorm-sigma", type=float, default=None,
                     metavar="SIGMA",
                     help="also key the device spike guard on the grad norm "
@@ -118,10 +128,9 @@ def main(argv=None):
 
     if args.dp < 1 or args.tp < 1:
         ap.error("--dp and --tp take sizes >= 1")
-    if args.dp * args.tp > 1 and (args.edit_workers > 0
-                                  or args.checkpoint_dir):
-        ap.error("EDiT's pod axis and sharded checkpoints on a mesh are not "
-                 "yet ported (ROADMAP item 9)")
+    if args.dp * args.tp > 1 and args.edit_workers > 0:
+        ap.error("--edit-workers runs at one rank: the port's EDiT takes no "
+                 "--dp / --tp")
     if args.resume and not args.checkpoint_dir:
         ap.error("--resume needs --checkpoint-dir")
     bs_warmup = None

@@ -589,37 +589,42 @@ def paged_verify_attention(cfg, params: Params, x: torch.Tensor,
                            pool: Dict[str, torch.Tensor], pos: torch.Tensor,
                            table: torch.Tensor, active: torch.Tensor, *,
                            page_size: int, paged_attn: str = "auto",
-                           valid: Optional[torch.Tensor] = None):
+                           valid: Optional[torch.Tensor] = None,
+                           env: AxisEnv = LOCAL):
     """Speculative-decode verify: Q consecutive tokens per slot in one
-    prefill-shaped pass over the slot batch.  x (B, Q, d), slot b's
-    candidates at positions pos[b, 0..Q-1]; table (B, n_lp); active (B,).
-    Writes all B*Q candidate KV rows (in place; lanes that own none go to
-    scratch page 0), then each query attends causally over its slot's
-    pages through `_paged_attention_core` (K3/K4 at Q rows a slot), so
-    the verify logits at a position are the decode logits there.
-    Returns (out (B*Q, d), pool)."""
-    ad = AttnDims.build(cfg)
+    prefill-shaped pass over the slot batch.  x (B, Q, d) replicated over
+    tp, slot b's candidates at positions pos[b, 0..Q-1]; table (B, n_lp);
+    active (B,).  Writes all B*Q candidate KV rows (in place; on the rank
+    owning each row's in-page offset, the other lanes to scratch page 0),
+    then each query attends causally over its slot's pages through
+    `_paged_attention_core` (K3/K4 at Q rows a slot over the rank's
+    offsets, the max and the sums combined over tp), so the verify
+    logits at a position are the decode logits there.  Returns (out
+    (B*Q, d), a partial sum over tp, and pool)."""
+    ad = AttnDims.build(cfg, env)
     cdt = dtype_of(cfg.compute_dtype)
     B, Q, d = x.shape
     hd = ad.head_dim
     n_lp = table.shape[1]
+    ps_loc = pool["k"].shape[1]
     q, k_new, v_new, wo = _qkv(cfg, ad, params, x.reshape(B * Q, d),
-                               pos.reshape(B * Q), cdt)
+                               pos.reshape(B * Q), cdt, env)
 
     lp = (pos // page_size).clamp(0, n_lp - 1)               # (B, Q)
     pp = torch.gather(table, 1, lp.long())
-    owns = active[:, None] & (pp > 0)
+    owns = (active[:, None] & (pp > 0)
+            & _owns_offset(pos, page_size, ps_loc, env))
     _paged_write(pool, k_new.reshape(B, Q, ad.n_kv, hd),
                  v_new.reshape(B, Q, ad.n_kv, hd), pos, pp, owns,
-                 page_size=page_size, cdt=cdt)
+                 page_size=page_size, cdt=cdt, env=env)
 
     if valid is None:
-        valid = paged_valid_mask(table, pos, page_size=page_size)
+        valid = paged_valid_mask(table, pos, page_size=page_size, env=env)
     attn = _paged_attention_core(cfg, ad, q.reshape(B, Q, ad.heads_padded, hd),
                                  pool, table, valid, cdt,
-                                 paged_attn=paged_attn)
-    out = attn.reshape(B * Q, ad.local_heads * hd) @ wo
-    return out, pool
+                                 paged_attn=paged_attn, env=env)
+    return _out_proj(ad, env, attn.reshape(B * Q, ad.heads_padded, hd),
+                     wo), pool
 
 
 # ---------------------------------------------------------------------------

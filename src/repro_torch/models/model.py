@@ -236,13 +236,14 @@ def choose_block(s: int, target: int = 1024) -> int:
 
 
 def warmup_noise(cfg: ModelConfig, rng, step, T: int,
-                 env: AxisEnv = LOCAL):
+                 env: AxisEnv = LOCAL, dispatch: str = "auto"):
     """Each layer's router-warmup noise for T tokens, as the reference
     draws it: layer i's eps is `normal(key_i, (T, n_experts))` with the
     layer keys `split(rng, n_layers)` (stacked blocks) or `fold_in(rng,
-    i)` (a list), all layers in one draw: (L, T, E) fp32.  Over tp (the
-    "ep" dispatch) rank r routes T / tp owned tokens under key_i folded
-    with r.  None where no warmup mix applies (no rng, no MoE, no warmup,
+    i)` (a list), all layers in one draw: (L, T, E) fp32.  Over tp under
+    the "ep" dispatch (`dispatch` resolved at T) rank r routes T / tp
+    owned tokens under key_i folded with r; the other modes route all T
+    under key_i on every rank.  None where no warmup mix applies (no rng, no MoE, no warmup,
     or step past it, where alpha = 1 gives the learned logits whatever
     eps is)."""
     m = cfg.moe
@@ -256,7 +257,8 @@ def warmup_noise(cfg: ModelConfig, rng, step, T: int,
     else:
         keys = torch.stack([prng.fold_in(rng, i)
                             for i in range(cfg.n_layers)])
-    if env.tp > 1:
+    if env.tp > 1 and moe_lib.resolve_dispatch(cfg, dispatch, env,
+                                               T) == "ep":
         keys = prng.fold_in(keys, env.tp_index())
         T = T // env.tp
     return router_lib.warmup_noise(keys, (T, m.n_experts))
@@ -356,7 +358,8 @@ def _run_blocks(cfg: ModelConfig, params, x, *, B: int, S: int, step,
     blocks, so the recompute routes as the forward did.  Returns (x, aux
     summed over layers, metrics averaged over the layers that report
     them, caches in `init_caches`' layout or None)."""
-    noise = warmup_noise(cfg, rng, step, B * S, env) if train else None
+    noise = (warmup_noise(cfg, rng, step, B * S, env, flags.moe_dispatch)
+             if train else None)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     metrics_all, caches = [], []
     for i in range(cfg.n_layers):
@@ -798,24 +801,29 @@ def paged_decode_step(cfg: ModelConfig, params, pools, token, pos, table,
 
 def paged_draft_propose(cfg: ModelConfig, params, pools, token, pos0, table,
                         active, sample, *, k: int, page_size: int,
-                        flags: RunFlags = DEFAULT_FLAGS):
+                        flags: RunFlags = DEFAULT_FLAGS,
+                        env: AxisEnv = LOCAL):
     """k draft tokens per slot from the drafter.  token (B,) the pending
     (last emitted, unwritten) token per slot at position pos0 (B,); k+1
     chained sampled decode ticks on stream STREAM_DRAFT: ticks 0..k-1
     give d_1..d_k, tick k only writes d_k's KV.  Returns (drafts (B, k)
-    int32, draft_probs (B, k, Vp), pools)."""
+    int32, draft_probs (B, k, Vp) over the whole vocabulary (gathered over
+    tp), pools)."""
+    env = sharding.denv(env)
     seeds, temp, top_p, top_k = sample
     tok, toks, probs = token, [], []
     for i in range(k + 1):
         pos = pos0 + i
         logits, pools = _paged_decode_logits(cfg, params, pools, tok, pos,
                                              table, active,
-                                             page_size=page_size, flags=flags)
+                                             page_size=page_size, flags=flags,
+                                             env=env)
         if i == k:
             break
         tok, p = emb.sharded_sample(cfg, logits, seeds=seeds, pos=pos,
                                     temperature=temp, top_p=top_p,
-                                    top_k=top_k, stream=emb.STREAM_DRAFT)
+                                    top_k=top_k, stream=emb.STREAM_DRAFT,
+                                    env=env)
         toks.append(tok)
         probs.append(p)
     return torch.stack(toks, 1), torch.stack(probs, 1), pools
@@ -823,37 +831,43 @@ def paged_draft_propose(cfg: ModelConfig, params, pools, token, pos0, table,
 
 def block_verify_paged(cfg, params, x, pool, pos, table, active, *, B: int,
                        Q: int, page_size: int, ffn: str,
-                       flags: RunFlags = DEFAULT_FLAGS, valid=None):
+                       flags: RunFlags = DEFAULT_FLAGS, valid=None,
+                       env: AxisEnv = LOCAL):
     """One layer of the k+1-token verify pass: x (B*Q, d)."""
-    h = L.apply_norm(cfg, params["norm1"], x)
+    h = L.apply_norm(cfg, params["norm1"], x, env)
     partial, _ = L.paged_verify_attention(
         cfg, params["attn"], h.reshape(B, Q, -1), pool["self"], pos, table,
         active, page_size=page_size, paged_attn=flags.paged_attn,
-        valid=valid)
-    return _block_ffn(cfg, params, x + partial, ffn, flags), pool
+        valid=valid, env=env)
+    return _block_ffn(cfg, params, x + env.psum_tp(partial), ffn, flags,
+                      env), pool
 
 
 def _paged_verify_logits(cfg: ModelConfig, params, pools, tokens, pos, table,
                          active, *, page_size: int,
-                         flags: RunFlags = DEFAULT_FLAGS):
-    """tokens (B, Q) at positions pos (B, Q) -> (logits (B*Q, Vp) fp32,
-    pools), every candidate's KV written."""
+                         flags: RunFlags = DEFAULT_FLAGS,
+                         env: AxisEnv = LOCAL):
+    """tokens (B, Q) at positions pos (B, Q) -> (logits (B*Q, V_loc) fp32,
+    pools), every candidate's KV written (on the rank owning its in-page
+    offset)."""
+    env = sharding.denv(env)
     B, Q = tokens.shape
-    x = emb.embed_tokens(cfg, params["embed"], tokens.reshape(-1))
+    x = emb.embed_tokens(cfg, params["embed"], tokens.reshape(-1), env)
     ffn = _ffn_kind(cfg, cfg.n_layers - 1)
-    valid = L.paged_valid_mask(table, pos, page_size=page_size)
+    valid = L.paged_valid_mask(table, pos, page_size=page_size, env=env)
     for i in range(cfg.n_layers):
         x, _ = block_verify_paged(
             cfg, layer_params(params["blocks"], i), x, _layer_pool(pools, i),
             pos, table, active, B=B, Q=Q, page_size=page_size, ffn=ffn,
-            flags=flags, valid=valid)
-    x = L.apply_norm(cfg, params["final_norm"], x)
-    return emb.serve_logits(cfg, params["embed"], x), pools
+            flags=flags, valid=valid, env=env)
+    x = L.apply_norm(cfg, params["final_norm"], x, env)
+    return emb.serve_logits(cfg, params["embed"], x, env), pools
 
 
 def paged_verify_step(cfg: ModelConfig, params, pools, tokens, pos0, table,
                       active, draft_probs, sample, *, page_size: int,
-                      flags: RunFlags = DEFAULT_FLAGS):
+                      flags: RunFlags = DEFAULT_FLAGS,
+                      env: AxisEnv = LOCAL):
     """Score k+1 candidate positions per slot and accept or reject the
     drafts.  tokens (B, K+1): column 0 the pending token, 1..K the
     drafts; pos0 (B,) the pending token's position; draft_probs (B, K,
@@ -862,7 +876,10 @@ def paged_verify_step(cfg: ModelConfig, params, pools, tokens, pos0, table,
     accepted drafts in [0, K], out (B, K+1) int32 — out[:, :n_acc] the
     accepted drafts, out[:, n_acc] the residual or bonus token, zeros
     after — and the pools, with the target KV of all K+1 positions
-    written; the host commits n_acc+1 tokens and trims the page tail)."""
+    written; the host commits n_acc+1 tokens and trims the page tail).
+    Over tp every rank returns the same (p is gathered over the vocab
+    shards, `sampled_probs`)."""
+    env = sharding.denv(env)
     B, K1 = tokens.shape
     K = K1 - 1
     dev = tokens.device
@@ -870,11 +887,11 @@ def paged_verify_step(cfg: ModelConfig, params, pools, tokens, pos0, table,
     pos = pos0[:, None] + torch.arange(K1, device=dev)[None, :]  # (B, K1)
     logits, pools = _paged_verify_logits(cfg, params, pools, tokens, pos,
                                          table, active, page_size=page_size,
-                                         flags=flags)        # (B*K1, Vp)
+                                         flags=flags, env=env)
 
     rep = lambda a: torch.repeat_interleave(a, K1, dim=0)
     greedy, probs = emb.sampled_probs(cfg, logits, rep(temp), rep(top_p),
-                                      rep(top_k))
+                                      rep(top_k), env)
     vp = probs.shape[-1]
     greedy = greedy.reshape(B, K1)
     probs = probs.reshape(B, K1, vp)

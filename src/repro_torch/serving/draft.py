@@ -9,8 +9,8 @@ preemption, prefix sharing and trim carry over to the drafter's KV.
 
   * `SelfDrafter`: the target's first `draft_layers` blocks plus its
     embedding, final norm and head.  Its parameters are views of the
-    target's (slices of the stacked leaves, no copy), so it costs only
-    its KV pool.  `draft_layers == n_layers` is the target itself: q ==
+    target's (slices of the stacked leaves, no copy; over a mesh of the
+    rank's shards), so it costs only its KV pool.  `draft_layers == n_layers` is the target itself: q ==
     p, and every draft is accepted.
   * `ConfigDrafter`: any small paged config with the target's vocab;
     weights given or drawn from `init_seed`.  `adapt_drafter_config`
@@ -26,13 +26,26 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional, Tuple
 
-from repro_torch import api
+from repro_torch import api, sharding
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import model as M
 
 
 def _draft_runner(cfg: ModelConfig, runner: "api.Runner") -> "api.Runner":
-    return api.Runner(cfg, flags=runner.flags, device=runner.device)
+    """The drafter's runner on the target's device and mesh (its serving
+    steps run with SP off, as every serving step)."""
+    return api.Runner(cfg, flags=runner.flags, device=runner.device,
+                      mesh=runner.mesh)
+
+
+def _cut(tree, specs, env):
+    """A global parameter tree -> the rank's shards under `specs` (the cut
+    `init_params` applies), each a contiguous tensor."""
+    if isinstance(specs, dict):
+        return {k: _cut(tree[k], specs[k], env) for k in specs}
+    if isinstance(specs, list):
+        return [_cut(t, s, env) for t, s in zip(tree, specs)]
+    return sharding.shard(tree, specs, env).contiguous()
 
 
 @dataclasses.dataclass
@@ -67,9 +80,9 @@ class SelfDrafter:
 class ConfigDrafter:
     """Independent small-model drafter.  `cfg` must be pageable and share
     the target's vocab_size (the accept math indexes one distribution
-    with the other's tokens).  `params` holds given weights; None draws
-    them from `init_seed` (a random drafter is correct, just rarely
-    accepted)."""
+    with the other's tokens).  `params` holds given weights, global ones
+    (cut into the rank's shards over a mesh); None draws them from
+    `init_seed` (a random drafter is correct, just rarely accepted)."""
     cfg: ModelConfig
     params: Optional[dict] = None
     init_seed: int = 0
@@ -83,9 +96,11 @@ class ConfigDrafter:
                 f"drafter vocab_size={self.cfg.vocab_size} != target "
                 f"{runner.cfg.vocab_size}; align with adapt_drafter_config")
         drunner = _draft_runner(self.cfg, runner)
-        dparams = (self.params if self.params is not None
-                   else drunner.init_params(self.init_seed))
-        return drunner, dparams
+        if self.params is None:
+            return drunner, drunner.init_params(self.init_seed)
+        if drunner.env.dp * drunner.env.tp == 1:
+            return drunner, self.params
+        return drunner, _cut(self.params, drunner.specs, drunner.env)
 
 
 def adapt_drafter_config(cfg: ModelConfig,

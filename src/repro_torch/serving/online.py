@@ -52,7 +52,10 @@
   every rank, so no rank can diverge (a divergence would hang a
   collective; the mesh's groups carry a timeout).  `max_slots` and
   `prefill_chunk` must divide over tp (the "ep" dispatch's batch); the
-  Poisson load agrees its clock across ranks (`Mesh.agree`).
+  Poisson load agrees its clock across ranks (`Mesh.agree`), and so does
+  the SLO gate: rank 0's `SLOTracker` decides each admission and every
+  rank sheds what it shed.  Speculative decoding runs there too (the
+  drafter on the target's mesh).
 """
 from __future__ import annotations
 
@@ -185,10 +188,6 @@ class OnlineEngine:
                     f"% tp == 0 for tp={tp}); round up with "
                     f"serving.flood.quantize_microbatch({n}, {tp}) = "
                     f"{quantize_microbatch(n, tp)}")
-        if tp > 1 and (cfg.spec_k > 0 or cfg.overload == "slo"):
-            raise NotImplementedError(
-                "speculative decoding and the SLO gate (rank-local clocks) "
-                "on a tp mesh are not yet ported (ROADMAP item 9)")
         n_pages = cfg.pool_pages()
         if n_pages - 1 < cfg.max_pages:
             raise ValueError(
@@ -362,8 +361,10 @@ class OnlineEngine:
         if self.cfg.overload == "slo":
             queued_tokens = (sum(len(self.reqs[q].prompt)
                                  for q in self.queue) + len(req.prompt))
-            if self.slo.should_shed(queued_tokens,
-                                    self.cfg.prefill_chunk) is not None:
+            shed = self.slo.should_shed(queued_tokens,
+                                        self.cfg.prefill_chunk) is not None
+            # over a tp mesh rank 0's tracker decides for every rank
+            if self.runner.env.mesh.agree(float(shed)):
                 return self._shed(req)
         if (self.cfg.max_queue is not None
                 and len(self.queue) >= self.cfg.max_queue):

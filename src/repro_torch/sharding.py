@@ -15,6 +15,15 @@ Axis roles:
       (`sp_gather`, `sp_scatter`), and expert parallelism (EP) for the
       token exchange of the "ep" MoE dispatch (`all_to_all_tp`).
 
+With `sp_comm="int8"` the two SP boundaries send int8 rows (the
+reference's per-row symmetric quantization, `quant_rows`): the gather
+an all-gather of the quantized rows, the scatter an all-to-all of them
+and an fp32 sum over the tp blocks, each the other's transpose in the
+backward, so the backward's traffic is quantized as well.  Each row's
+fp32 scale rides beside it as four more int8 columns (its bytes), so a
+boundary is one collective where the reference's `shard_map` runs two
+(one for the values, one for the scales): the same values on the wire.
+
 Gradients follow the transposes the reference's `shard_map` gives with
 replication checking off (`check_vma=False`): psum <-> psum, all-gather
 <-> reduce-scatter, all-to-all <-> the same all-to-all, and pmax only on
@@ -114,6 +123,88 @@ def all_to_all(x: torch.Tensor, group: Group) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# the int8 sequence-parallel boundary (the reference's `_q_sp_fns`)
+# ---------------------------------------------------------------------------
+
+
+def quant_rows(x: torch.Tensor):
+    """(..., d) -> (int8 values, fp32 per-row scales (..., 1)), bit for bit
+    the reference's `_quant_rows`: fp32 amax, scale max(amax, 1e-20) /
+    127, values round(x / scale) (half to even) clipped to +-127."""
+    xf = x.float()
+    amax = torch.amax(torch.abs(xf), dim=-1, keepdim=True)
+    scale = torch.clamp(amax, min=1e-20) / 127.0
+    q = torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8)
+    return q, scale
+
+
+def _pack(q: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """int8 rows (..., d) and their fp32 scales (..., 1) -> (..., d + 4)
+    int8: each scale's four bytes as four more columns."""
+    return torch.cat([q, s.contiguous().view(torch.int8)], dim=-1)
+
+
+def _unpack(buf: torch.Tensor, dtype) -> torch.Tensor:
+    """`_pack`'s rows back to values in fp32, q * s, cast to `dtype`."""
+    d = buf.shape[-1] - 4
+    s = buf[..., d:].contiguous().view(torch.float32)
+    return (buf[..., :d].float() * s).to(dtype)
+
+
+def _q_gather(group: Group, x: torch.Tensor, dtype) -> torch.Tensor:
+    """The quantized all-gather over dim 0 (the reference's
+    `_q_gather_impl`)."""
+    return _unpack(group.all_gather(_pack(*quant_rows(x)), 0), dtype)
+
+
+def _q_scatter(group: Group, partial: torch.Tensor, dtype) -> torch.Tensor:
+    """The quantized reduce-scatter over dim 0 (the reference's
+    `_q_scatter_impl`): the rows cut into tp blocks, each block's rows
+    quantized and sent to its rank in one all-to-all, the received blocks
+    summed in fp32 in block order."""
+    n = group.size
+    xr = partial.reshape((n, partial.shape[0] // n) + partial.shape[1:])
+    blocks = _unpack(group.all_to_all(_pack(*quant_rows(xr))),
+                     torch.float32)
+    acc = blocks[0]
+    for j in range(1, n):
+        acc = acc + blocks[j]
+    return acc.to(dtype)
+
+
+class _QGather(torch.autograd.Function):
+    """int8 SP gather; its transpose is the quantized scatter."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _q_gather(group, x, x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _q_scatter(ctx.group, g, g.dtype), None
+
+
+class _QScatter(torch.autograd.Function):
+    """int8 SP scatter; its transpose is the quantized gather."""
+
+    @staticmethod
+    def forward(ctx, partial, group):
+        ctx.group = group
+        if partial.shape[0] % group.size:
+            raise ValueError(f"int8 scatter of dim {partial.shape[0]} over "
+                             f"{group.size} ranks")
+        return _q_scatter(group, partial, partial.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _q_gather(ctx.group, g, g.dtype), None
+
+
+SP_COMMS = ("native", "int8")
+
+
+# ---------------------------------------------------------------------------
 # the axis environment
 # ---------------------------------------------------------------------------
 
@@ -123,9 +214,16 @@ class AxisEnv:
     """The mesh axes a model function runs under.  Parameters are
     FSDP-sharded over dp wherever dp > 1 (the reference's default) and
     `seq_parallel` shards the boundary activations over tp (off in the
-    decode steps, `denv`)."""
+    decode steps, `denv`); `sp_comm="int8"` quantizes the SP boundaries
+    (`quant_rows`)."""
     mesh: Mesh
     seq_parallel: bool = True
+    sp_comm: str = "native"
+
+    def __post_init__(self):
+        if self.sp_comm not in SP_COMMS:
+            raise ValueError(f"sp_comm must be one of {SP_COMMS}: "
+                             f"{self.sp_comm!r}")
 
     @property
     def dp(self) -> int:
@@ -222,6 +320,8 @@ class AxisEnv:
         """(T_sp, ...) -> (T, ...): gather SP activations before a block."""
         if not self.seq_parallel or self.tp == 1:
             return x_sp
+        if self.sp_comm == "int8":
+            return _QGather.apply(x_sp, self.mesh.tp_group)
         return all_gather(x_sp, self.mesh.tp_group, 0)
 
     def sp_scatter(self, partial: torch.Tensor) -> torch.Tensor:
@@ -229,6 +329,8 @@ class AxisEnv:
         return to SP (a psum when SP is off)."""
         if not self.seq_parallel or self.tp == 1:
             return self.psum_tp(partial)
+        if self.sp_comm == "int8":
+            return _QScatter.apply(partial, self.mesh.tp_group)
         return reduce_scatter(partial, self.mesh.tp_group, 0)
 
 
@@ -236,11 +338,12 @@ LOCAL = AxisEnv(Mesh.local())
 
 
 def make_axis_env(mesh: Optional[Mesh] = None, *,
-                  seq_parallel: bool = True) -> AxisEnv:
+                  seq_parallel: bool = True,
+                  sp_comm: str = "native") -> AxisEnv:
     """The AxisEnv of a mesh built by `launch.mesh.make_local_mesh` (the
     one-rank env without one)."""
     return AxisEnv(mesh if mesh is not None else Mesh.local(),
-                   seq_parallel=seq_parallel)
+                   seq_parallel=seq_parallel, sp_comm=sp_comm)
 
 
 def denv(env: AxisEnv) -> AxisEnv:

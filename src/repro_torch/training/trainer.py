@@ -28,8 +28,11 @@ On a (dp, tp) mesh every rank runs its own Trainer over the same seeded
 pipeline: each step gets the same global batch on every rank, the train
 step keeps the rank's dp rows (`api.local_rows`) and returns the mesh's
 reduced metrics, so every rank's host policy sees the same numbers.
-Checkpoints (saving shards and `_reshard` on restore) wait for ROADMAP
-item 9 and raise there.
+Checkpoints stay mesh-free on disk (each leaf whole, the reference's
+format): every rank writes the slices it holds of each leaf file in the
+background (`PCache.save_sharded`), rank 0 the manifest and the host
+sidecar, and a restore reads each rank's slice through the parameters',
+the moments' and the guard state's spec trees, at any mesh.
 """
 from __future__ import annotations
 
@@ -40,7 +43,7 @@ from typing import Any, Dict, List, Optional
 
 import torch
 
-from repro_torch import api
+from repro_torch import api, sharding
 from repro_torch.analysis import contracts
 from repro_torch.checkpoint.pcache import PCache
 from repro_torch.core import spikes as spikes_lib
@@ -118,10 +121,6 @@ class Trainer:
         self._pending: List[Any] = []
         self._prefetcher: Optional[Prefetcher] = None
         self._preload: List[Dict] = []     # restored batches packed ahead
-        if cfg.checkpoint_dir and runner.env.dp * runner.env.tp > 1:
-            raise NotImplementedError(
-                "checkpoints of a sharded run (saving shards, _reshard on "
-                "restore) are not yet ported (ROADMAP item 9)")
         self.pcache = (PCache(cfg.checkpoint_dir) if cfg.checkpoint_dir
                        else None)
 
@@ -256,9 +255,11 @@ class Trainer:
         """Checkpoint: the params, moments and guard state are copied to
         host memory now (PCache waits for the copy, since the step
         updates them in place) and written by its background writers,
-        beside a host sidecar (step, accum stage, pipeline stream with
-        the batches packed ahead, detector) so `restore` continues the
-        run exactly."""
+        each rank its slices of the whole leaf files
+        (`PCache.save_sharded`), beside rank 0's host sidecar (step,
+        accum stage, pipeline stream with the batches packed ahead,
+        detector) so `restore` continues the run exactly, at any
+        mesh."""
         if self.pcache is None:
             raise ValueError("TrainConfig.checkpoint_dir is unset")
         self.pcache.wait()             # one background save in flight
@@ -271,7 +272,14 @@ class Trainer:
             # yet; dropping them would skip stream positions
             pipe_state = self.pipeline.state_dict()
             prefetched = list(self._preload)
-        self.pcache.save(name, self._state_tree(), block=False)
+        env = self.runner.env
+        if env.mesh.agree(float(self.step)) != self.step:
+            raise RuntimeError(f"rank {env.mesh.rank} saves step "
+                               f"{self.step}, rank 0 another")
+        self.pcache.save_sharded(name, self._state_tree(),
+                                 self._state_specs(), env, block=False)
+        if env.mesh.rank:
+            return name              # rank 0 writes the host sidecar
         self.pcache.save_host(name, {
             "step": self.step,
             "accum_stage": self._accum_for(self.step),
@@ -285,6 +293,13 @@ class Trainer:
         return {"params": self.params, "opt": self.opt_state,
                 "guard": self.guard_state}
 
+    def _state_specs(self) -> Dict[str, Any]:
+        """The spec tree of `_state_tree`: the parameters', the moments'
+        (`adamw.opt_state_specs`) and the replicated guard state's."""
+        specs = self.runner.specs
+        return {"params": specs, "opt": adamw.opt_state_specs(specs),
+                "guard": sharding.replicated_specs(self.guard_state)}
+
     def restore(self, name: str = "latest") -> str:
         """Resume from a PCache checkpoint: the saved values go into the
         trainer's tensors (which the step updates in place), the data
@@ -294,8 +309,13 @@ class Trainer:
         if self.pcache is None:
             raise ValueError("TrainConfig.checkpoint_dir is unset")
         self.pcache.wait()
-        if name == "latest":
+        env = self.runner.env
+        if name == "latest":          # rank 0's newest on every rank
             found = self.pcache.latest()
+            names = self.pcache.list_checkpoints()
+            j = int(env.mesh.agree(float(
+                names.index(found) if found is not None else -1)))
+            found = names[j] if j >= 0 else None
             if found is None:
                 raise FileNotFoundError(
                     f"no complete checkpoint in {self.pcache.root}")
@@ -306,7 +326,8 @@ class Trainer:
             self._prefetcher.stop()
             self._prefetcher = None
         like = self._state_tree()
-        loaded = self.pcache.load(name, like)
+        loaded = self.pcache.load_sharded(name, like, self._state_specs(),
+                                          env)
         with torch.no_grad():
             for dst, src in zip(adamw.leaves(like), adamw.leaves(loaded)):
                 dst.copy_(src)
