@@ -75,7 +75,17 @@ Phases, each failing loudly (non-zero exit, no result line):
      gated 0) and over the "ep" rows of the scoring call (T=4088),
      K3/K4 at a verify pass (B=8, Q=5) over ps_loc = 8, K5 on the vocab
      shard at T=40 and T=4088 (each K1 bound counts the rows that hold a
-     slot);
+     slot); and at the shapes padded heads, padded experts and rwkv6 over
+     tp give them (phase 9d's, the time of these cases printed):
+     K3/K4 through the regrouped query layout (PA_REGROUP_CASES:
+     whisper-tiny's 6 heads padded to 8 for tp = 4, kv head 5 reading
+     three, over ps_loc = 4, decode and prefill; granite's heads on a
+     tp = 2 rank, decode and prefill; the bounds count the real heads),
+     K1 and K2 with the weight gradient on the last rank of granite's "ep"
+     dispatch at tp = 3 (40 experts padded to 42: two dummy experts with
+     empty groups; T=48 and 2046), K5 on granite's 24704-row shard at
+     tp = 2, K6 and the decay kernel at rwkv6-3b's 20 local heads (1280
+     columns) at a tp = 2 prefill of 8 x 64 and a tick;
   4. gradients: one full-width MoE layer at T=256, `FusedFFN`'s grads of
      x, w1, w2, w3 and the gates on the kernels against autograd through
      a plain fp32 composition, before and after the cast to bf16;
@@ -277,6 +287,20 @@ Phases, each failing loudly (non-zero exit, no result line):
      trainers restore it and their next step is the unbroken run's bit
      for bit, and (1, 2) ranks restore it, each slice the files' bit for
      bit;
+  9d. inside 9b's two ranks, after its training (`mesh_archs`): granite
+     whole (32 layers, the "ep" exchange over 40 experts, its vocabulary
+     padded to 24704 rows a rank) served on (1, 2) by the OnlineEngine
+     (MESH_ARCHS_PROMPTS of phase 5's prompts cut to 64 tokens, ids
+     folded into the vocabulary, MESH_ARCHS_TICKS greedy ticks; both
+     ranks' streams equal, launches per step as phase 5's formula) and
+     one request teacher-forced (a chunk and MESH_ARCHS_TF_STEPS ticks)
+     through the kernels against the mesh's plain modes within phase
+     7b's bar; rwkv6-3b whole on (1, 2), 20 of its 40 heads a rank,
+     through `make_prefill` on 9b's 8 prompts and the dense decode step
+     (both ranks equal; K6 and the decay kernel once per layer, K5 once
+     per prefill and tick), and one prompt in fp32 activations through
+     the kernels against the plain K5/K6 on each rank's shard within
+     RWKV_FP32_TOL; its seconds printed;
   10. the `kernels` JSON line (launches of phase 9's paths too), the
      card line, and the result line.
 """
@@ -377,7 +401,9 @@ PA_MESH_CASES = {f"{shape} tp=2 ps_loc=8 rank {r}": (shape, r)
 K5_MESH_CASES = {"ling head shard tp=2 T=8": ("ling-lite", 8),
                  "ling head shard tp=2 T=1": ("ling-lite", 1),
                  "ling head shard tp=2 T=40": ("ling-lite", 40),
-                 "ling head shard tp=2 T=4088": ("ling-lite", 4088)}
+                 "ling head shard tp=2 T=4088": ("ling-lite", 4088),
+                 # granite's 49155 rows padded to 49408 (phase 9d)
+                 "granite head shard tp=2 T=8": ("granite-moe-3b-a800m", 8)}
 # phase 3's K1 cases of the "fused" dispatch at tp = 2 (phase 9c and the
 # mesh tests' mode): rank 0's 32 local experts over the capacity rows
 # of all T tokens' slots sorted with the other rank's experts last (their
@@ -385,6 +411,34 @@ K5_MESH_CASES = {"ling head shard tp=2 T=8": ("ling-lite", 8),
 # a k = 4 verify pass of 8 x 5
 FUSED_MESH_CASES = {"fused T=8 tp=2": 8, "fused T=64 tp=2": 64,
                     "fused T=40 tp=2 verify": 40}
+# phase 3's cases of the shapes padded heads, padded experts and rwkv6's
+# heads over tp give the kernels (phase 9d and the tp > 1 meshes): K3/K4
+# through the regrouped query layout (`ops.gqa_layout`) at whisper-tiny's
+# 6 heads padded to 8 for tp = 4 (kv head 5 reads three: groups of up to
+# 3) over ps_loc = 4 of a page's 16 offsets, and at granite's heads (24
+# over 8) on a tp = 2 rank: label -> (arch, PA_CASES shape, tp, rank)
+PA_REGROUP_CASES = {
+    "whisper tp=4 decode ps_loc=4 rank 1": ("whisper-tiny", "decode", 4, 1),
+    "whisper tp=4 prefill ps_loc=4 rank 3": ("whisper-tiny", "prefill", 4,
+                                             3),
+    "granite tp=2 decode ps_loc=8 rank 0": ("granite-moe-3b-a800m",
+                                            "decode", 2, 0),
+    "granite tp=2 prefill ps_loc=8 rank 1": ("granite-moe-3b-a800m",
+                                             "prefill", 2, 1)}
+# K1, and K2 with the weight gradient, on the last rank of granite's "ep"
+# dispatch at tp = 3: 40 experts padded to 42, 14 a rank, the rank's last
+# two dummy experts never routed to (empty groups): label -> T tokens (a
+# prefill chunk's 48 over the tp group; the training microbatch's 2046)
+DUMMY_TP, DUMMY_RANK = 3, 2
+DUMMY_EP_CASES = {"ep T=48 tp=3 rank 2 (2 dummy experts)": 48,
+                  "ep T=2046 tp=3 rank 2 (2 dummy experts)": 2046}
+DUMMY_TRAIN_T = 2046
+# K6 and the decay kernel on rwkv6-3b's 20 local heads of 64 (1280
+# columns) at tp = 2: a prefill of 8 x 64 and a tick of 8
+K6_MESH_CASES = {"prefill tp=2 H=20": (8, 64, "bfloat16", False, 20),
+                 "decode tp=2 H=20": (8, 1, "bfloat16", False, 20)}
+DECAY_MESH_CASES = {"prefill tp=2 n=1280": (8 * 64, "bfloat16", 1280),
+                    "decode tp=2 n=1280": (8, "bfloat16", 1280)}
 # phase 7b: (arch, layers served or None for all): Ling-Plus at full
 # width cut to 8 of its 80 layers (3.51 B parameters a layer, 7.02 GB in
 # bf16, plus 2.07 GB of embedding and a 4.14 GB fp32 head: ~62 GB on an
@@ -593,21 +647,24 @@ def kernel_split(fn, prefixes, iters: int = 20):
     return out if any(out.values()) else None
 
 
-def ep_case(cfg, T: int, gen, tp: int = MESH_TP):
-    """K1's operands on rank 0 of the "ep" dispatch over tp ranks: one
-    MoE layer's bf16 weights (rank 0's E / tp experts), T random bf16
-    tokens split into tp owned slices, each routed by the random router
-    and bucketed by destination (`moe.ep_send_layout`), and the rows every
-    source sends rank 0, sorted by local expert (`moe.ep_recv_layout`):
-    (params, x_recv (tp*cap, d), order, gate 1 (0 for empty rows),
-    group_sizes)."""
+def ep_case(cfg, T: int, gen, tp: int = MESH_TP, rank: int = 0):
+    """K1's operands on rank `rank` of the "ep" dispatch over tp ranks:
+    one MoE layer's bf16 weights (the rank's E_pad / tp experts: where tp
+    does not divide E, the last rank's padding experts, drawn but never
+    routed to), T random bf16 tokens split into tp owned slices, each
+    routed by the random router and bucketed by destination
+    (`moe.ep_send_layout`), and the rows every source sends the rank,
+    sorted by local expert (`moe.ep_recv_layout`): (params, x_recv
+    (tp*cap, d), order, gate 1 (0 for empty rows), group_sizes)."""
     import torch
     from repro_torch import sharding
     from repro_torch.core import moe, router
     from repro_torch.launch.mesh import Mesh
     from repro_torch.models import layers as L
+    env_r = sharding.make_axis_env(Mesh.at(1, tp, rank, "cuda"))
+    # each leaf drawn whole, the rank's experts kept (`L.Init` over env_r)
     p = moe.init_moe(cfg, L.Init(device=torch.device("cuda"),
-                                 generator=gen))
+                                 generator=gen, env=env_r))
     x = torch.randn((T, cfg.d_model), generator=gen, device="cuda") \
         .to(torch.bfloat16)
     T_loc, rows, keys = T // tp, [], []
@@ -617,11 +674,11 @@ def ep_case(cfg, T: int, gen, tp: int = MESH_TP):
         tok_send, key_send, _, _ = moe.ep_send_layout(
             cfg, env, *router.route(cfg, p["router"], xs))
         cap = key_send.shape[1]
-        rows.append(xs[tok_send].reshape(tp, cap, -1)[0])
-        keys.append(key_send[0])
-    e_loc = cfg.moe.n_experts // tp
+        rows.append(xs[tok_send].reshape(tp, cap, -1)[rank])
+        keys.append(key_send[rank])
+    e_loc = moe.padded_experts(cfg, env_r)[1]
     order, gs, valid = moe.ep_recv_layout(torch.cat(keys), e_loc)
-    p = {k: p[k][:e_loc].contiguous() for k in ("we1", "we2", "we3")}
+    p = {k: p[k] for k in ("we1", "we2", "we3")}
     return p, torch.cat(rows), order, valid.to(torch.bfloat16), gs
 
 
@@ -723,7 +780,10 @@ def paged_case(cfg, *, B, Q, ctx, base, n_pages, gen, tp=1, rank=0):
     check.  ctx[b] = tokens the slot holds after this step (0 = inactive:
     its table row stays on the scratch page and every row is masked).
     Over tp the pools hold rank `rank`'s 16 / tp in-page offsets and the
-    mask is that rank's (`layers.paged_valid_mask`)."""
+    mask is that rank's (`layers.paged_valid_mask`), and the query heads
+    are padded to a multiple of tp and grouped as the attention hands
+    them over (`ops.gqa_layout`: padded and unevenly grouped heads fill
+    groups of the largest group's size with zero rows)."""
     import torch
     from repro_torch import sharding
     from repro_torch.launch.mesh import Mesh
@@ -732,6 +792,7 @@ def paged_case(cfg, *, B, Q, ctx, base, n_pages, gen, tp=1, rank=0):
     dev = "cuda"
     ps, KV, hd, H = 16, cfg.n_kv_heads, cfg.head_dim, cfg.n_heads
     env = sharding.make_axis_env(Mesh.at(1, tp, rank, dev))
+    Hp = sharding.pad_to_multiple(H, tp)       # query heads padded to tp
     n_lp = 512 // ps
     pool = lambda: torch.randn((n_pages, ps // tp, KV, hd), generator=gen,
                                device=dev).to(torch.bfloat16)
@@ -748,9 +809,9 @@ def paged_case(cfg, *, B, Q, ctx, base, n_pages, gen, tp=1, rank=0):
     if base is not None:
         pos = base + torch.arange(Q, device=dev)[None]
     mask = L.paged_valid_mask(table, pos, page_size=ps, env=env)
-    q = torch.randn((B, Q, H, hd), generator=gen, device=dev) \
+    q = torch.randn((B, Q, Hp, hd), generator=gen, device=dev) \
         .to(torch.bfloat16)
-    gq = ops._pa_group_q(q, KV)
+    gq = ops._pa_group_q(q, KV, ops.gqa_layout(Hp, KV, H, dev))
     mask4 = mask.reshape(B, Q, n_lp, ps // tp)
     return gq, k_pool, v_pool, table, mask4
 
@@ -771,28 +832,38 @@ def dense_case(arch: str, S: int, pos: int, gen, B: int = 8):
     table, valid = L.dense_page_view(B, S, pos, "cuda")
     q = torch.randn((B, 1, cfg.n_heads, cfg.head_dim), generator=gen,
                     device="cuda").to(torch.bfloat16)
-    return (ops._pa_group_q(q, cfg.n_kv_heads), L.dense_pages(cache["k"]),
+    lay = ops.gqa_layout(cfg.n_heads, cfg.n_kv_heads, cfg.n_heads)
+    return (ops._pa_group_q(q, cfg.n_kv_heads, lay),
+            L.dense_pages(cache["k"]),
             L.dense_pages(cache["v"]), table,
             valid.reshape(B, 1, table.shape[1], L.DENSE_PAGE))
 
 
-def pa_bounds(gq, k_pool, table, mask4, pass2: bool):
+def pa_bounds(gq, k_pool, table, mask4, pass2: bool, heads=None):
     """Bytes and flops the data needs: each (slot, kv head) reads the pages
     that hold a valid position; 2*hd flops per valid score (and 2*hd more
-    per valid PV term in pass 2)."""
+    per valid PV term in pass 2) of each of the `heads` query heads (all
+    of the layout's rows by default; a regrouped layout's zero rows are
+    no work the function needs, so its q, m_safe and outputs count the
+    real heads' rows only)."""
     B, KV, GQ, hd = gq.shape
     Q = mask4.shape[1]
-    g = GQ // Q
+    g = GQ // Q if heads is None else heads / KV
     ps = k_pool.shape[1]
     live_pages = int(mask4.any(dim=1).any(dim=-1).sum())
     page_bytes = live_pages * ps * KV * hd * 2 * (2 if pass2 else 1)
     valid = int(mask4.sum())
     flops = (4 if pass2 else 2) * hd * valid * g * KV
-    out_bytes = B * KV * GQ * 4 * ((hd + 2) if pass2 else 1)
-    return bound(page_bytes + nbytes(gq, table, mask4) + out_bytes, flops)
+    rows = B * KV * g * Q
+    q_bytes = rows * hd * gq.element_size()
+    out_bytes = rows * 4 * ((hd + 2) if pass2 else 1)
+    return bound(page_bytes + q_bytes + nbytes(table, mask4) + out_bytes,
+                 flops)
 
 
-def check_pa(cfg, label, case):
+def check_pa(cfg, label, case, heads=None):
+    """K3 and K4 on `case` against their plain versions (`heads`: the
+    real query heads of a regrouped layout, for the bounds)."""
     import torch
     from repro_torch.kernels import paged_attn as pa
     gq, k_pool, v_pool, table, mask4 = case
@@ -837,8 +908,8 @@ def check_pa(cfg, label, case):
     dv3, dv4, pd3, pd4 = (device_ms(k3), device_ms(k4), device_ms(p3),
                           device_ms(p4))
     hs3, hs4 = host_ms(k3), host_ms(k4)
-    b3, by3 = pa_bounds(gq, k_pool, table, mask4, pass2=False)
-    b4, by4 = pa_bounds(gq, k_pool, table, mask4, pass2=True)
+    b3, by3 = pa_bounds(gq, k_pool, table, mask4, pass2=False, heads=heads)
+    b4, by4 = pa_bounds(gq, k_pool, table, mask4, pass2=True, heads=heads)
     shape = f"{label} q={tuple(gq.shape)} table={tuple(table.shape)}"
     report("paged_attn_scores_max", shape, err3, tol3,
            m_ref[fin].abs().max().item(), ms3, pl3, b3, by3)
@@ -1048,15 +1119,17 @@ def check_k5(label, x, w):
                 product_ms=product_ms)
 
 
-def k6_case(B: int, T: int, dtype: str, extreme: bool, gen):
-    """K6's operands at rwkv6-3b's heads (40 of 64) from a non-zero state:
+def k6_case(B: int, T: int, dtype: str, extreme: bool, gen, H=None):
+    """K6's operands at rwkv6-3b's heads (40 of 64, or a tp rank's H) from
+    a non-zero state:
     r, k, v ~ N(0, 1) in `dtype`, w = exp(-exp(.)) in (0, 1) (`extreme`:
     exp(-exp(N(0, 1) +- 3)), each decay near 0 or near 1), u ~ 0.5 N(0,
     1), s0 ~ 0.1 N(0, 1)."""
     import torch
     from repro_torch.configs.base import get_config
     cfg = get_config("rwkv6-3b")
-    H, hd = cfg.d_model // cfg.rwkv_head_dim, cfg.rwkv_head_dim
+    H = H or cfg.d_model // cfg.rwkv_head_dim
+    hd = cfg.rwkv_head_dim
     rnd = lambda *sh: torch.randn(sh, generator=gen, device="cuda")
     r, k, v = (rnd(B, T, H, hd).to(getattr(torch, dtype)) for _ in range(3))
     if extreme:
@@ -1114,16 +1187,18 @@ def check_k6(label, r, k, v, w, u, s0):
                 plain_device_ms=pdv, host_ms=hs)
 
 
-def decay_case(M: int, dtype: str, gen):
-    """The decay kernel's operands at rwkv6-3b's width: rows ~ N(0, 1) in
-    `dtype`, A ~ N(0, 1 / d), B ~ N(0, 1 / 8), w0 ~ N(0, 1) - 1, so that
-    w spreads over (0, 1) and moves with every term of the sums."""
+def decay_case(M: int, dtype: str, gen, n=None):
+    """The decay kernel's operands at rwkv6-3b's width (n output columns:
+    d, or a tp rank's share): rows ~ N(0, 1) in `dtype`, A ~ N(0, 1 / d),
+    B ~ N(0, 1 / 8), w0 ~ N(0, 1) - 1, so that w spreads over (0, 1) and
+    moves with every term of the sums."""
     import torch
     from repro_torch.configs.base import get_config
     d = get_config("rwkv6-3b").d_model
+    n = n or d
     rnd = lambda *sh: torch.randn(sh, generator=gen, device="cuda")
     return (rnd(M, d).to(getattr(torch, dtype)), rnd(d, 32) / d ** 0.5,
-            rnd(32, d) / 8 ** 0.5, rnd(d) - 1.0)
+            rnd(32, n) / 8 ** 0.5, rnd(n) - 1.0)
 
 
 def check_decay(label, x, a, b, w0):
@@ -3174,9 +3249,9 @@ def train_families(card):
 E2E_CHUNK, E2E_STEPS = 64, 8     # the teacher-forced request's shape
 
 
-def teacher_forced(cfg, params, tokens, flags, env=None):
-    """Logits (1 + E2E_STEPS, Vp) of one request teacher-forced through
-    the paged serving steps with `flags`: a prefill chunk of the first
+def teacher_forced(cfg, params, tokens, flags, env=None, steps=E2E_STEPS):
+    """Logits (1 + steps, Vp) of one request teacher-forced through the
+    paged serving steps with `flags`: a prefill chunk of the first
     E2E_CHUNK tokens, then a decode tick per following token (slot 0 of
     8 active, pages of 16, a 512-position table).  Over a tp mesh (`env`)
     the pools hold the rank's in-page offsets and each step's vocab
@@ -3186,7 +3261,7 @@ def teacher_forced(cfg, params, tokens, flags, env=None):
     from repro_torch.models import model as M
     env = env or sharding.LOCAL
     dev = tokens.device
-    B, C, ps, n_lp, steps = 8, E2E_CHUNK, 16, 32, E2E_STEPS
+    B, C, ps, n_lp = 8, E2E_CHUNK, 16, 32
     table = torch.zeros((B, n_lp), dtype=torch.int32, device=dev)
     table[0, :(C + steps + ps - 1) // ps] = torch.arange(
         1, 1 + (C + steps + ps - 1) // ps, dtype=torch.int32, device=dev)
@@ -3536,8 +3611,210 @@ def _gloo_rank(rank, world, tmp, prompts, tf_tokens):
         del trainer
         gc.collect()
         torch.cuda.empty_cache()
+    # phase 9d on the same two ranks
+    out["archs"] = _archs_rank(mesh, prompts)
     torch.distributed.destroy_process_group()
     return out
+
+
+# phase 9d, inside 9b's two ranks: granite whole and rwkv6-3b whole on
+# (1, 2), MESH_ARCHS_TICKS greedy ticks after one 64-token chunk of the
+# first MESH_ARCHS_PROMPTS of 9b's prompts (phase 5's, their ids folded
+# into each vocabulary; rwkv6 prefills all 8 in one call), granite's
+# teacher-forced request a chunk and MESH_ARCHS_TF_STEPS ticks.  Each
+# granite step is 1-2 s of gloo collectives: at 8 prompts, 4 ticks and
+# 8 steps 9d took 47.2 s of a script that took 1186.2 s of its 1200 on
+# a slow host, at 8, 2 and 2 41.1 s of 1164.1 s (NVIDIA H100 80GB HBM3,
+# 700.00 W)
+MESH_ARCHS_PROMPTS, MESH_ARCHS_TICKS, MESH_ARCHS_TF_STEPS = 4, 2, 2
+MESH_ARCHS = (("granite-moe-3b-a800m", "paged"), ("rwkv6-3b", "dense"))
+
+
+def _archs_rank(mesh, prompts):
+    """Phase 9d on one of 9b's ranks, on its (1, 2) mesh.  granite
+    (32 layers, 40 experts over the "ep" exchange, 24 heads over 8 kv
+    heads, its 49155-row vocabulary padded to 24704 rows a rank) through
+    an OnlineEngine of phase 5's geometry, then one request teacher-forced
+    through the kernels, the plain modes and the fp64-attention witness
+    (9b's three runs); rwkv6-3b (32 layers, 20 of its 40 heads a rank)
+    through `make_prefill` and the dense decode step, then one prompt in
+    fp32 activations through the kernels and through the plain K5/K6
+    (phase 7's check), its prefill and every tick.  Returns each model's
+    streams, step calls, launches (counts set to 0 just before each
+    serve), logits and seconds."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch import api
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import build
+    from repro_torch.models import model as M
+    out = {}
+    t0 = time.perf_counter()
+    cfg = get_config("granite-moe-3b-a800m")
+    runner = api.Runner(cfg, device=mesh.device, mesh=mesh)
+    params = runner.init_params(0)
+    g_prompts = [list(np.asarray(p) % cfg.vocab_size)
+                 for p in prompts[:MESH_ARCHS_PROMPTS]]
+    build.reset_launches()
+    streams, calls, wall, tick = _serve_prompts(
+        runner, params, g_prompts, MESH_ARCHS_TICKS + 1, debug_guards=False)
+    rec = {"streams": streams, "calls": calls, "serve_s": wall,
+           "tick_ms": tick, "launches": dict(build.LAUNCHES)}
+    tf = torch.randint(0, cfg.vocab_size, (E2E_CHUNK + MESH_ARCHS_TF_STEPS,),
+                       generator=torch.Generator(device="cuda").manual_seed(9),
+                       device="cuda")
+    steps = MESH_ARCHS_TF_STEPS
+    with count_drops() as drops:
+        fused = teacher_forced(cfg, params, tf, M.RunFlags(), runner.env,
+                               steps)
+    with plain_moe_head():
+        plain = teacher_forced(cfg, params, tf,
+                               M.RunFlags(paged_attn="gathered"), runner.env,
+                               steps)
+        with fp64_attention():
+            other = teacher_forced(cfg, params, tf, M.RunFlags(),
+                                   runner.env, steps)
+    rec.update(fused=fused.cpu(), plain=plain.cpu(), other=other.cpu(),
+               drops=drops, seconds=time.perf_counter() - t0)
+    out["granite-moe-3b-a800m"] = rec
+    del params, runner, fused, plain, other
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    cfg = get_config("rwkv6-3b")
+    runner = api.Runner(cfg, device=mesh.device, mesh=mesh)
+    params = runner.init_params(0)
+    toks = torch.as_tensor(np.stack([np.asarray(p) % cfg.vocab_size
+                                     for p in prompts]), device="cuda")
+    prefill, decode = runner.make_prefill(), runner.make_decode_step()
+    build.reset_launches()
+    tok, caches = prefill(params, {"tokens": toks})
+    torch.cuda.synchronize()
+    after_prefill = dict(build.LAUNCHES)
+    got = [tok]
+    S = toks.shape[1]
+    for pos in range(S, S + MESH_ARCHS_TICKS):
+        tok, caches = decode(params, caches, tok, pos)
+        got.append(tok)
+    torch.cuda.synchronize()
+    rec = {"streams": torch.stack(got, 1).tolist(),
+           "after_prefill": after_prefill,
+           "launches": dict(build.LAUNCHES)}
+    del caches
+    # one prompt in fp32 activations: the kernels against the plain K5/K6
+    c32 = dataclasses.replace(cfg, compute_dtype="float32")
+    one = toks[:1]
+
+    def logits_run():
+        with torch.no_grad():
+            lg, c = M.prefill_logits(c32, params, {"tokens": one},
+                                     env=runner.env)
+            rows = [lg]
+            for i in range(MESH_ARCHS_TICKS):
+                lg, c = M.decode_logits(c32, params, c, one[:, i], S + i,
+                                        env=runner.env)
+                rows.append(lg)
+        return torch.cat(rows).cpu()
+    rec["fused"] = logits_run()
+    with plain_k5_k6():
+        rec["plain"] = logits_run()
+    rec["seconds"] = time.perf_counter() - t0
+    out["rwkv6-3b"] = rec
+    del params, runner
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_archs(card, r0, r1):
+    """Phase 9d's checks on 9b's two ranks' results (`_archs_rank`): both
+    ranks' streams equal and in the vocabulary; granite's launches per
+    step as phase 5's formula (K1, K3, K4 once per layer per chunk and
+    tick, K5 once per chunk and tick) and its teacher-forced logits within
+    phase 7b's bar, max(2^-5 of the largest, twice the fp64 witness's
+    gap); rwkv6's K6 and decay kernel once per layer and K5 once per
+    prefill and tick, its fp32 logits within RWKV_FP32_TOL["kernels vs
+    plain"] of the plain K5/K6's on each rank's vocabulary shard.
+    Returns the launches for the kernels line."""
+    from repro_torch.configs.base import get_config
+    a, b = r0["archs"], r1["archs"]
+    g, gb = a["granite-moe-3b-a800m"], b["granite-moe-3b-a800m"]
+    cfg = get_config("granite-moe-3b-a800m")
+    n = g["calls"]["prefill"] + g["calls"]["decode"]
+    want_k = cfg.n_layers * n
+    print(f"[mesh-9d] granite on (1, 2), {cfg.n_layers} layers: step calls "
+          f"{g['calls']}, wall {g['serve_s']:.2f}s, tick p50 "
+          f"{g['tick_ms']:.2f}ms; launches {g['launches']} (expected "
+          f"{want_k} of K1/K3/K4, {n} of K5) [{card}]")
+    if g["streams"] != gb["streams"]:
+        fail("phase 9d: granite's two ranks' streams differ")
+    # greedy takes the argmax over the padded table's rows, as the
+    # reference's `sharded_argmax` (ROADMAP queue 3, breakage d): a
+    # token lies below the padded size, and the padding ids are counted
+    vp = -(-cfg.vocab_size // (MESH_TP * 128)) * MESH_TP * 128
+    flat = [t for s in g["streams"] for t in s]
+    print(f"[mesh-9d] granite: {sum(t >= cfg.vocab_size for t in flat)} of "
+          f"{len(flat)} greedy tokens are padding ids ({cfg.vocab_size} "
+          f"of {vp} rows are the vocabulary)")
+    if any(len(s) != MESH_ARCHS_TICKS + 1 for s in g["streams"]) or not all(
+            0 <= t < vp for t in flat):
+        fail(f"phase 9d: granite streams {g['streams']}")
+    for name, got in g["launches"].items():
+        want = (want_k if name in SERVE_KERNELS else
+                n if name == "normhead_matmul" else 0)
+        if got != want:
+            fail(f"phase 9d: granite {name} launched {got} times, expected "
+                 f"{want}")
+    fused, plain, other = g["fused"], g["plain"], g["other"]
+    big = plain.abs().max().item()
+    err = (fused - plain).abs().max().item()
+    flo = (other - plain).abs().max().item()
+    tol = max(2.0 ** -5 * big, 2 * flo)
+    d = g["drops"]
+    print(f"[mesh-9d] granite teacher-forced (1 chunk + "
+          f"{MESH_ARCHS_TF_STEPS} ticks): "
+          f"kernels vs plain modes {err:.4e} = {err / big:.4f} of the "
+          f"largest (bar {tol:.4e}: rounding floor {flo:.4e}); "
+          f"{d['dropped']} of {d['slots']} routed slots dropped; "
+          f"{g['seconds']:.1f}s")
+    if not err <= tol:
+        fail(f"phase 9d: granite kernels vs plain logits {err} > {tol}")
+
+    w, wb = a["rwkv6-3b"], b["rwkv6-3b"]
+    cfg = get_config("rwkv6-3b")
+    steps = 1 + MESH_ARCHS_TICKS
+    want_p = {k: 0 for k in w["launches"]}
+    want_p.update(wkv6=cfg.n_layers, rwkv_decay=cfg.n_layers,
+                  normhead_matmul=1)
+    want_all = dict(want_p, wkv6=cfg.n_layers * steps,
+                    rwkv_decay=cfg.n_layers * steps, normhead_matmul=steps)
+    print(f"[mesh-9d] rwkv6-3b on (1, 2), {cfg.n_layers} layers, 20 of 40 "
+          f"heads a rank: launches after the prefill {w['after_prefill']}, "
+          f"after {MESH_ARCHS_TICKS} ticks {w['launches']} [{card}]")
+    if w["streams"] != wb["streams"]:
+        fail("phase 9d: rwkv6's two ranks' streams differ")
+    if any(not all(0 <= t < cfg.vocab_size for t in s)
+           for s in w["streams"]):
+        fail(f"phase 9d: rwkv6 streams {w['streams']}")
+    if w["after_prefill"] != want_p or w["launches"] != want_all:
+        fail(f"phase 9d: rwkv6 launches {w['after_prefill']} / "
+             f"{w['launches']}, expected {want_p} / {want_all}")
+    for r, rec in enumerate((w, wb)):
+        top = rec["plain"].abs().max().item()
+        errk = (rec["fused"] - rec["plain"]).abs().max().item()
+        tolk = RWKV_FP32_TOL["kernels vs plain"] * top
+        print(f"[mesh-9d] rwkv6 rank {r}, fp32 activations, prefill + "
+              f"{MESH_ARCHS_TICKS} ticks on its vocabulary shard: kernels "
+              f"vs plain K5/K6 {errk:.4e} = {errk / top:.3e} of the largest "
+              f"(tolerance {tolk:.4e})")
+        if not errk <= tolk:
+            fail(f"phase 9d: rwkv6 rank {r} kernels vs plain {errk} > "
+                 f"{tolk}")
+    print(f"[mesh-9d] rwkv6 {w['seconds']:.1f}s; phase 9d took "
+          f"{g['seconds'] + w['seconds']:.1f}s of 9b's ranks")
+    return {"mesh_granite": g["launches"], "mesh_rwkv6": w["launches"]}
 
 
 def _collective_line(stats, n: int, what: str) -> str:
@@ -3665,12 +3942,14 @@ def mesh_gloo(card, base, tf_tokens, tf_one, train_hist):
                                           ["same_params"]):
         fail(f"phase 9b: the (2, 1) step run twice differs: {a['hist']} vs "
              f"{b['hist']}, params equal {b['same_params']}")
-    print(f"[mesh-9b] phase 9b took {time.perf_counter() - t0:.1f}s")
+    archs = mesh_archs(card, r0, r1)
+    print(f"[mesh-9b] phase 9b took {time.perf_counter() - t0:.1f}s (9d "
+          f"included)")
     base["mesh_9b"] = {"streams": r0["streams"], "tick_ms": r0["tick_ms"],
                        "train_1x2": r0["train"]["1x2"]}
     return {"mesh_serve": r0["serve_launches"],
             "mesh_train_2x1": a["launches"],
-            "mesh_train_1x2": r0["train"]["1x2"]["launches"]}
+            "mesh_train_1x2": r0["train"]["1x2"]["launches"], **archs}
 
 
 # phase 9c: the rest of Ling-Lite's paths on (1, 2), and checkpoints
@@ -4144,6 +4423,7 @@ def mesh_paths(card, base):
 
 
 def main():
+    t_script = time.perf_counter()
     src = Path(__file__).resolve().parent / "src"
     sys.path.insert(0, str(src))
     import torch
@@ -4157,6 +4437,11 @@ def main():
         from repro_torch.kernels import build
     except ImportError as e:
         fail(f"cannot import the port from {src}: {e}")
+
+    def mark(phase: str):
+        # where the script's time goes: each phase's start since launch
+        print(f"[time] phase {phase} starts at "
+              f"{time.perf_counter() - t_script:.1f}s", flush=True)
 
     # -- 1. the card ------------------------------------------------------
     card = card_line()
@@ -4185,6 +4470,7 @@ def main():
                 elif "Used" in line or "spill" in line:
                     print(f"[build] {p.stem} {fn}: {line.strip()}")
 
+    mark("3")
     # -- 3. per-kernel checks ----------------------------------------------
     cfg = get_config("ling-lite")
     gen = torch.Generator(device="cuda").manual_seed(1234)
@@ -4235,6 +4521,32 @@ def main():
           for label, case in K6_CASES.items()}
     decay = {label: check_decay(label, *decay_case(M, dt, gen))
              for label, (M, dt) in DECAY_CASES.items()}
+    # the shapes of padded heads and experts and of rwkv6 over tp
+    t3 = time.perf_counter()
+    for label, (arch, shape, tp, rank) in PA_REGROUP_CASES.items():
+        acfg = get_config(arch)
+        k3[label], k4[label] = check_pa(acfg, label, paged_case(
+            acfg, gen=gen, tp=tp, rank=rank, **PA_CASES[shape]),
+            heads=-(-acfg.n_heads // tp) * tp)
+    gcfg = get_config(K2_ARCH)
+    for label, T in DUMMY_EP_CASES.items():
+        case = ep_case(gcfg, T, gen, tp=DUMMY_TP, rank=DUMMY_RANK)
+        if int(case[4][-2:].sum()) != 0:
+            fail(f"{label}: a dummy expert received rows")
+        k1[label] = check_k1(gcfg, T, gen, case=case)
+        if T == DUMMY_TRAIN_T:
+            rows, wrows = check_k2(gcfg, gen, case=case)
+            k2.update({f"{label} {k}": v for k, v in rows.items()})
+            wgrad.update({f"{label} {k}": v for k, v in wrows.items()})
+        del case
+        torch.cuda.empty_cache()
+    k6.update({label: check_k6(label, *k6_case(*case[:4], gen, H=case[4]))
+               for label, case in K6_MESH_CASES.items()})
+    decay.update({label: check_decay(label, *decay_case(M, dt, gen, n=n))
+                  for label, (M, dt, n) in DECAY_MESH_CASES.items()})
+    print(f"[kernels] phase 3's padded-head, dummy-expert and tp = 2 rwkv6 "
+          f"cases took {time.perf_counter() - t3:.1f}s (granite's head "
+          f"shard among K5_MESH_CASES)")
     results = {"fused_moe_ffn": k1,
                "grouped_matmul_aligned": k2,
                "grouped_matmul_wgrad": wgrad,
@@ -4243,11 +4555,13 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
 
+    mark("4")
     # -- 4. gradients --------------------------------------------------------
     check_grads(cfg, gen)
     gc.collect()
     torch.cuda.empty_cache()
 
+    mark("5")
     # -- 5. serving ---------------------------------------------------------
     from repro_torch import api
     t0 = time.perf_counter()
@@ -4260,6 +4574,7 @@ def main():
           f"init {time.perf_counter() - t0:.1f}s (depth not cut)")
     base, serve_launches = serve(cfg, params)
 
+    mark("6")
     # -- 6. end to end ------------------------------------------------------
     end_to_end(cfg, params, gen)
     # phase 9b's teacher-forced request, here at (1, 1) on the kernels
@@ -4271,6 +4586,7 @@ def main():
     tf_one = teacher_forced(cfg, params, tf_tokens, M.RunFlags()).cpu()
     tf_tokens = tf_tokens.tolist()
 
+    mark("6b")
     # -- 6b. sampling and speculative decoding -------------------------------
     spec_launches = serve_sampled(cfg, params, base, card)
 
@@ -4281,6 +4597,7 @@ def main():
     dpo_launches = dpo_check(cfg, params, card)
     print(f"[dense] phase 6c took {time.perf_counter() - t0:.1f}s")
 
+    mark("7")
     # -- 7. rwkv6 serving ---------------------------------------------------
     del params          # 31 GiB of bf16 serving weights
     gc.collect()
@@ -4299,11 +4616,13 @@ def main():
     family_launches = serve_families(card)
     print(f"[families] phase 7c took {time.perf_counter() - t0:.1f}s")
 
+    mark("8")
     # -- 8. training --------------------------------------------------------
     train_launches, train_hist = train(card)
     gc.collect()
     torch.cuda.empty_cache()
 
+    mark("8b")
     # -- 8b. checkpoint and exact resume ---------------------------------------
     resume_launches = train_resume(card)
 
@@ -4331,6 +4650,7 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
 
+    mark("9")
     # -- 9. Ling-Lite on a mesh of ranks ------------------------------------------
     t0 = time.perf_counter()
     mesh_launches, hist_9b = mesh_nccl(card, base, train_hist)
@@ -4403,6 +4723,8 @@ def main():
     print(json.dumps({"kernels": rows}))
     if rwkv_failed:
         fail("; ".join(rwkv_failed))
+    print(f"[time] chip_smoke.py took {time.perf_counter() - t_script:.1f}s"
+          f" [{card}]")
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -60,7 +60,10 @@ from repro_torch.sharding import LOCAL, AxisEnv
 
 
 def padded_experts(cfg, env: AxisEnv = LOCAL) -> Tuple[int, int]:
-    """(E_padded, E_local): experts padded to a multiple of tp."""
+    """(E_padded, E_local): experts padded to a multiple of tp (the
+    padding experts are never routed to: granite's 40 on tp = 16, or 5 on
+    tp = 2, give the last rank dummy experts whose groups are empty in
+    every dispatch mode)."""
     ep = sharding.pad_to_multiple(cfg.moe.n_experts, env.tp)
     return ep, ep // env.tp
 
@@ -98,18 +101,16 @@ def init_moe(cfg, init: L.Init) -> Dict:
     wdt = init.weight_dtype(cfg)
     env = init.env
     ep, _ = padded_experts(cfg, env)
-    if ep != m.n_experts:
-        raise NotImplementedError(
-            f"{m.n_experts} experts over tp={env.tp}: padded experts are "
-            f"not yet ported (ROADMAP item 9)")
     out_scale = 0.02 / max(cfg.n_layers, 1) ** 0.5
     params: Dict = {"router": router_lib.init_router(cfg, init)}
-    params["we1"] = init.normal((m.n_experts, d, m.expert_d_ff), wdt,
+    # (E_pad, ...) as the reference's: the padding experts' weights are
+    # drawn, but the router never picks them, so their groups stay empty
+    params["we1"] = init.normal((ep, d, m.expert_d_ff), wdt,
                                 spec=sharding.ep_spec(env, 3, 1, 0))
-    params["we2"] = init.normal((m.n_experts, m.expert_d_ff, d), wdt,
-                                out_scale, spec=sharding.ep_spec(env, 3, 2, 0))
+    params["we2"] = init.normal((ep, m.expert_d_ff, d), wdt, out_scale,
+                                spec=sharding.ep_spec(env, 3, 2, 0))
     if cfg.mlp_act in L.GATED_ACTS:
-        params["we3"] = init.normal((m.n_experts, d, m.expert_d_ff), wdt,
+        params["we3"] = init.normal((ep, d, m.expert_d_ff), wdt,
                                     spec=sharding.ep_spec(env, 3, 1, 0))
     if m.n_shared_experts > 0:
         params["shared"] = L.init_mlp(cfg, init, d_ff=m.shared_ff,

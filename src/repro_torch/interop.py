@@ -17,6 +17,9 @@ Over a mesh (`env`) the reference's global pytree is cut into the rank's
 shards by the port's spec tree (`model.param_specs`), so the tests can
 feed both packages the same weights at any mesh; `shard_tree` does the
 same for any tree laid out like the parameters (gradients, moments).
+Where query heads, experts, rwkv heads or vocabulary rows pad to a
+multiple of tp, the global shapes are those of `env`'s tp, as the
+reference's `Runner.init_params` draws them at that mesh.
 """
 from __future__ import annotations
 

@@ -7,6 +7,7 @@ tensors and launch the CUDA kernels for CUDA tensors.
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
@@ -138,47 +139,98 @@ def paged_gather(pool, table):
     return pool[table.long()]
 
 
-def _pa_group_q(q, KV):
-    """(B, Q, Hp, hd) -> (B, KV, g*Q, hd), g-major."""
-    B, Qn, Hp, hd = q.shape
-    g = Hp // KV
-    return q.reshape(B, Qn, KV, g, hd).permute(0, 2, 3, 1, 4) \
-            .reshape(B, KV, g * Qn, hd).contiguous()
+def gqa_kv_map(Hp: int, KV: int, n_heads: int, device=None):
+    """(Hp,) the kv head each of Hp (padded) query heads reads: min(h // G,
+    KV - 1), G = max(n_heads // KV, 1), the reference's map (padded heads,
+    and the heads past an uneven grouping's last full group, read the
+    last kv head)."""
+    G = max(n_heads // KV, 1)
+    return (torch.arange(Hp, device=device) // G).clamp_max(KV - 1)
 
 
-def _pa_ungroup(x, Qn, Hp):
-    """(B, KV, g*Q, ...) -> (B, Q, Hp, ...), inverse of `_pa_group_q`."""
+def gqa_even(Hp: int, KV: int, n_heads: int) -> bool:
+    """Whether Hp (padded) query heads group evenly over KV kv heads under
+    `gqa_kv_map`: query head h reads kv head h // (Hp / KV), so the heads'
+    own order is K3/K4's layout and the gathered mode contracts q as
+    (KV, g) without expanding the cache."""
+    return max(n_heads // KV, 1) * KV == Hp
+
+
+@functools.lru_cache(maxsize=None)
+def _gqa_rows(Hp: int, KV: int, n_heads: int, device) -> torch.Tensor:
+    G = max(n_heads // KV, 1)
+    g_max = max(G, Hp - (KV - 1) * G)
+    kv = gqa_kv_map(Hp, KV, n_heads, device)
+    return kv * (g_max - G) + torch.arange(Hp, device=device)
+
+
+def gqa_layout(Hp: int, KV: int, n_heads: int, device=None):
+    """K3/K4's query layout for Hp (padded) query heads over KV kv heads:
+    query head h reads kv head `gqa_kv_map`(h) and sits at slot h - kv * G
+    of its kv head's group.  Returns (g_max, the largest group, and the
+    (Hp,) row of each head in the padded (KV * g_max) layout, None where
+    that layout is the heads' own order, `gqa_even`).  Padded and
+    unevenly grouped heads leave some of a group's g_max slots empty.
+    The rows are made once per layout and device."""
+    G = max(n_heads // KV, 1)
+    if gqa_even(Hp, KV, n_heads):
+        return G, None
+    g_max = max(G, Hp - (KV - 1) * G)
+    return g_max, _gqa_rows(Hp, KV, n_heads, torch.device(device or "cpu"))
+
+
+def _pa_group_q(q, KV, layout):
+    """(B, Q, Hp, ...) -> (B, KV, g*Q, ...), g-major, under `gqa_layout`'s
+    (g, rows): each kv head's query heads, zero rows in the slots a group
+    leaves empty."""
+    B, Qn, Hp = q.shape[:3]
+    rest = tuple(q.shape[3:])
+    g, rows = layout
+    if rows is not None:
+        q = q.new_zeros((B, Qn, KV * g) + rest).index_copy_(2, rows, q)
+    y = q.reshape((B, Qn, KV, g) + rest)
+    return torch.movedim(y, 1, 3).reshape((B, KV, g * Qn) + rest) \
+        .contiguous()
+
+
+def _pa_ungroup(x, Qn, layout):
+    """(B, KV, g*Q, ...) -> (B, Q, Hp, ...), inverse of `_pa_group_q` under
+    the same `layout`: the empty slots' rows are dropped."""
     B, KV = x.shape[:2]
-    g = Hp // KV
-    y = x.reshape((B, KV, g, Qn) + tuple(x.shape[3:]))
-    y = torch.movedim(y, 3, 1)
-    return y.reshape((B, Qn, Hp) + tuple(x.shape[3:]))
+    rest = tuple(x.shape[3:])
+    g, rows = layout
+    y = torch.movedim(x.reshape((B, KV, g, Qn) + rest), 3, 1)
+    y = y.reshape((B, Qn, KV * g) + rest)
+    return y if rows is None else y.index_select(2, rows)
 
 
-def paged_attention_scores_max(q, k_pool, table, mask):
+def paged_attention_scores_max(q, k_pool, table, mask, layout=None):
     """Pass 1 (K3): q (B, Q, Hp, hd); k_pool (n_pages, ps, KV, hd); table
-    (B, n_lp); mask (B, Q, n_lp * ps) bool.  Returns m (B, Q, Hp) fp32,
-    -inf where nothing is valid."""
+    (B, n_lp); mask (B, Q, n_lp * ps) bool; `layout` the heads'
+    `gqa_layout` on q's device (default: even grouping, g = Hp / KV).
+    Returns m (B, Q, Hp) fp32, -inf where nothing is valid."""
     B, Qn, Hp, hd = q.shape
     _, ps, KV, _ = k_pool.shape
     n_lp = table.shape[1]
-    m = _pa.paged_attn_scores_max(_pa_group_q(q, KV), k_pool, table,
+    lay = layout or (Hp // KV, None)
+    m = _pa.paged_attn_scores_max(_pa_group_q(q, KV, lay), k_pool, table,
                                   mask.reshape(B, Qn, n_lp, ps))
-    return _pa_ungroup(m, Qn, Hp)
+    return _pa_ungroup(m, Qn, lay)
 
 
-def paged_attention_accumulate(q, k_pool, v_pool, table, mask, m_safe):
+def paged_attention_accumulate(q, k_pool, v_pool, table, mask, m_safe,
+                               layout=None):
     """Pass 2 (K4): operands as pass 1 plus v_pool and m_safe (B, Q, Hp)
     fp32 (the row max with -inf replaced by 0).  Returns fp32
     (num (B, Q, Hp, hd), den (B, Q, Hp))."""
     B, Qn, Hp, hd = q.shape
     _, ps, KV, _ = k_pool.shape
     n_lp = table.shape[1]
+    lay = layout or (Hp // KV, None)
     num, den = _pa.paged_attn_accumulate(
-        _pa_group_q(q, KV), k_pool, v_pool, table,
-        mask.reshape(B, Qn, n_lp, ps),
-        _pa_group_q(m_safe[..., None], KV)[..., 0])
-    return _pa_ungroup(num, Qn, Hp), _pa_ungroup(den, Qn, Hp)
+        _pa_group_q(q, KV, lay), k_pool, v_pool, table,
+        mask.reshape(B, Qn, n_lp, ps), _pa_group_q(m_safe, KV, lay))
+    return _pa_ungroup(num, Qn, lay), _pa_ungroup(den, Qn, lay)
 
 
 # ---------------------------------------------------------------------------

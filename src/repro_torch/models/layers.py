@@ -236,17 +236,31 @@ class AttnDims:
 
     @classmethod
     def build(cls, cfg, env: AxisEnv = LOCAL) -> "AttnDims":
-        if cfg.n_heads % cfg.n_kv_heads:
-            raise NotImplementedError(
-                f"{cfg.n_heads} query heads over {cfg.n_kv_heads} kv heads: "
-                f"uneven GQA grouping is not yet ported")
+        """Query heads padded to a multiple of tp, as the reference's: a
+        padded head is a real head (its wq columns and wo rows are drawn)
+        that reads the last kv head (`kv_map`)."""
         hp = sharding.pad_to_multiple(cfg.n_heads, env.tp)
-        if hp != cfg.n_heads:
-            raise NotImplementedError(
-                f"{cfg.n_heads} query heads over tp={env.tp}: padded heads "
-                f"are not yet ported (ROADMAP item 9)")
         return cls(cfg.n_heads, cfg.n_kv_heads, hp, hp // env.tp,
                    cfg.head_dim)
+
+    @property
+    def grouped(self) -> bool:
+        """Query head h reads kv head h // (Hp / KV) (`ops.gqa_even`): the
+        layout `_paged_scores_combine` contracts without expanding the
+        cache, and K3/K4's without regrouping."""
+        return kops.gqa_even(self.heads_padded, self.n_kv, self.n_heads)
+
+    def kv_map(self, device=None) -> torch.Tensor:
+        """(heads_padded,) the kv head each query head reads
+        (`ops.gqa_kv_map`, the reference's map)."""
+        return kops.gqa_kv_map(self.heads_padded, self.n_kv, self.n_heads,
+                               device)
+
+    def layout(self, device=None):
+        """K3/K4's query layout of the heads on `device`
+        (`ops.gqa_layout`: made once per layout and device)."""
+        return kops.gqa_layout(self.heads_padded, self.n_kv, self.n_heads,
+                               device)
 
 
 def init_attention(cfg, init: Init) -> Params:
@@ -269,11 +283,10 @@ def init_attention(cfg, init: Init) -> Params:
 
 def _kv_index_for_local_heads(ad: AttnDims, env: AxisEnv,
                               device) -> torch.Tensor:
-    """GQA: query head g reads kv head g // (H / KV); (local_heads,)
-    indices of this rank's heads."""
-    g = env.tp_index() * ad.local_heads + torch.arange(ad.local_heads,
-                                                       device=device)
-    return (g // max(ad.n_heads // ad.n_kv, 1)).clamp_max(ad.n_kv - 1)
+    """(local_heads,) the kv head of each of this rank's query heads
+    (`AttnDims.kv_map`)."""
+    lo = env.tp_index() * ad.local_heads
+    return ad.kv_map(device)[lo:lo + ad.local_heads]
 
 
 def _attn_weights(params: Params, env: AxisEnv, cdt):
@@ -435,22 +448,35 @@ def _paged_scores_combine(cfg, ad: AttnDims, q_all, k_g, v_g, valid, cdt,
     view k_g/v_g (B, S, KV, hd) under valid (B, Q, S).  Scores and the PV
     product are fp32 contractions of the compute-dtype operands; the row
     max is taken over tp, p is rounded to cdt before the PV product, and
-    (num, den) are summed over tp.  Returns (B, Q, Hp, hd)."""
+    (num, den) are summed over tp.  Grouped heads (`AttnDims.grouped`)
+    contract q as (KV, g) against the view itself; padded or unevenly
+    grouped heads against the view's kv heads expanded by
+    `AttnDims.kv_map`, as the reference's `jnp.take`.  Returns
+    (B, Q, Hp, hd)."""
     hd = ad.head_dim
     B, Qn, S_g = valid.shape
-    g = ad.heads_padded // ad.n_kv
-    q_g = q_all.reshape(B, Qn, ad.n_kv, g, hd)
-    s = torch.einsum("bqkgd,bskd->bqkgs", q_g.float(), k_g.float()) \
-        * hd ** -0.5
-    s = s.reshape(B, Qn, ad.heads_padded, S_g)
+    if ad.grouped:
+        g = ad.heads_padded // ad.n_kv
+        q_g = q_all.reshape(B, Qn, ad.n_kv, g, hd)
+        s = torch.einsum("bqkgd,bskd->bqkgs", q_g.float(), k_g.float())
+        s = s.reshape(B, Qn, ad.heads_padded, S_g) * hd ** -0.5
+    else:
+        kv = ad.kv_map(q_all.device)
+        s = torch.einsum("bqhd,bshd->bqhs", q_all.float(),
+                         k_g[:, :, kv].float()) * hd ** -0.5
     s = torch.where(valid[:, :, None, :], s, float("-inf"))
     m = env.pmax_tp(s.amax(dim=-1))
     m_safe = torch.where(torch.isfinite(m), m, 0.0)
     p = torch.where(valid[:, :, None, :], torch.exp(s - m_safe[..., None]),
                     0.0)
-    p_g = p.to(cdt).reshape(B, Qn, ad.n_kv, g, S_g)
-    num = torch.einsum("bqkgs,bskd->bqkgd", p_g.float(), v_g.float())
-    num = num.reshape(B, Qn, ad.heads_padded, hd)
+    p_c = p.to(cdt)
+    if ad.grouped:
+        p_g = p_c.reshape(B, Qn, ad.n_kv, g, S_g)
+        num = torch.einsum("bqkgs,bskd->bqkgd", p_g.float(), v_g.float())
+        num = num.reshape(B, Qn, ad.heads_padded, hd)
+    else:
+        num = torch.einsum("bqhs,bshd->bqhd", p_c.float(),
+                           v_g[:, :, kv].float())
     den = p.sum(dim=-1)
     num, den = env.psum_tp((num, den))
     return (num / den.clamp_min(1e-20)[..., None]).to(cdt)
@@ -474,16 +500,20 @@ def _paged_attention_core(cfg, ad: AttnDims, q_all, pool, table, valid,
 
     "fused": pass 1 (K3) -> max over tp -> safe max -> pass 2 (K4) ->
     (num, den) summed over tp -> normalize, the page table walked inside
-    the kernels.  "gathered": `ops.paged_gather` materializes the view
-    and `_paged_scores_combine` finishes.  Returns (B, Q, Hp, hd)."""
+    the kernels; padded or unevenly grouped heads reach them regrouped
+    per kv head (`AttnDims.layout`), never through the gathered mode.
+    "gathered": `ops.paged_gather` materializes the view and
+    `_paged_scores_combine` finishes.  Returns (B, Q, Hp, hd)."""
     hd = ad.head_dim
     B = q_all.shape[0]
     if resolve_paged_attn(paged_attn) == "fused":
-        m = kops.paged_attention_scores_max(q_all, pool["k"], table, valid)
+        lay = ad.layout(q_all.device)
+        m = kops.paged_attention_scores_max(q_all, pool["k"], table, valid,
+                                            lay)
         m = env.pmax_tp(m)
         m_safe = torch.where(torch.isfinite(m), m, 0.0)
         num, den = kops.paged_attention_accumulate(
-            q_all, pool["k"], pool["v"], table, valid, m_safe)
+            q_all, pool["k"], pool["v"], table, valid, m_safe, lay)
         num, den = env.psum_tp((num, den))
         return (num / den.clamp_min(1e-20)[..., None]).to(cdt)
     S_g = valid.shape[-1]

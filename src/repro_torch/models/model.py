@@ -30,8 +30,8 @@ blocks gather their sequence-parallel inputs over tp and reduce-scatter
 their partial outputs back (`env.sp_gather` / `env.sp_scatter`), the
 loss is the vocab-sharded cross entropy summed over dp, and the serving
 steps keep activations replicated over tp (`sharding.denv`) and psum
-each block's partial outputs.  At dp * tp > 1 only Ling-Lite's blocks
-run (`check_mesh_support`).
+each block's partial outputs.  At dp * tp > 1 the uniform "attn" and
+"rwkv" architectures run (`MESH_ARCHS`, `check_mesh_support`).
 """
 from __future__ import annotations
 
@@ -106,8 +106,12 @@ def check_ported_blocks(cfg: ModelConfig):
                          f"(known: {list(BLOCK_KINDS)})")
 
 
-# the architectures held at dp * tp > 1 (ROADMAP item 9 lists the rest)
-MESH_ARCHS = ("ling-lite",)
+# the architectures held at dp * tp > 1; the block families wait for
+# ROADMAP item 9, sub-item 6.4 (list-layout spec trees, rolling and cross
+# caches, RG-LRU's blocks over tp)
+MESH_ARCHS = ("ling-lite", "ling-plus", "deepseek-moe-16b",
+              "moonshot-v1-16b-a3b", "granite-moe-3b-a800m",
+              "phi3-mini-3.8b", "chameleon-34b", "rwkv6-3b")
 
 
 def check_mesh_support(cfg: ModelConfig, env: AxisEnv):
@@ -116,8 +120,8 @@ def check_mesh_support(cfg: ModelConfig, env: AxisEnv):
     if env.dp * env.tp > 1 and cfg.arch_id not in MESH_ARCHS:
         raise NotImplementedError(
             f"{cfg.arch_id} on a (dp={env.dp}, tp={env.tp}) mesh is not "
-            f"yet ported (ROADMAP item 9: {', '.join(MESH_ARCHS)} runs "
-            f"over more than one rank)")
+            f"yet ported (ROADMAP item 9, sub-item 6.4: "
+            f"{', '.join(MESH_ARCHS)} run over more than one rank)")
 
 
 def init_block(cfg: ModelConfig, init: L.Init, kind: str, ffn: str,
@@ -265,22 +269,27 @@ def warmup_noise(cfg: ModelConfig, rng, step, T: int,
 
 
 def _rwkv_block(cfg: ModelConfig, params, x, *, B: int, S: int,
-                train: bool, chunk: int):
+                train: bool, chunk: int, env: AxisEnv = LOCAL):
     """One rwkv block: x (T, d) -> (x, its decode cache).  The time mix
     and the channel mix shift their (normed) inputs by one token with a
     zero first row; the cache keeps each one's last input.  `train` runs
-    the time mix's plain forms (`rwkv6.time_mix`)."""
+    the time mix's plain forms (`rwkv6.time_mix`).  Over tp, as
+    `block_forward`'s attention: x is the rank's SP slice, each mix
+    gathers its normed input and reduce-scatters its partial output, the
+    channel mix's gate (the rank's slice) applied after."""
     d = cfg.d_model
-    h = L.apply_norm(cfg, params["norm1"], x)
+    h = env.sp_gather(L.apply_norm(cfg, params["norm1"], x, env))
     partial, state = rwkv_lib.time_mix(cfg, params["tmix"],
                                        h.reshape(B, S, d), train=train,
-                                       chunk=chunk)
-    x = x + partial.reshape(B * S, d)
-    h = L.apply_norm(cfg, params["norm2"], x)
+                                       chunk=chunk, env=env)
+    x = x + env.sp_scatter(partial.reshape(B * S, d))
+    h = env.sp_gather(L.apply_norm(cfg, params["norm2"], x, env))
     hB = h.reshape(B, S, d)
     h_prev = F.pad(hB, (0, 0, 1, 0))[:, :-1].reshape(-1, d)
-    partial, gate = rwkv_lib.channel_mix(cfg, params["cmix"], h, h_prev)
-    return x + gate * partial, {"rwkv": state, "cmix_prev": hB[:, -1]}
+    partial, gate = rwkv_lib.channel_mix(cfg, params["cmix"], h, h_prev,
+                                         env)
+    return (x + gate * env.sp_scatter(partial),
+            {"rwkv": state, "cmix_prev": hB[:, -1]})
 
 
 def block_forward(cfg: ModelConfig, params, x, eps, *, B: int, S: int,
@@ -302,7 +311,7 @@ def block_forward(cfg: ModelConfig, params, x, eps, *, B: int, S: int,
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
     if kind == "rwkv":
         x, cache = _rwkv_block(cfg, params, x, B=B, S=S, train=train,
-                               chunk=flags.rwkv_chunk)
+                               chunk=flags.rwkv_chunk, env=env)
         return x, zero, {}, (cache if want_cache else None)
     d = cfg.d_model
     cache = {}
@@ -486,7 +495,7 @@ def init_block_cache(cfg: ModelConfig, kind: str, batch: int, device,
     elif kind == "rglru":
         cache["rglru"] = rglru_lib.init_decode_state(cfg, batch, device)
     else:
-        cache["rwkv"] = rwkv_lib.init_decode_state(cfg, batch, device)
+        cache["rwkv"] = rwkv_lib.init_decode_state(cfg, batch, device, env)
         cache["cmix_prev"] = torch.zeros(
             (batch, cfg.d_model), dtype=L.dtype_of(cfg.compute_dtype),
             device=device)
@@ -513,7 +522,7 @@ def init_caches(cfg: ModelConfig, batch: int, device,
     if kind in ("attn", "swa"):   # views of padded storage: not a stack
         return init_block_cache(cfg, kind, batch, device, seq_len,
                                 lead=(cfg.n_layers,), env=env)
-    one = init_block_cache(cfg, kind, batch, device, seq_len)
+    one = init_block_cache(cfg, kind, batch, device, seq_len, env=env)
     return _stack([one] * cfg.n_layers)
 
 
@@ -548,15 +557,15 @@ def block_decode(cfg: ModelConfig, params, x, cache, pos=None, *, kind: str,
     the tick's page views of the KV caches.  Partial sublayer outputs are
     summed over tp.  Returns (x, cache)."""
     if kind == "rwkv":
-        h = L.apply_norm(cfg, params["norm1"], x)
+        h = L.apply_norm(cfg, params["norm1"], x, env)
         partial, _ = rwkv_lib.time_mix_decode(cfg, params["tmix"], h,
-                                              cache["rwkv"])
-        x = x + partial
-        h = L.apply_norm(cfg, params["norm2"], x)
+                                              cache["rwkv"], env)
+        x = x + env.psum_tp(partial)
+        h = L.apply_norm(cfg, params["norm2"], x, env)
         partial, gate = rwkv_lib.channel_mix(cfg, params["cmix"], h,
-                                             cache["cmix_prev"])
+                                             cache["cmix_prev"], env)
         cache["cmix_prev"].copy_(h)
-        return x + gate * partial, cache
+        return x + gate * env.psum_tp(partial), cache
     views = views or TickViews(x.shape[0], pos, x.device, env)
     h = L.apply_norm(cfg, params["norm1"], x, env)
     if kind == "rglru":

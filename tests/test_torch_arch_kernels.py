@@ -98,7 +98,8 @@ def test_k3_k4_decode_at_the_archs_heads(arch):
         .reshape(B, 1, n_lp, ps)
     q = torch.randn((B, 1, cfg.n_heads, hd), generator=gen, device="cuda") \
         .to(torch.bfloat16)
-    gq = ops._pa_group_q(q, KV)
+    gq = ops._pa_group_q(q, KV,
+                         ops.gqa_layout(cfg.n_heads, KV, cfg.n_heads))
     m = pa.paged_attn_scores_max(gq, k_pool, table, mask)
     m_ref = pa.paged_attn_scores_max_ref(gq, k_pool, table, mask)
     fin = torch.isfinite(m_ref)

@@ -50,7 +50,9 @@ def dense_case(arch, S, pos, B=8, seed=0):
     n_lp = table.shape[1]
     q = torch.randn((B, 1, cfg.n_heads, cfg.head_dim), generator=gen,
                     device="cuda").to(torch.bfloat16)
-    return (ops._pa_group_q(q, cfg.n_kv_heads), L.dense_pages(cache["k"]),
+    lay = ops.gqa_layout(cfg.n_heads, cfg.n_kv_heads, cfg.n_heads)
+    return (ops._pa_group_q(q, cfg.n_kv_heads, lay),
+            L.dense_pages(cache["k"]),
             L.dense_pages(cache["v"]), table,
             valid.reshape(B, 1, n_lp, L.DENSE_PAGE))
 

@@ -319,19 +319,21 @@ def test_k3_k4_cuda_kernels_match_plain(Q):
     tq, tk, tv = bf(q), bf(k_pool), bf(v_pool)
     tt, tm = torch.tensor(table).cuda(), torch.tensor(mask).cuda()
     m = tops.paged_attention_scores_max(tq, tk, tt, tm)
+    lay = tops.gqa_layout(4, 2, 4)
     m_ref = pa.paged_attn_scores_max_ref(
-        tops._pa_group_q(tq, 2), tk, tt, tm.reshape(3, Q, 4, 8))
-    m_ref = tops._pa_ungroup(m_ref, Q, 4)
+        tops._pa_group_q(tq, 2, lay), tk, tt, tm.reshape(3, Q, 4, 8))
+    m_ref = tops._pa_ungroup(m_ref, Q, lay)
     assert torch.equal(torch.isinf(m), torch.isinf(m_ref))
     fin = torch.isfinite(m_ref)
     assert (m[fin] - m_ref[fin]).abs().max() <= 1e-5 * m_ref[fin].abs().max()
     m_safe = torch.where(fin, m_ref, 0.0)
     num, den = tops.paged_attention_accumulate(tq, tk, tv, tt, tm, m_safe)
-    gq = tops._pa_group_q(tq, 2)
+    gq = tops._pa_group_q(tq, 2, lay)
     num_r, den_r = pa.paged_attn_accumulate_ref(
         gq, tk, tv, tt, tm.reshape(3, Q, 4, 8),
-        tops._pa_group_q(m_safe[..., None], 2)[..., 0])
-    num_r, den_r = tops._pa_ungroup(num_r, Q, 4), tops._pa_ungroup(den_r, Q, 4)
+        tops._pa_group_q(m_safe[..., None], 2, lay)[..., 0])
+    num_r, den_r = tops._pa_ungroup(num_r, Q, lay), tops._pa_ungroup(den_r,
+                                                                     Q, lay)
     atol = 1e-5 * num_r.abs().max() + 2.0 ** -8 * tv.float().abs().max()
     assert (num - num_r).abs().max() <= atol
     assert (den - den_r).abs().max() <= 1e-5 * den_r.abs().max()
@@ -381,7 +383,8 @@ def _pa_cuda_case(seed, Q, ctx, base=None, KV=4, g=4, hd=128, ps=16,
     mask = TL.paged_valid_mask(table, torch.tensor(pos, device="cuda"),
                                page_size=ps)
     q = bf(B, Q, KV * g, hd)
-    return (tops._pa_group_q(q, KV), k_pool, v_pool, table,
+    return (tops._pa_group_q(q, KV, tops.gqa_layout(KV * g, KV, KV * g)),
+            k_pool, v_pool, table,
             mask.reshape(B, Q, n_lp, ps))
 
 

@@ -16,8 +16,8 @@ tree) and the same numpy-made batch and prompts:
     into caches sharded over tp and its ticks, the paged OnlineEngine
     (page 8, so each rank holds 4 in-page offsets) greedy, and a sampled
     burst through the engine: every stream equal to the reference's;
-  * at dp * tp > 1 every architecture but Ling-Lite raises, naming
-    ROADMAP item 9.
+  * at dp * tp > 1 the block families (nemotron, danube, recurrentgemma,
+    whisper) raise, naming ROADMAP item 9.
 
 The reference runs once for the file, in subprocesses with 4 host
 devices forced before JAX starts (the pattern of test_sharded_parity and
@@ -443,12 +443,14 @@ def test_serving_streams_on_1x2_match_the_reference(runs, stream):
     assert serve[0]["pool_rows"] == 4
 
 
-@pytest.mark.parametrize("arch", ["ling-plus", "deepseek-moe-16b",
-                                  "rwkv6-3b", "recurrentgemma-2b",
+@pytest.mark.parametrize("arch", ["nemotron-4-15b", "recurrentgemma-2b",
                                   "h2o-danube-1.8b", "whisper-tiny"])
 def test_other_architectures_raise_on_a_mesh(arch):
-    """Only Ling-Lite runs over more than one rank; the others raise at
-    the Runner, naming ROADMAP item 9 (no process group is touched)."""
+    """The block families (LayerNorm, sliding windows, RG-LRU, the
+    encoder-decoder) do not run over more than one rank yet: they raise
+    at the Runner, naming ROADMAP item 9 (no process group is touched);
+    the uniform-attention architectures and rwkv6 run
+    (test_torch_mesh_archs)."""
     with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
         tapi.Runner(get_smoke_config(arch), device="cpu",
                     mesh=tmesh.Mesh.at(1, 2, 0))

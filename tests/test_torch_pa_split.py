@@ -137,7 +137,9 @@ def test_split_walk_matches_the_plain_version(name):
     q, k_pool, v_pool, table, mask = _case(2, **c)
     B, Q, Hp, _ = q.shape
     KV = k_pool.shape[2]
-    gq, tk, tv = tops._pa_group_q(_bf16(q), KV), _bf16(k_pool), _bf16(v_pool)
+    lay = tops.gqa_layout(Hp, KV, Hp)
+    gq = tops._pa_group_q(_bf16(q), KV, lay)
+    tk, tv = _bf16(k_pool), _bf16(v_pool)
     tt = torch.tensor(table)
     mask4 = torch.tensor(mask).reshape(B, Q, c["n_lp"], c["ps"])
     m = emulate_scores_max(gq, tk, tt, mask4)
@@ -164,14 +166,16 @@ def test_split_walk_matches_the_pallas_kernels(name):
     KV = k_pool.shape[2]
     jq, jk, jv = (jnp.asarray(a, jnp.bfloat16) for a in (q, k_pool, v_pool))
     jt, jm = jnp.asarray(table), jnp.asarray(mask)
-    gq, tk, tv = tops._pa_group_q(_bf16(q), KV), _bf16(k_pool), _bf16(v_pool)
+    lay = tops.gqa_layout(Hp, KV, Hp)
+    gq = tops._pa_group_q(_bf16(q), KV, lay)
+    tk, tv = _bf16(k_pool), _bf16(v_pool)
     tt = torch.tensor(table)
     mask4 = torch.tensor(mask).reshape(B, Q, c["n_lp"], c["ps"])
 
     m_r = np.asarray(jops.paged_attention_scores_max(jq, jk, jt, jm,
                                                      interpret=True))
     m = tops._pa_ungroup(emulate_scores_max(gq, tk, tt, mask4), Q,
-                         Hp).numpy()
+                         lay).numpy()
     np.testing.assert_array_equal(np.isneginf(m), np.isneginf(m_r))
     fin = np.isfinite(m_r)
     np.testing.assert_allclose(m[fin], m_r[fin], rtol=0,
@@ -181,10 +185,11 @@ def test_split_walk_matches_the_pallas_kernels(name):
     num_r, den_r = jops.paged_attention_accumulate(
         jq, jk, jv, jt, jm, jnp.asarray(m_safe), interpret=True)
     num_r, den_r = np.asarray(num_r), np.asarray(den_r)
-    gm_safe = tops._pa_group_q(torch.tensor(m_safe)[..., None], KV)[..., 0]
+    gm_safe = tops._pa_group_q(torch.tensor(m_safe)[..., None], KV,
+                               lay)[..., 0]
     num, den = emulate_accumulate(gq, tk, tv, tt, mask4, gm_safe)
-    num = tops._pa_ungroup(num, Q, Hp).numpy()
-    den = tops._pa_ungroup(den, Q, Hp).numpy()
+    num = tops._pa_ungroup(num, Q, lay).numpy()
+    den = tops._pa_ungroup(den, Q, lay).numpy()
     atol = 1e-5 * np.abs(num_r).max() + 2.0 ** -8 * np.abs(v_pool).max()
     np.testing.assert_allclose(num, num_r, rtol=0, atol=atol)
     np.testing.assert_allclose(den, den_r, rtol=0,
