@@ -85,7 +85,10 @@ Phases, each failing loudly (non-zero exit, no result line):
      dispatch at tp = 3 (40 experts padded to 42: two dummy experts with
      empty groups; T=48 and 2046), K5 on granite's 24704-row shard at
      tp = 2, K6 and the decay kernel at rwkv6-3b's 20 local heads (1280
-     columns) at a tp = 2 prefill of 8 x 64 and a tick;
+     columns) at a tp = 2 prefill of 8 x 64 and a tick; and the one
+     K3/K4 view phase 9e makes: rank 1's S-slice of recurrentgemma's
+     rolling cache after the wrap (PA_FAMILY_MESH_CASES: 1024 of 2048
+     slots at offset 1024, every slot valid, B=8, head_dim 256);
   4. gradients: one full-width MoE layer at T=256, `FusedFFN`'s grads of
      x, w1, w2, w3 and the gates on the kernels against autograd through
      a plain fp32 composition, before and after the cast to bf16;
@@ -261,9 +264,10 @@ Phases, each failing loudly (non-zero exit, no result line):
      7b's bar, and its gap to phase 6's (1, 1) logits printed with the
      dropped slots), then phase 8's 4-layer step at one microbatch at
      (1, 2) and (2, 1) against 9a's (1, 1) run of it, and (2, 1)'s first
-     step again bit for bit; the backend, which collectives ran on CUDA
-     tensors and which through pinned host buffers, bytes and seconds
-     per step;
+     step again bit for bit; the backend, how the collectives ran
+     (through the card's memory, `launch/mesh.CardExchange`; gloo's CUDA
+     tensors and pinned host buffers where it cannot be set up), bytes
+     and seconds per step;
   9c. two ranks over gloo on the one card (`mesh_paths`), Ling-Lite at
      full width on (1, 2), 28 layers: speculative decoding (k=4, a
      1-layer self-draft) on 9b's prompts, 5 tokens each (greedy streams
@@ -301,6 +305,23 @@ Phases, each failing loudly (non-zero exit, no result line):
      per prefill and tick), and one prompt in fp32 activations through
      the kernels against the plain K5/K6 on each rank's shard within
      RWKV_FP32_TOL; its seconds printed;
+  9e. inside 9b's two ranks, after 9d (`mesh_families`): the block
+     families at full width on (1, 2), depth cut as MESH_FAMILIES states
+     (nemotron-4-15b 2 of 32 layers, h2o-danube-1.8b 2 of 24,
+     recurrentgemma-2b 3 of 26: one rglru, rglru, swa period;
+     whisper-tiny whole): `make_prefill` of MESH_ARCHS_PROMPTS of 9b's
+     prompts (ids folded into each vocabulary; whisper beside 1504 seeded
+     frames a sequence) into caches of MESH_FAMILY_SEQ positions (each
+     rank its half, the rolling and cross caches too) and
+     MESH_ARCHS_TICKS greedy ticks: both ranks' streams equal, K5 once
+     per prefill and tick and K3/K4 once per attention layer and tick
+     (whisper's 4 cross beside its 4 self); one request teacher-forced (a
+     64-token prefill and MESH_ARCHS_TF_STEPS ticks) through the kernels
+     against the mesh's plain modes within phase 7c's bar,
+     max(2^-5 of the largest, twice the fp64-attention floor), and for
+     recurrentgemma a 2040-token prompt teacher-forced 12 ticks across
+     its windows' wrap at 2048 (1024 rolling slots a rank) on the same
+     bar; its seconds printed;
   10. the `kernels` JSON line (launches of phase 9's paths too), the
      card line, and the result line.
 """
@@ -461,6 +482,12 @@ PA_FAMILY_CASES = {
     "danube decode 544": ("h2o-danube-1.8b", 544, 543),
     "recurrentgemma rolling 2048": ("recurrentgemma-2b", 2048, 2071),
     "whisper cross 1504": ("whisper-tiny", 1504, 1503)}
+# phase 3's K3/K4 case that only phase 9e's path makes: one rank's
+# S-slice of recurrentgemma's rolling cache after the wrap (2048 slots
+# over tp = 2: 1024 a rank at offset rank * 1024, every slot valid)
+PA_FAMILY_MESH_CASES = {
+    "recurrentgemma rolling 2048 tp=2 rank 1": ("recurrentgemma-2b", 2048,
+                                                2071, 2, 1)}
 # phase 7c: (arch, K3 and K4 launches a tick: its attention layers, and
 # whisper's cross attention beside its 4 self-attention layers)
 FAMILY_SERVE = (("nemotron-4-15b", 32), ("h2o-danube-1.8b", 24),
@@ -816,20 +843,27 @@ def paged_case(cfg, *, B, Q, ctx, base, n_pages, gen, tp=1, rank=0):
     return gq, k_pool, v_pool, table, mask4
 
 
-def dense_case(arch: str, S: int, pos: int, gen, B: int = 8):
+def dense_case(arch: str, S: int, pos: int, gen, B: int = 8, tp: int = 1,
+               rank: int = 0):
     """A decode tick's K3/K4 operands over a dense cache of S positions
     (random bf16 rows), as `layers.decode_attention` hands them over: q
     (B, 1, H, hd) grouped per kv head, the cache's page pools and the
-    tick's page view at `pos` (`layers.dense_page_view`)."""
+    tick's page view at `pos` (`layers.dense_page_view`).  Over tp the
+    cache is rank `rank`'s S / tp positions, viewed at its offset."""
     import torch
+    from repro_torch import sharding
     from repro_torch.configs.base import get_config
     from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import Mesh
     from repro_torch.models import layers as L
     cfg = get_config(arch)
-    cache = L.init_decode_cache(cfg, B, S, "cuda")
+    env = sharding.make_axis_env(Mesh.at(1, tp, rank, "cuda"))
+    cache = L.init_decode_cache(cfg, B, S, "cuda", env=env)
     for t in cache.values():
         t.copy_(torch.randn(t.shape, generator=gen, device="cuda"))
-    table, valid = L.dense_page_view(B, S, pos, "cuda")
+    s_loc = cache["k"].shape[1]
+    table, valid = L.dense_page_view(B, s_loc, pos, "cuda",
+                                     offset=rank * s_loc)
     q = torch.randn((B, 1, cfg.n_heads, cfg.head_dim), generator=gen,
                     device="cuda").to(torch.bfloat16)
     lay = ops.gqa_layout(cfg.n_heads, cfg.n_kv_heads, cfg.n_heads)
@@ -2021,24 +2055,28 @@ def serve_archs(card, gen):
 # phase 7c: the block families the Ling blocks do not cover
 # ---------------------------------------------------------------------------
 
-def dense_teacher_forced(cfg, params, batch, toks, seq, flags):
+def dense_teacher_forced(cfg, params, batch, toks, seq, flags, env=None):
     """Logits (1 + n, B, Vp): the prefill's (into caches of `seq`
     positions) at the prompt's last token, then one tick per column of
-    toks (B, n), each feeding that token."""
+    toks (B, n), each feeding that token.  Over a tp mesh (`env`) each
+    step's vocab shards are gathered over tp."""
     import torch
+    from repro_torch import sharding
     from repro_torch.models import model as M
+    env = env or sharding.LOCAL
     P = batch["tokens"].shape[1]
     with torch.no_grad():
-        lg, caches = M.prefill_logits(cfg, params, batch, flags, seq)
-        out = [lg]
+        lg, caches = M.prefill_logits(cfg, params, batch, flags, seq, env)
+        out = [env.all_gather_tp(lg, axis=1)]
         for i in range(toks.shape[1]):
             lg, caches = M.decode_logits(cfg, params, caches, toks[:, i],
-                                         P + i, flags)
-            out.append(lg)
+                                         P + i, flags, env)
+            out.append(env.all_gather_tp(lg, axis=1))
     return torch.stack(out)
 
 
-def hold_logits(label, kern, plain, other, steps):
+def hold_logits(label, kern, plain, other, steps, phase="7c",
+                tag="families"):
     """Phase 7c's bar on teacher-forced logits (1 + n, B, Vp): the
     kernels' against the plain modes' within the larger of 2^-5 of the
     largest and twice the rounding floor (the plain modes against the
@@ -2055,13 +2093,13 @@ def hold_logits(label, kern, plain, other, steps):
         tol = max(2.0 ** -5 * big, 2 * flo)
         agree = (k.argmax(-1) == p.argmax(-1)).float().mean().item()
         ratio = f"{err / flo:.3f}" if flo > 0 else "n/a (floor 0)"
-        print(f"[families] {label}, {name}: kernels vs plain modes logits "
+        print(f"[{tag}] {label}, {name}: kernels vs plain modes logits "
               f"max_abs_err={err:.4e} = {err / big:.4f} of the largest "
               f"(tolerance {tol:.4e}); rounding floor (the fp64-attention "
               f"witness vs plain) {flo:.4e} = {flo / big:.4f}, gap / floor "
               f"{ratio}; greedy agreement {agree:.3f}")
         if not (err <= tol and torch.isfinite(k).all()):
-            fail(f"phase 7c: {label}, {name}: kernels vs plain logits "
+            fail(f"phase {phase}: {label}, {name}: kernels vs plain logits "
                  f"{err} > {tol}")
 
 
@@ -3611,8 +3649,9 @@ def _gloo_rank(rank, world, tmp, prompts, tf_tokens):
         del trainer
         gc.collect()
         torch.cuda.empty_cache()
-    # phase 9d on the same two ranks
+    # phases 9d and 9e on the same two ranks
     out["archs"] = _archs_rank(mesh, prompts)
+    out["families"] = _families_rank(mesh, prompts)
     torch.distributed.destroy_process_group()
     return out
 
@@ -3817,6 +3856,194 @@ def mesh_archs(card, r0, r1):
     return {"mesh_granite": g["launches"], "mesh_rwkv6": w["launches"]}
 
 
+# phase 9e, inside 9b's two ranks after 9d: the block families at full
+# width on (1, 2), depth cut to (arch, layers kept; None: whole) so that
+# 9e stays within ~20 s of gloo ticks beside 9b-9d, and each one's key
+# in the kernels line's launches
+MESH_FAMILIES = (("nemotron-4-15b", 2, "mesh_nemotron"),
+                 ("h2o-danube-1.8b", 2, "mesh_danube"),
+                 ("recurrentgemma-2b", 3, "mesh_recurrentgemma"),
+                 ("whisper-tiny", None, "mesh_whisper"))
+# the caches' positions (each rank holds half), the teacher-forced
+# request's prompt, and recurrentgemma's long prompt across its wrap
+MESH_FAMILY_SEQ, MESH_FAMILY_TF_PROMPT = 128, 64
+MESH_FAMILY_LONG, MESH_FAMILY_LONG_SEQ, MESH_FAMILY_LONG_TICKS = (2040,
+                                                                  2080, 12)
+
+
+def _attention_layers(cfg) -> int:
+    """K3/K4 launches a dense tick: one per self-attention layer, and one
+    per cross attention of an encoder-decoder's decoder layer."""
+    n = sum(cfg.block_kind(i) in ("attn", "swa") for i in range(cfg.n_layers))
+    return n + (cfg.n_layers if cfg.is_encoder_decoder else 0)
+
+
+def _families_rank(mesh, prompts):
+    """Phase 9e on one of 9b's ranks, on its (1, 2) mesh: MESH_FAMILIES in
+    turn at full width (bf16 weights from seed 0, each rank its shards:
+    heads, ff, RG-LRU channels and vocabulary over tp), `make_prefill` of
+    the first MESH_ARCHS_PROMPTS of 9b's prompts (ids folded into the
+    vocabulary; whisper beside seeded frames, the same on both ranks)
+    into caches of MESH_FAMILY_SEQ positions, MESH_ARCHS_TICKS greedy
+    ticks (launch counts set to 0 just before the prefill), then one
+    request teacher-forced (a MESH_FAMILY_TF_PROMPT-token prefill and
+    MESH_ARCHS_TF_STEPS ticks) through the kernels, the plain modes
+    (gathered attention, the plain K5) and the fp64-attention witness;
+    for recurrentgemma also its MESH_FAMILY_LONG-token prompt
+    teacher-forced MESH_FAMILY_LONG_TICKS ticks across the wrap of its
+    rolling caches at 2048.  Returns each model's streams, launches,
+    logits and seconds."""
+    import numpy as np
+    import torch
+    from repro_torch import api
+    from repro_torch.configs.base import cut_depth, get_config
+    from repro_torch.kernels import build
+    from repro_torch.models import model as M
+    out = {}
+    for arch, layers, _ in MESH_FAMILIES:
+        t0 = time.perf_counter()
+        cfg = cut_depth(get_config(arch), layers)
+        runner = api.Runner(cfg, device=mesh.device, mesh=mesh)
+        params = runner.init_params(0)
+        toks = torch.as_tensor(
+            np.stack([np.asarray(p) % cfg.vocab_size
+                      for p in prompts[:MESH_ARCHS_PROMPTS]]), device="cuda")
+        gen = torch.Generator(device="cuda").manual_seed(11)
+        batch = {"tokens": toks}
+        if cfg.is_encoder_decoder:
+            batch["enc_frames"] = torch.randn(
+                (toks.shape[0], cfg.encoder_seq_len, cfg.d_model),
+                generator=gen, device="cuda").to(torch.bfloat16)
+        prefill = runner.make_prefill(seq_len=MESH_FAMILY_SEQ)
+        decode = runner.make_decode_step()
+        build.reset_launches()
+        tok, caches = prefill(params, batch)
+        torch.cuda.synchronize()
+        after_prefill = dict(build.LAUNCHES)
+        got = [tok]
+        S = toks.shape[1]
+        t1 = time.perf_counter()
+        for pos in range(S, S + MESH_ARCHS_TICKS):
+            tok, caches = decode(params, caches, tok, pos)
+            got.append(tok)
+        torch.cuda.synchronize()
+        rec = {"streams": torch.stack(got, 1).tolist(),
+               "after_prefill": after_prefill,
+               "launches": dict(build.LAUNCHES),
+               "tick_ms": 1e3 * (time.perf_counter() - t1) / MESH_ARCHS_TICKS,
+               "rows": sorted({c[k]["k"].shape[-3] for c in
+                               (caches if isinstance(caches, list)
+                                else [caches]) for k in ("self", "cross")
+                               if k in c})}
+        del caches
+        # one request teacher-forced: the kernels, the plain modes, the
+        # fp64-attention witness
+        P = MESH_FAMILY_TF_PROMPT
+        tf = torch.randint(0, cfg.vocab_size, (1, P + MESH_ARCHS_TF_STEPS),
+                           generator=gen, device="cuda")
+        one = {k: v[:1] for k, v in batch.items()}
+        one["tokens"] = tf[:, :P]
+        rest = tf[:, P:]
+
+        def runs(one, rest, seq):
+            kern = dense_teacher_forced(cfg, params, one, rest, seq,
+                                        M.RunFlags(), runner.env)
+            with plain_k5_k6():
+                plain = dense_teacher_forced(
+                    cfg, params, one, rest, seq,
+                    M.RunFlags(paged_attn="gathered"), runner.env)
+            with fp64_attention():
+                other = dense_teacher_forced(cfg, params, one, rest, seq,
+                                             M.RunFlags(), runner.env)
+            return kern.cpu(), plain.cpu(), other.cpu()
+        rec["tf"] = runs(one, rest, MESH_FAMILY_SEQ)
+        if arch == "recurrentgemma-2b":
+            long = torch.randint(
+                0, cfg.vocab_size,
+                (1, MESH_FAMILY_LONG + MESH_FAMILY_LONG_TICKS),
+                generator=gen, device="cuda")
+            rec["tf_long"] = runs({"tokens": long[:, :MESH_FAMILY_LONG]},
+                                  long[:, MESH_FAMILY_LONG:],
+                                  MESH_FAMILY_LONG_SEQ)
+        torch.cuda.synchronize()
+        rec["seconds"] = time.perf_counter() - t0
+        out[arch] = rec
+        del params, runner
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def mesh_families(card, r0, r1):
+    """Phase 9e's checks on 9b's two ranks' results (`_families_rank`):
+    both ranks' streams equal and in the vocabulary; K5 once per prefill
+    and tick, K3/K4 once per attention layer per tick and none in the
+    prefill; each rank's caches of MESH_FAMILY_SEQ / 2 positions (whisper's
+    cross caches 1504 / 2); the teacher-forced logits within phase 7c's
+    bar (`hold_logits`), over the run and at the prefill and the first
+    tick, and recurrentgemma's across the wrap, at the first tick past
+    it too.  Returns the launches for the kernels line."""
+    from repro_torch.configs.base import cut_depth, get_config
+    from repro_torch.models import layers as L
+    a, b = r0["families"], r1["families"]
+    pa = ("paged_attn_scores_max", "paged_attn_accumulate")
+    out, total = {}, 0.0
+    for arch, layers, key in MESH_FAMILIES:
+        cfg = cut_depth(get_config(arch), layers)
+        w, wb = a[arch], b[arch]
+        per_tick = _attention_layers(cfg)
+        steps = 1 + MESH_ARCHS_TICKS
+        want_p = {k: 0 for k in w["launches"]}
+        want_p["normhead_matmul"] = 1
+        want_all = dict(want_p, normhead_matmul=steps,
+                        **{n: per_tick * MESH_ARCHS_TICKS for n in pa})
+        rows = {L.cache_len(MESH_FAMILY_SEQ, cfg.attn_window
+                            if cfg.block_kind(i) == "swa" else None)
+                // MESH_TP for i in range(cfg.n_layers)
+                if cfg.block_kind(i) in ("attn", "swa")}
+        if cfg.is_encoder_decoder:
+            rows.add(cfg.encoder_seq_len // MESH_TP)
+        print(f"[mesh-9e] {arch} on (1, 2), {cfg.n_layers} layers"
+              f"{'' if layers is None else ' (cut)'}: prefill of "
+              f"{MESH_ARCHS_PROMPTS} x {MESH_PROMPT_LEN} into caches of "
+              f"{w['rows']} rows a rank, {MESH_ARCHS_TICKS} ticks at "
+              f"{w['tick_ms']:.2f}ms a tick; launches after the prefill "
+              f"{w['after_prefill']}, after the ticks {w['launches']} "
+              f"(expected {per_tick} of K3/K4 a tick, 1 of K5 a step) "
+              f"[{card}]")
+        if w["streams"] != wb["streams"]:
+            fail(f"phase 9e: {arch}'s two ranks' streams differ")
+        if any(len(s) != steps or not all(0 <= t < cfg.vocab_size
+                                           for t in s)
+               for s in w["streams"]):
+            fail(f"phase 9e: {arch} streams {w['streams']}")
+        if w["after_prefill"] != want_p or w["launches"] != want_all:
+            fail(f"phase 9e: {arch} launches {w['after_prefill']} / "
+                 f"{w['launches']}, expected {want_p} / {want_all}")
+        if set(w["rows"]) != rows:
+            fail(f"phase 9e: {arch} caches of {w['rows']} rows a rank, "
+                 f"expected {sorted(rows)}")
+        hold_logits(f"{arch} (1, 2) 1 prefill of {MESH_FAMILY_TF_PROMPT} + "
+                    f"{MESH_ARCHS_TF_STEPS} ticks teacher-forced",
+                    *w["tf"], {"the prefill": 0, "the first tick": 1},
+                    phase="9e", tag="mesh-9e")
+        if "tf_long" in w:
+            W = cfg.attn_window
+            hold_logits(f"{arch} (1, 2) 1 prefill of {MESH_FAMILY_LONG} + "
+                        f"{MESH_FAMILY_LONG_TICKS} ticks teacher-forced "
+                        f"across the wrap at {W} ({W // MESH_TP} rolling "
+                        f"slots a rank)", *w["tf_long"],
+                        {"the first tick": 1,
+                         "the first tick past the wrap":
+                         1 + W - MESH_FAMILY_LONG},
+                        phase="9e", tag="mesh-9e")
+        print(f"[mesh-9e] {arch}: {w['seconds']:.1f}s")
+        total += w["seconds"]
+        out[key] = w["launches"]
+    print(f"[mesh-9e] phase 9e took {total:.1f}s of 9b's ranks")
+    return out
+
+
 def _collective_line(stats, n: int, what: str) -> str:
     """Per-`what` figures of the collectives: calls, bytes, bytes staged
     through the host and host seconds (peers' waits included)."""
@@ -3875,8 +4102,8 @@ def mesh_gloo(card, base, tf_tokens, tf_one, train_hist):
     steps from the same parameters and batches, at (1, 2) and at (2, 1),
     against phase 9a's (1, 1) run of the same steps (`train_hist`) within
     MESH_TRAIN_TOL, and (2, 1)'s first step again (the same bits: loss,
-    grad norm, parameters).  Prints the backend, which
-    collectives ran on CUDA tensors and which through host buffers, the
+    grad norm, parameters).  Prints the backend, how the collectives ran
+    (the card exchange, or gloo on CUDA tensors and host buffers), the
     bytes and seconds per tick and per step.  Returns the launches."""
     import torch
     from repro_torch.configs.base import get_config
@@ -3943,8 +4170,9 @@ def mesh_gloo(card, base, tf_tokens, tf_one, train_hist):
         fail(f"phase 9b: the (2, 1) step run twice differs: {a['hist']} vs "
              f"{b['hist']}, params equal {b['same_params']}")
     archs = mesh_archs(card, r0, r1)
+    archs.update(mesh_families(card, r0, r1))
     print(f"[mesh-9b] phase 9b took {time.perf_counter() - t0:.1f}s (9d "
-          f"included)")
+          f"and 9e included)")
     base["mesh_9b"] = {"streams": r0["streams"], "tick_ms": r0["tick_ms"],
                        "train_1x2": r0["train"]["1x2"]}
     return {"mesh_serve": r0["serve_launches"],
@@ -4493,6 +4721,9 @@ def main():
     for label, (arch, S, pos) in PA_FAMILY_CASES.items():
         k3[label], k4[label] = check_pa(get_config(arch), label,
                                         dense_case(arch, S, pos, gen))
+    for label, (arch, S, pos, tp, rank) in PA_FAMILY_MESH_CASES.items():
+        k3[label], k4[label] = check_pa(get_config(arch), label, dense_case(
+            arch, S, pos, gen, tp=tp, rank=rank))
     for label, (shape, rank) in PA_MESH_CASES.items():
         k3[label], k4[label] = check_pa(cfg, label, paged_case(
             cfg, gen=gen, tp=MESH_TP, rank=rank, **PA_CASES[shape]))

@@ -52,7 +52,7 @@ def _rank(rank: int, store: str):
     torch.set_num_threads(2)
     tmesh.init_distributed(rank, 2, init_method=f"file://{store}",
                            backend="gloo")
-    mesh = tmesh.make_local_mesh(1, 2)
+    mesh = tmesh.make_local_mesh(1, 2, device="cpu")
     cfg = dataclasses.replace(get_smoke_config("ling-lite"),
                               compute_dtype="float32")
     params_np = {k: v for k, v in _named(api.Runner(

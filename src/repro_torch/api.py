@@ -26,7 +26,9 @@ every rank's tokens equal, speculative decoding's draft and verify
 steps included; `make_score_fn` splits the rows over dp and the
 vocabulary over tp.  `sp_comm="int8"` quantizes the sequence-parallel
 boundaries of the train step (`sharding.quant_rows`).  Every
-architecture but Ling-Lite raises there (ROADMAP item 9).
+architecture runs there; an encoder-decoder's `batch["enc_frames"]`
+(B, S_enc, d) splits over dp with the tokens, and its encoder runs on
+the rank's sequence-parallel rows.
 """
 from __future__ import annotations
 
@@ -85,7 +87,6 @@ class Runner:
         self.device = resolve_device(self.device)
         M.check_ported_blocks(self.cfg)
         self.env = sharding.make_axis_env(self.mesh, sp_comm=self.sp_comm)
-        M.check_mesh_support(self.cfg, self.env)
         if self.mesh is not None and self.mesh.size > 1 \
                 and self.mesh.device != self.device:
             raise ValueError(f"the mesh works on {self.mesh.device}, the "

@@ -51,12 +51,15 @@ modes.
         --trace-out /tmp/serve_trace.json
 
     # a (1, 2) mesh: 2 gloo ranks on the CPU, or 2 ranks on the card(s)
-    # (NCCL with a card per rank, gloo when they share one); the
-    # architectures of models.model.MESH_ARCHS (rwkv6 offline only)
+    # (NCCL with a card per rank, gloo when they share one); every
+    # architecture (the recurrent ones and the block families offline
+    # only, as on one rank)
     PYTHONPATH=src python -m repro_torch.launch.serve --online --smoke \
         --device cpu --tp 2
     PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \
         --arch rwkv6-3b --tp 2
+    PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \
+        --arch recurrentgemma-2b --tp 2
     PYTHONPATH=src python -m repro_torch.launch.serve --online --tp 2 \
         --slots 8 --prefill-chunk 64 --seq 512 --prompt-len 128
 
@@ -439,9 +442,6 @@ def main(argv=None):
     cfg = cut_depth(cfg, args.layers)
     if args.tp < 1:
         ap.error("--tp takes a size >= 1")
-    if args.tp > 1 and cfg.arch_id not in M.MESH_ARCHS:
-        ap.error(f"{args.arch} on a (1, {args.tp}) mesh is not yet ported "
-                 f"(ROADMAP item 9, sub-item 6.4)")
     return run_ranks(serve_rank, 1, args.tp, args.device, cfg, args)
 
 

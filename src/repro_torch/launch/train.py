@@ -23,13 +23,14 @@
     PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \
         --arch recurrentgemma-2b --steps 4 --batch 2 --seq 32
 
-    # a (dp=2, tp=2) mesh of 4 gloo ranks on the CPU (the architectures
-    # of models.model.MESH_ARCHS: Ling's, the other uniform-attention
-    # ones and rwkv6)
+    # a (dp=2, tp=2) mesh of 4 gloo ranks on the CPU (every architecture
+    # the launcher trains)
     PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \
         --dp 2 --tp 2 --steps 2
     PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \
         --arch granite-moe-3b-a800m --dp 2 --tp 2 --steps 2
+    PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \
+        --arch recurrentgemma-2b --dp 2 --tp 2 --steps 2 --batch 2 --seq 32
 
     # 2 ranks on the card(s): NCCL with a card per rank, gloo when they
     # share one; or one process per rank under torchrun
@@ -154,9 +155,6 @@ def main(argv=None):
                  f"pipeline feeds no encoder frames (as the reference's); "
                  f"train it through api.Runner.make_train_step with "
                  f"batch['enc_frames']")
-    if args.dp * args.tp > 1 and cfg.arch_id not in M.MESH_ARCHS:
-        ap.error(f"{args.arch} on a (dp={args.dp}, tp={args.tp}) mesh is "
-                 f"not yet ported (ROADMAP item 9, sub-item 6.4)")
     run_ranks(train_rank, args.dp, args.tp, args.device, args, cfg,
               bs_warmup)
 

@@ -82,8 +82,8 @@ class Init:
 
     def spec_of(self, t: torch.Tensor) -> P:
         """The spec of a parameter leaf this factory made; whole (P()) for
-        one computed from such a leaf (the rwkv and RG-LRU blocks' scaled
-        constants, never sharded)."""
+        one computed from such a leaf (the rwkv block's scaled constants,
+        never sharded)."""
         made, spec = self.specs.get(id(t), (None, P()))
         return spec if made is t else P()
 
@@ -113,14 +113,16 @@ class Init:
         return self._leaf(torch.zeros(self._local(shape, spec), dtype=dtype,
                                       device=self.device), spec)
 
-    def const(self, values: torch.Tensor, dtype) -> torch.Tensor:
-        """`values` (a CPU tensor) cast to dtype and repeated over `lead`
-        (whole on every rank)."""
-        t = torch.empty(self.lead + tuple(values.shape), dtype=dtype,
+    def const(self, values: torch.Tensor, dtype, spec=None) -> torch.Tensor:
+        """`values` (a CPU tensor, the whole leaf) cast to dtype, cut to the
+        rank's slice under `spec` (whole when none is given) and repeated
+        over `lead`."""
+        part = sharding.shard(values, spec or (), self.env)
+        t = torch.empty(self.lead + tuple(part.shape), dtype=dtype,
                         device=self.device)
         if self.device.type != "meta":
-            t.copy_(values.to(dtype).expand_as(t))
-        return self._leaf(t, None)
+            t.copy_(part.to(dtype).expand_as(t))
+        return self._leaf(t, spec)
 
 
 # ---------------------------------------------------------------------------
@@ -711,6 +713,25 @@ def cache_len(seq_len: int, window: Optional[int] = None) -> int:
     return min(window, seq_len) if window else seq_len
 
 
+def cache_share(seq_len: int, window: Optional[int] = None,
+                env: AxisEnv = LOCAL) -> int:
+    """A rank's positions of a dense cache: `cache_len(seq_len, window)`
+    / tp.  Raises where they do not divide over tp, naming the window:
+    the reference floors a rolling cache's share there (max(S // tp, 1)),
+    so that its ranks hold fewer positions than the window, which the
+    port does not do (ROADMAP, queue 3)."""
+    S = cache_len(seq_len, window)
+    if S % env.tp == 0:
+        return S // env.tp
+    if window and S == window:
+        raise ValueError(f"a sliding window of {window} positions does not "
+                         f"divide over tp={env.tp}: its rolling decode "
+                         f"cache would hold fewer positions than the window")
+    raise ValueError(f"a dense decode cache of {S} positions (seq_len="
+                     f"{seq_len}{f', window={window}' if window else ''}) "
+                     f"does not divide over tp={env.tp}")
+
+
 def init_decode_cache(cfg, batch: int, seq_len: int, device,
                       window: Optional[int] = None,
                       lead: Tuple[int, ...] = (),
@@ -718,10 +739,10 @@ def init_decode_cache(cfg, batch: int, seq_len: int, device,
     """Zeroed dense KV cache for attention layers: k and v of shape (*lead,
     batch, S / tp, KV, hd) in the compute dtype (`lead` the stacked layer
     dim; S = `cache_len(seq_len, window)`, the rank's share of its
-    positions), each a view of zeroed storage of `dense_rows(S / tp)`
-    rows a sequence, the rows the tick's page view reads."""
-    S = sharding.divide(cache_len(seq_len, window), env.tp,
-                        "decode cache positions over tp")
+    positions, `cache_share`), each a view of zeroed storage of
+    `dense_rows(S / tp)` rows a sequence, the rows the tick's page view
+    reads."""
+    S = cache_share(seq_len, window, env)
     rows = dense_rows(S)
     cdt = dtype_of(cfg.compute_dtype)
     shape = tuple(lead) + (batch, rows, cfg.n_kv_heads, cfg.head_dim)
@@ -753,7 +774,7 @@ def expand_cache_from_prefill(prefill_cache, seq_len: Optional[int] = None,
         raise ValueError(f"prompt of {s} positions exceeds the cache's "
                          f"seq_len={seq_len}")
     if env.tp > 1:
-        s_loc = sharding.divide(S, env.tp, "decode cache positions over tp")
+        s_loc = cache_share(S, window, env)
         lo = env.tp_index() * s_loc
         mine = prefill_cache[..., lo:min(lo + s_loc, s), :, :]
         return F.pad(mine, (0, 0, 0, 0, 0, dense_rows(s_loc)

@@ -30,8 +30,11 @@ blocks gather their sequence-parallel inputs over tp and reduce-scatter
 their partial outputs back (`env.sp_gather` / `env.sp_scatter`), the
 loss is the vocab-sharded cross entropy summed over dp, and the serving
 steps keep activations replicated over tp (`sharding.denv`) and psum
-each block's partial outputs.  At dp * tp > 1 the uniform "attn" and
-"rwkv" architectures run (`MESH_ARCHS`, `check_mesh_support`).
+each block's partial outputs.  Every block kind runs there: the RG-LRU
+block on the rank's channels, the dense caches (rolling windows and the
+cross caches too) on the rank's positions, and the whisper encoder on
+the rank's sequence-parallel rows of B * S_enc, gathered over tp after
+its last norm.
 """
 from __future__ import annotations
 
@@ -106,24 +109,6 @@ def check_ported_blocks(cfg: ModelConfig):
                          f"(known: {list(BLOCK_KINDS)})")
 
 
-# the architectures held at dp * tp > 1; the block families wait for
-# ROADMAP item 9, sub-item 6.4 (list-layout spec trees, rolling and cross
-# caches, RG-LRU's blocks over tp)
-MESH_ARCHS = ("ling-lite", "ling-plus", "deepseek-moe-16b",
-              "moonshot-v1-16b-a3b", "granite-moe-3b-a800m",
-              "phi3-mini-3.8b", "chameleon-34b", "rwkv6-3b")
-
-
-def check_mesh_support(cfg: ModelConfig, env: AxisEnv):
-    """Raises NotImplementedError for an architecture the port does not
-    run over a mesh of more than one rank."""
-    if env.dp * env.tp > 1 and cfg.arch_id not in MESH_ARCHS:
-        raise NotImplementedError(
-            f"{cfg.arch_id} on a (dp={env.dp}, tp={env.tp}) mesh is not "
-            f"yet ported (ROADMAP item 9, sub-item 6.4: "
-            f"{', '.join(MESH_ARCHS)} run over more than one rank)")
-
-
 def init_block(cfg: ModelConfig, init: L.Init, kind: str, ffn: str,
                cross: bool = False) -> Dict[str, Any]:
     params: Dict[str, Any] = {"norm1": L.init_norm(cfg, init)}
@@ -168,7 +153,6 @@ def init_model(cfg: ModelConfig, *, device="cuda",
     its spec (`L.Init`).  `init`, where given, is the factory to use
     (`param_specs` reads the specs it records)."""
     check_ported_blocks(cfg)
-    check_mesh_support(cfg, env)
     device = torch.device(device)
     init = init or L.Init(device=device, generator=generator,
                           masters=masters, env=env)
@@ -319,7 +303,7 @@ def block_forward(cfg: ModelConfig, params, x, eps, *, B: int, S: int,
         .reshape(B, S, d)
     if kind == "rglru":
         partial, cache["rglru"] = rglru_lib.recurrent_block(
-            cfg, params["rec"], h)
+            cfg, params["rec"], h, env=env)
     else:
         partial = L.apply_attention(cfg, params["attn"], h, causal=causal,
                                     window=_window(cfg, kind),
@@ -328,13 +312,14 @@ def block_forward(cfg: ModelConfig, params, x, eps, *, B: int, S: int,
             partial, cache["self"] = partial
     x = x + env.sp_scatter(partial.reshape(B * S, d))
     if "xattn" in params:
-        h = L.apply_norm(cfg, params["norm_x"], x).reshape(B, S, d)
+        h = env.sp_gather(L.apply_norm(cfg, params["norm_x"], x, env)) \
+            .reshape(B, S, d)
         partial = L.apply_attention(cfg, params["xattn"], h, causal=False,
                                     kv_source=enc_out, use_rope=False,
-                                    return_cache=want_cache)
+                                    return_cache=want_cache, env=env)
         if want_cache:
             partial, cache["cross"] = partial
-        x = x + partial.reshape(B * S, d)
+        x = x + env.sp_scatter(partial.reshape(B * S, d))
     h = env.sp_gather(L.apply_norm(cfg, params["norm2"], x, env))
     aux, metrics = zero, {}
     if ffn == "moe" and train:
@@ -399,19 +384,33 @@ def _run_blocks(cfg: ModelConfig, params, x, *, B: int, S: int, step,
     return x, aux, metrics, caches
 
 
-def encode(cfg: ModelConfig, params, frames, flags: RunFlags = DEFAULT_FLAGS):
+def _sp_rows(x: torch.Tensor, env: AxisEnv) -> torch.Tensor:
+    """The rank's sequence-parallel slice of rows (T, d) -> (T / tp, d)
+    (all of them where SP is off)."""
+    if not env.seq_parallel or env.tp == 1:
+        return x
+    n = sharding.divide(x.shape[0], env.tp, "sequence-parallel rows over tp")
+    return x[env.tp_index() * n:(env.tp_index() + 1) * n]
+
+
+def encode(cfg: ModelConfig, params, frames, flags: RunFlags = DEFAULT_FLAGS,
+           env: AxisEnv = LOCAL):
     """The whisper encoder over the stub frontend's frame embeddings
     (B, S_enc, d): learned positions, non-causal "attn" blocks (no
     cache, the inference router: the reference's `_encode`), the encoder
-    norm.  Returns (B, S_enc, d) in the compute dtype."""
+    norm.  Over tp the blocks run on the rank's SP slice of the B * S_enc
+    rows and the normed output is gathered over tp.  Returns (B, S_enc,
+    d) in the compute dtype."""
     B, S_enc, d = frames.shape
     cdt = L.dtype_of(cfg.compute_dtype)
-    x = (frames.to(cdt) + params["pos_enc"].to(cdt)[None]).reshape(-1, d)
+    x = _sp_rows((frames.to(cdt) + params["pos_enc"].to(cdt)[None])
+                 .reshape(-1, d), env)
     for lp in params["enc_blocks"]:
         x, _, _, _ = block_forward(cfg, lp, x, None, B=B, S=S_enc,
                                    kind="attn", ffn="mlp", train=False,
-                                   flags=flags, causal=False)
-    return L.apply_norm(cfg, params["enc_norm"], x).reshape(B, S_enc, d)
+                                   flags=flags, causal=False, env=env)
+    return env.sp_gather(L.apply_norm(cfg, params["enc_norm"], x, env)) \
+        .reshape(B, S_enc, d)
 
 
 def forward(cfg: ModelConfig, params, batch, *, step=None, rng=None,
@@ -430,8 +429,8 @@ def forward(cfg: ModelConfig, params, batch, *, step=None, rng=None,
     enc_out = None
     x = emb.embed_tokens(cfg, params["embed"], tokens.reshape(-1), env)
     if cfg.is_encoder_decoder:
-        enc_out = encode(cfg, params, batch["enc_frames"], flags)
-        x = x + params["pos_dec"].to(x.dtype)[:S].repeat(B, 1)
+        enc_out = encode(cfg, params, batch["enc_frames"], flags, env)
+        x = x + _sp_rows(params["pos_dec"].to(x.dtype)[:S].repeat(B, 1), env)
     x, aux, metrics, caches = _run_blocks(
         cfg, params, x, B=B, S=S, step=step, rng=rng, train=train,
         flags=flags, want_cache=want_cache, enc_out=enc_out, env=env)
@@ -493,7 +492,7 @@ def init_block_cache(cfg: ModelConfig, kind: str, batch: int, device,
                                             window=_window(cfg, kind),
                                             lead=lead, env=env)
     elif kind == "rglru":
-        cache["rglru"] = rglru_lib.init_decode_state(cfg, batch, device)
+        cache["rglru"] = rglru_lib.init_decode_state(cfg, batch, device, env)
     else:
         cache["rwkv"] = rwkv_lib.init_decode_state(cfg, batch, device, env)
         cache["cmix_prev"] = torch.zeros(
@@ -501,7 +500,7 @@ def init_block_cache(cfg: ModelConfig, kind: str, batch: int, device,
             device=device)
     if cfg.is_encoder_decoder:
         cache["cross"] = L.init_decode_cache(
-            cfg, batch, cfg.encoder_seq_len, device, lead=lead)
+            cfg, batch, cfg.encoder_seq_len, device, lead=lead, env=env)
     return cache
 
 
@@ -510,13 +509,14 @@ def init_caches(cfg: ModelConfig, batch: int, device,
     """Zeroed dense decode caches: a leading layer dim (`stacked`) or a
     list of per-layer caches.  `seq_len` is the KV caches' length
     (attention layers; over tp each rank holds seq_len / tp of the
-    positions), ignored by recurrent ones; an encoder-decoder's cross
-    caches hold `cfg.encoder_seq_len` positions."""
+    positions), ignored by recurrent ones, whose state over tp holds the
+    rank's channels (RG-LRU) or heads (rwkv); an encoder-decoder's cross
+    caches hold `cfg.encoder_seq_len` positions (over tp, a rank's
+    share)."""
     check_ported_blocks(cfg)
-    check_mesh_support(cfg, env)
     if not stacked(cfg):
         return [init_block_cache(cfg, cfg.block_kind(i), batch, device,
-                                 seq_len)
+                                 seq_len, env=env)
                 for i in range(cfg.n_layers)]
     kind = cfg.block_pattern[0]
     if kind in ("attn", "swa"):   # views of padded storage: not a stack
@@ -570,7 +570,7 @@ def block_decode(cfg: ModelConfig, params, x, cache, pos=None, *, kind: str,
     h = L.apply_norm(cfg, params["norm1"], x, env)
     if kind == "rglru":
         partial = rglru_lib.decode_step(cfg, params["rec"], h,
-                                        cache["rglru"])
+                                        cache["rglru"], env)
     else:
         partial, _ = L.decode_attention(
             cfg, params["attn"], h, cache["self"], pos,
@@ -578,12 +578,12 @@ def block_decode(cfg: ModelConfig, params, x, cache, pos=None, *, kind: str,
             view=views(cache["self"]["k"].shape[1]), env=env)
     x = x + env.psum_tp(partial)
     if "xattn" in params:
-        h = L.apply_norm(cfg, params["norm_x"], x)
+        h = L.apply_norm(cfg, params["norm_x"], x, env)
         partial, _ = L.decode_attention(
             cfg, params["xattn"], h, cache["cross"], pos, cross=True,
             paged_attn=flags.paged_attn,
-            view=views(cache["cross"]["k"].shape[1], cross=True))
-        x = x + partial
+            view=views(cache["cross"]["k"].shape[1], cross=True), env=env)
+        x = x + env.psum_tp(partial)
     return _block_ffn(cfg, params, x, ffn, flags, env), cache
 
 
@@ -599,7 +599,7 @@ def _expand_layer_cache(cfg: ModelConfig, cache, kind: str,
         out["self"] = L.expand_cache_from_prefill(cache["self"], seq_len,
                                                   _window(cfg, kind), env)
     if "cross" in cache:
-        out["cross"] = L.expand_cache_from_prefill(cache["cross"])
+        out["cross"] = L.expand_cache_from_prefill(cache["cross"], env=env)
     return out
 
 
@@ -618,7 +618,8 @@ def prefill_logits(cfg: ModelConfig, params, batch,
         caches = _expand_layer_cache(cfg, caches, cfg.block_pattern[0],
                                      seq_len, env)
     else:
-        caches = [_expand_layer_cache(cfg, c, cfg.block_kind(i), seq_len)
+        caches = [_expand_layer_cache(cfg, c, cfg.block_kind(i), seq_len,
+                                      env)
                   for i, c in enumerate(caches)]
     B, S = batch["tokens"].shape
     last = x.reshape(B, S, -1)[:, -1]
@@ -707,7 +708,6 @@ def init_paged_caches(cfg: ModelConfig, n_pages: int, page_size: int,
     """Per-layer paged KV pools with a leading layer dim (page 0 is the
     engine's scratch page); over tp the rank's in-page offsets."""
     check_paged_support(cfg)
-    check_mesh_support(cfg, env)
     one = L.init_paged_kv_pool(cfg, n_pages, page_size, device, env)
     return {"self": {k: torch.zeros((cfg.n_layers,) + tuple(v.shape),
                                     dtype=v.dtype, device=v.device)

@@ -1,5 +1,5 @@
-"""RG-LRU recurrent block (RecurrentGemma / Griffin) at tp=1
-(counterpart of `repro.models.rglru`) [arXiv:2402.19427].
+"""RG-LRU recurrent block (RecurrentGemma / Griffin) (counterpart of
+`repro.models.rglru`) [arXiv:2402.19427].
 
 Real-Gated Linear Recurrent Unit:
     r_t = sigmoid(blockdiag(W_a) x_t + b_a)        (recurrence gate)
@@ -22,6 +22,15 @@ leaves the same h bits as the same tokens fed tick by tick wherever the
 block's projections give the same rows.  `jax.nn.softplus` is
 logaddexp(x, 0) with no threshold, and `jax.nn.gelu` the tanh form
 (`grouped_matmul.apply_act`).
+
+Over a (dp, tp) mesh (`env`) the channels are sharded over tp, as the
+reference's: `w_in` and `w_gate` column-sharded, `w_out` row-sharded,
+the conv, the gate biases and Lambda cut on their channel dim and the
+block-diagonal gates on their block dim (N_BLOCKS % tp == 0), so every
+gate block lies on one rank and the recurrence needs no collective;
+`w_in`, `w_gate` and `w_out` are FSDP-sharded over dp and gathered at
+use.  The block returns the rank's partial output, which the caller
+combines over tp.
 """
 from __future__ import annotations
 
@@ -29,46 +38,62 @@ from typing import Dict, Optional
 
 import torch
 
+from repro_torch import sharding
 from repro_torch.kernels import grouped_matmul as _gm
 from repro_torch.models import layers as L
+from repro_torch.sharding import LOCAL, AxisEnv
 
 N_BLOCKS = 32
 CONV_WIDTH = 4
 C_SCALE = 8.0
 
 
-def init_rglru(cfg, init: L.Init) -> Dict[str, torch.Tensor]:
-    """The reference's leaves, shapes and scales: block-diagonal gates of
-    N_BLOCKS blocks, the conv and the gate biases at 0, Lambda a
-    linspace(2, 5) (fp32: the reference casts it to fp32 at use; the
-    other leaves are cast to the compute dtype at use)."""
-    d = dr = cfg.d_model
-    bd = dr // N_BLOCKS
+def dims(cfg, env: AxisEnv = LOCAL):
+    """(dr, the rank's dr / tp channels, its N_BLOCKS / tp gate blocks, the
+    block width dr / N_BLOCKS)."""
+    dr = cfg.d_model
     if dr % N_BLOCKS:
         raise ValueError(f"rglru width {dr} is no multiple of {N_BLOCKS}")
+    blocks = sharding.divide(N_BLOCKS, env.tp, "rglru gate blocks over tp")
+    return dr, dr // env.tp, blocks, dr // N_BLOCKS
+
+
+def init_rglru(cfg, init: L.Init) -> Dict[str, torch.Tensor]:
+    """The reference's leaves, shapes, scales and specs: block-diagonal
+    gates of N_BLOCKS blocks, the conv and the gate biases at 0, Lambda a
+    linspace(2, 5) (fp32: the reference casts it to fp32 at use; the
+    other leaves are cast to the compute dtype at use)."""
+    d = cfg.d_model
+    dr, _, _, bd = dims(cfg, init.env)
+    env = init.env
     wdt = init.weight_dtype(cfg)
     out_scale = 0.02 / max(cfg.n_layers, 1) ** 0.5
+    col = sharding.fsdp_spec(env, 2, 0, 1)
+    chan = sharding.fsdp_spec(env, 1, None, 0)
+    blocks = sharding.fsdp_spec(env, 3, None, 0)
     return {
-        "w_in": init.normal((d, dr), wdt),
-        "w_gate": init.normal((d, dr), wdt),
-        "w_out": init.normal((dr, d), wdt, out_scale),
-        "conv_w": init.normal((CONV_WIDTH, dr), wdt, 0.1),
-        "conv_b": init.zeros((dr,), wdt),
-        "wa": init.normal((N_BLOCKS, bd, bd), wdt),
-        "wx": init.normal((N_BLOCKS, bd, bd), wdt),
-        "ba": init.zeros((dr,), wdt),
-        "bx": init.zeros((dr,), wdt),
+        "w_in": init.normal((d, dr), wdt, spec=col),
+        "w_gate": init.normal((d, dr), wdt, spec=col),
+        "w_out": init.normal((dr, d), wdt, out_scale,
+                             spec=sharding.fsdp_spec(env, 2, 1, 0)),
+        "conv_w": init.normal((CONV_WIDTH, dr), wdt, 0.1,
+                              spec=sharding.fsdp_spec(env, 2, None, 1)),
+        "conv_b": init.zeros((dr,), wdt, chan),
+        "wa": init.normal((N_BLOCKS, bd, bd), wdt, spec=blocks),
+        "wx": init.normal((N_BLOCKS, bd, bd), wdt, spec=blocks),
+        "ba": init.zeros((dr,), wdt, chan),
+        "bx": init.zeros((dr,), wdt, chan),
         "lam": init.const(torch.linspace(2.0, 5.0, dr),
-                          L.dtype_of(cfg.param_dtype)),
+                          L.dtype_of(cfg.param_dtype), chan),
     }
 
 
 def _gates(params, u: torch.Tensor):
-    """u (..., dr) -> the gate logits (a, x) through the block-diagonal
-    projections, in u's dtype."""
+    """u (..., dr_loc) -> the gate logits (a, x) through the rank's
+    blocks of the block-diagonal projections, in u's dtype."""
     cdt = u.dtype
-    bd = u.shape[-1] // N_BLOCKS
-    ub = u.reshape(u.shape[:-1] + (N_BLOCKS, bd))
+    n, bd = params["wa"].shape[-3:-1]
+    ub = u.reshape(u.shape[:-1] + (n, bd))
     ga = torch.einsum("...nb,nbc->...nc", ub, params["wa"].to(cdt)) \
         .reshape(u.shape) + params["ba"].to(cdt)
     gx = torch.einsum("...nb,nbc->...nc", ub, params["wx"].to(cdt)) \
@@ -84,9 +109,9 @@ def _log_a(params, r: torch.Tensor) -> torch.Tensor:
 
 def causal_conv(params, u: torch.Tensor,
                 state: Optional[torch.Tensor] = None):
-    """Per-channel causal conv of width 4 over u (B, S, dr), after the
-    `state` (B, 3, dr) of the previous inputs (zeros when None).  Returns
-    (out, the last 3 inputs)."""
+    """Per-channel causal conv of width 4 over u (B, S, dr_loc), after
+    the `state` (B, 3, dr_loc) of the previous inputs (zeros when None).
+    Returns (out, the last 3 inputs)."""
     w = params["conv_w"].to(u.dtype)
     b = params["conv_b"].to(u.dtype)
     pad = (torch.zeros(u.shape[:1] + (CONV_WIDTH - 1,) + u.shape[2:],
@@ -117,13 +142,24 @@ def rglru_scan(a_log, gx, u, h0):
     return torch.stack(hs, dim=1), h
 
 
-def recurrent_block(cfg, params, x: torch.Tensor,
-                    state: Optional[Dict[str, torch.Tensor]] = None):
-    """Training and prefill: x (B, S, d) -> (out (B, S, d) in the compute
-    dtype, the state {"h" (B, dr) fp32, "conv" (B, 3, dr)} after the last
-    position)."""
+def _weights(cfg, params, env: AxisEnv):
+    """w_in, w_gate and w_out gathered over dp (FSDP), in the compute
+    dtype."""
     cdt = L.dtype_of(cfg.compute_dtype)
-    u = x @ params["w_in"].to(cdt)
+    return (env.gather_fsdp(params["w_in"], 0, dtype=cdt),
+            env.gather_fsdp(params["w_gate"], 0, dtype=cdt),
+            env.gather_fsdp(params["w_out"], 1, dtype=cdt))
+
+
+def recurrent_block(cfg, params, x: torch.Tensor,
+                    state: Optional[Dict[str, torch.Tensor]] = None,
+                    env: AxisEnv = LOCAL):
+    """Training and prefill: x (B, S, d) -> (out (B, S, d) in the compute
+    dtype, the rank's partial sum over tp, and the state {"h" (B, dr_loc)
+    fp32, "conv" (B, 3, dr_loc)} after the last position)."""
+    cdt = L.dtype_of(cfg.compute_dtype)
+    w_in, w_gate, w_out = _weights(cfg, params, env)
+    u = x @ w_in
     u, conv_state = causal_conv(params, u,
                                 state["conv"] if state else None)
     ga, gx = _gates(params, u)
@@ -132,31 +168,36 @@ def recurrent_block(cfg, params, x: torch.Tensor,
           torch.zeros((x.shape[0], u.shape[-1]), dtype=torch.float32,
                       device=x.device))
     h, h_last = rglru_scan(a_log, gx.float(), u.float(), h0)
-    y = h.to(cdt) * _gm.apply_act("gelu", x @ params["w_gate"].to(cdt))
-    return y @ params["w_out"].to(cdt), {"h": h_last, "conv": conv_state}
+    y = h.to(cdt) * _gm.apply_act("gelu", x @ w_gate)
+    return y @ w_out, {"h": h_last, "conv": conv_state}
 
 
-def decode_step(cfg, params, x: torch.Tensor, state: Dict[str, torch.Tensor]):
-    """One token: x (B, d) -> out (B, d); `state` {"h", "conv"} is updated
-    in place."""
+def decode_step(cfg, params, x: torch.Tensor, state: Dict[str, torch.Tensor],
+                env: AxisEnv = LOCAL):
+    """One token: x (B, d) -> out (B, d), the rank's partial sum over tp;
+    `state` {"h", "conv"} (the rank's channels) is updated in place."""
     cdt = L.dtype_of(cfg.compute_dtype)
-    u = (x @ params["w_in"].to(cdt))[:, None]
+    w_in, w_gate, w_out = _weights(cfg, params, env)
+    u = (x @ w_in)[:, None]
     u, conv_state = causal_conv(params, u, state["conv"])
     u = u[:, 0]
     ga, gx = _gates(params, u)
     a_log = _log_a(params, torch.sigmoid(ga.float()))
     a, s = _step_terms(a_log, gx.float(), u.float())
     h = a * state["h"] + s
-    y = h.to(cdt) * _gm.apply_act("gelu", x @ params["w_gate"].to(cdt))
+    y = h.to(cdt) * _gm.apply_act("gelu", x @ w_gate)
     state["h"].copy_(h)
     state["conv"].copy_(conv_state)
-    return y @ params["w_out"].to(cdt)
+    return y @ w_out
 
 
-def init_decode_state(cfg, batch: int, device) -> Dict[str, torch.Tensor]:
-    dr = cfg.d_model
-    return {"h": torch.zeros((batch, dr), dtype=torch.float32,
+def init_decode_state(cfg, batch: int, device,
+                      env: AxisEnv = LOCAL) -> Dict[str, torch.Tensor]:
+    """Zeroed state of the rank's dr / tp channels: h (batch, dr_loc)
+    fp32 and the conv's last inputs (batch, 3, dr_loc)."""
+    _, dr_loc, _, _ = dims(cfg, env)
+    return {"h": torch.zeros((batch, dr_loc), dtype=torch.float32,
                              device=device),
-            "conv": torch.zeros((batch, CONV_WIDTH - 1, dr),
+            "conv": torch.zeros((batch, CONV_WIDTH - 1, dr_loc),
                                 dtype=L.dtype_of(cfg.compute_dtype),
                                 device=device)}

@@ -32,6 +32,18 @@ from repro.configs.base import get_smoke_config
 from repro.models import rwkv6 as JR6
 from repro_torch.kernels import rwkv_decay as dk
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The file's torch work on one intra-op thread: the suite runs
+    several files at once beside their spawned ranks, and an
+    oversubscribed torch thread pool slows each of them severalfold."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 WARPS = 8     # csrc/rwkv_decay.cu: warp spans a chunk
 
 

@@ -25,6 +25,18 @@ from repro_torch.kernels import ops
 from repro_torch.kernels import paged_attn as pa
 from repro_torch.models import layers as L
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The file's torch work on one intra-op thread: the suite runs
+    several files at once beside their spawned ranks, and an
+    oversubscribed torch thread pool slows each of them severalfold."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 # label -> (arch, cache positions, the tick's position: pos >= S is a
 # rolling window past its wrap, or a cross cache, every row valid)
 CASES = {"recurrentgemma rolling 2048": ("recurrentgemma-2b", 2048, 2071),

@@ -46,6 +46,18 @@ from repro_torch.models import model as M
 from repro_torch.serving.online import (OnlineConfig, OnlineEngine,
                                         OnlineRequest)
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The file's torch work on one intra-op thread: the suite runs
+    several files at once beside their spawned ranks, and an
+    oversubscribed torch thread pool slows each of them severalfold."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 # (query heads, kv heads, padded heads): uneven at tp = 1 (5 over 2),
 # padded at tp = 2 (6 of 5), whisper-tiny padded at tp = 4 (8 of 6),
 # recurrentgemma-2b's 10 over 1 padded at tp = 4, fewer query heads than

@@ -23,6 +23,18 @@ from repro_torch.core import moe as TMOE
 from repro_torch.kernels import grouped_matmul as gm
 from repro_torch.kernels import ops as tops
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The file's torch work on one intra-op thread: the suite runs
+    several files at once beside their spawned ranks, and an
+    oversubscribed torch thread pool slows each of them severalfold."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 F32_MAX = np.float32(3.4028235e38)
 
 

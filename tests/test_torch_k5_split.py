@@ -27,6 +27,18 @@ import torch
 from repro_torch.kernels import grouped_matmul as gm
 from repro_torch.kernels import normhead as nh
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The file's torch work on one intra-op thread: the suite runs
+    several files at once beside their spawned ranks, and an
+    oversubscribed torch thread pool slows each of them severalfold."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 STAGE, K16 = 64, 16
 # csrc/normhead.cu: the k position of each A-fragment slot (2q, 2q + 1,
 # 2q + 8, 2q + 9 for lane q of a quad) inside a k16 step: slot s reads

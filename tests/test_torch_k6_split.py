@@ -29,6 +29,18 @@ import torch
 
 from repro_torch.kernels import wkv6 as wk
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The file's torch work on one intra-op thread: the suite runs
+    several files at once beside their spawned ranks, and an
+    oversubscribed torch thread pool slows each of them severalfold."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 TC = 8        # csrc/wkv6.cu: timesteps a chunk
 RG = 8        # rows a thread (a row group)
 BUTTERFLY = ([1, 0, 3, 2, 5, 4, 7, 6], [2, 3, 0, 1, 6, 7, 4, 5],

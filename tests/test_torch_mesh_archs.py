@@ -83,6 +83,18 @@ from repro_torch.serving.online import (OnlineConfig, OnlineEngine,
                                         OnlineRequest)
 from repro_torch.training.trainer import TrainConfig, Trainer
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The file's torch work on one intra-op thread: the suite runs
+    several files at once beside their spawned ranks, and an
+    oversubscribed torch thread pool slows each of them severalfold."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TIMEOUT_S = 120.0
 B, S, LR = 4, 16, 1e-4                  # training batch
@@ -272,12 +284,12 @@ def _np(tree):
 def _env(dp, tp, rank):
     """An AxisEnv at a rank's coordinates (no process group): for cutting
     global arrays and drawing a rank's parameters."""
-    return sharding.make_axis_env(tmesh.Mesh.at(dp, tp, rank))
+    return sharding.make_axis_env(tmesh.Mesh.at(dp, tp, rank, device="cpu"))
 
 
 def _runner(name, dp, tp, rank, max_seq=S):
     return tapi.Runner(_cfg(name), device="cpu", max_seq=max_seq,
-                       mesh=tmesh.Mesh.at(dp, tp, rank))
+                       mesh=tmesh.Mesh.at(dp, tp, rank, device="cpu"))
 
 
 def _global(name, tp, serving=False):
@@ -438,7 +450,8 @@ def _worker(rank: int, tmp: str, data):
         tmesh.init_distributed(r, dp * tp,
                                init_method=f"file://{tmp}/store-{store}",
                                backend="gloo", timeout_s=TIMEOUT_S)
-        mesh = tmesh.make_local_mesh(dp, tp, timeout_s=TIMEOUT_S)
+        mesh = tmesh.make_local_mesh(dp, tp, device="cpu",
+                                     timeout_s=TIMEOUT_S)
         if names is None:
             out = {n: _train_one(n, mesh, data[n]) for n in TRAIN}
         elif callable(names):

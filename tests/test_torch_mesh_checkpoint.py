@@ -44,6 +44,18 @@ from repro_torch.optim import adamw
 from repro_torch.optim.schedule import WSDSchedule
 from repro_torch.training.trainer import TrainConfig, Trainer
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The file's torch work on one intra-op thread: the suite runs
+    several files at once beside their spawned ranks, and an
+    oversubscribed torch thread pool slows each of them severalfold."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 TIMEOUT_S = 120.0
 STEPS, EVERY = 3, 2
 NAME = f"step_{EVERY}"
@@ -126,7 +138,8 @@ def _worker(rank: int, tmp: str):
         tmesh.init_distributed(r, dp * tp,
                                init_method=f"file://{tmp}/store-{store}",
                                backend="gloo", timeout_s=TIMEOUT_S)
-        mesh = tmesh.make_local_mesh(dp, tp, timeout_s=TIMEOUT_S)
+        mesh = tmesh.make_local_mesh(dp, tp, device="cpu",
+                                     timeout_s=TIMEOUT_S)
         out = globals()[name](mesh, os.path.join(tmp, "ck"),
                               os.path.join(tmp, "jck"))
         with open(os.path.join(tmp, f"{store}_{r}.pkl"), "wb") as f:
@@ -186,7 +199,7 @@ def _map(fn, tree):
 
 
 def _env(dp, tp, rank):
-    return sharding.make_axis_env(tmesh.Mesh.at(dp, tp, rank))
+    return sharding.make_axis_env(tmesh.Mesh.at(dp, tp, rank, device="cpu"))
 
 
 def _files(tmp):

@@ -9,8 +9,10 @@ devices forced before JAX starts.  The port's ranks are 2 gloo processes
 on the CPU (`torch.multiprocessing` spawn, a file store under the test's
 tmp_path, a 60 s group timeout and a join limit, so a hung rank fails
 the test in its own time).  Also: at one rank every method is an
-identity that builds no process group, and the host-staging table of a
-gloo group on a card.
+identity that builds no process group, the host-staging table of a
+gloo group on a card, and the card exchange's assembly of each op's
+result from the members' pieces (`launch.mesh.CardExchange`; the pieces
+come from gloo on the CPU here).
 
 Tolerance: none for the collectives.  Each moves, adds or averages two
 fp32 values (or casts to bf16 and adds two), which both packages round
@@ -19,6 +21,7 @@ cross entropy (`sharded_xent`, its pmax, psums and their transposes
 around exp and log, which XLA and torch each round their own way) is
 held to 1e-6 of its largest value, tighter than the 1e-5 of the port's
 tp = 1 fp32 tests."""
+import dataclasses
 import json
 import os
 import pickle
@@ -36,6 +39,18 @@ from repro_torch import sharding
 from repro_torch.kernels import ops as kops
 from repro_torch.launch import mesh as tmesh
 from repro_torch.models import embedding as emb
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The file's torch work on one intra-op thread: the suite runs
+    several files at once beside their spawned ranks, and an
+    oversubscribed torch thread pool slows each of them severalfold."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TIMEOUT_S = 60.0
@@ -136,9 +151,11 @@ def _inputs():
 
 
 def _rank(rank: int, store: str, inputs, out_dir: str):
+    torch.set_num_threads(1)
     tmesh.init_distributed(rank, 2, init_method=f"file://{store}",
                            backend="gloo", timeout_s=TIMEOUT_S)
-    meshes = {shape: tmesh.make_local_mesh(*shape, timeout_s=TIMEOUT_S)
+    meshes = {shape: tmesh.make_local_mesh(*shape, device="cpu",
+                                           timeout_s=TIMEOUT_S)
               for shape in ((1, 2), (2, 1))}
     BF16 = torch.bfloat16
 
@@ -162,10 +179,77 @@ def _rank(rank: int, store: str, inputs, out_dir: str):
                        .to(y.dtype))
             g = x.grad
         out[name] = (y.detach().float().numpy(), g.detach().float().numpy())
+    exchange = _exchange_cases(meshes[(1, 2)].tp_group, rank)
+    exchange["barrier"] = _barrier_case(meshes[(1, 2)].tp_group, rank)
     with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
-        pickle.dump((out, meshes[(1, 2)].stats, meshes[(1, 2)].describe()),
-                    f)
+        pickle.dump((out, meshes[(1, 2)].stats, meshes[(1, 2)].describe(),
+                     exchange), f)
     torch.distributed.destroy_process_group()
+
+
+class _HostExchange(tmesh.CardExchange):
+    """`CardExchange` with each piece gathered by gloo on the CPU in place
+    of the card's IPC buffers: its pieces and each op's assembly of the
+    result, run where there is no card."""
+
+    def exchange(self, flat):
+        out = [torch.empty_like(flat) for _ in range(self.size)]
+        torch.distributed.all_gather(out, flat.contiguous(), group=self.pg)
+        return out
+
+
+def _barrier_case(group, rank):
+    """A `HostBarrier` of the two ranks: rank 1 arrives 1 s late at the
+    third of five waits.  Returns (its count, seconds rank 0 waited at
+    each)."""
+    import time
+    bar = tmesh.HostBarrier.connect(group.pg, group.index, group.size, 30.0)
+    waits = []
+    for i in range(5):
+        if rank == 1 and i == 2:
+            time.sleep(1.0)
+        t0 = time.perf_counter()
+        bar.wait()
+        waits.append(time.perf_counter() - t0)
+    return bar.count, waits
+
+
+EXCHANGE_OPS = {
+    "all_reduce": lambda g, x: g.all_reduce(x),
+    "all_reduce max": lambda g, x: g.all_reduce(
+        x, op=torch.distributed.ReduceOp.MAX),
+    "broadcast 1": lambda g, x: g.broadcast(x, 1),
+    "all_gather axis 1": lambda g, x: g.all_gather(x, 1),
+    "reduce_scatter axis 0": lambda g, x: g.reduce_scatter(x, 0),
+    "reduce_scatter axis 1": lambda g, x: g.reduce_scatter(x, 1),
+    "all_to_all": lambda g, x: g.all_to_all(x.reshape(2, 3, -1)),
+}
+
+
+def _exchange_cases(group, rank):
+    """Each op through the card exchange's assembly in pieces of 40 bytes
+    (so that a piece straddles the blocks), and through gloo: (rank's
+    results, equal bit for bit) per op, in fp32 and bf16."""
+    ex = _HostExchange(group.pg, group.index, group.size, group.device,
+                       barrier=None)
+    card = dataclasses.replace(group, exchange=ex, stats={})
+    saved, tmesh.EXCHANGE_BYTES = tmesh.EXCHANGE_BYTES, 40
+    rs = np.random.RandomState(rank)
+    out = {}
+    try:
+        for dtype in (torch.float32, torch.bfloat16):
+            x = torch.from_numpy(rs.randn(6, 10).astype(np.float32)) \
+                .to(dtype)
+            for name, fn in EXCHANGE_OPS.items():
+                a, b = fn(card, x), fn(group, x)
+                out[f"{name} {dtype}"] = (
+                    tuple(a.shape) == tuple(b.shape)
+                    and torch.equal(a.view(-1).view(torch.uint8),
+                                    b.contiguous().view(-1)
+                                    .view(torch.uint8)))
+    finally:
+        tmesh.EXCHANGE_BYTES = saved
+    return out
 
 
 @pytest.fixture(scope="module")
@@ -233,6 +317,35 @@ def test_stats_count_the_collectives(results):
     assert "backend=gloo" in describe and "via_host=-" in describe
 
 
+@pytest.mark.parametrize("dtype", ["torch.float32", "torch.bfloat16"])
+def test_card_exchange_assembles_gloo_results_bit_for_bit(results, dtype):
+    """The card exchange's pieces (here 40 bytes, straddling the blocks)
+    assembled into each op's result (sum and max in member order, a
+    broadcast, gathers and reduce-scatters along dims 0 and 1, the
+    all-to-all's blocks) are gloo's results bit for bit on both ranks;
+    the members' pieces come from gloo on the CPU in place of the card's
+    buffers (the buffers themselves: scripts/torch_card_exchange.py and
+    chip_smoke.py phases 9b-9e on the card)."""
+    _, port = results
+    for r in range(2):
+        got = {k: v for k, v in port[r][3].items()
+               if k != "barrier" and k.endswith(dtype)}
+        assert len(got) == len(EXCHANGE_OPS) and all(got.values()), got
+
+
+def test_host_barrier_waits_for_every_member(results):
+    """The card exchange's barrier (a shared file on the host): rank 0
+    waits at the third of five barriers until rank 1, 1 s late,
+    arrives, and passes the next ones without that wait."""
+    _, port = results
+    for r in range(2):
+        count, waits = port[r][3]["barrier"]
+        assert count == 5
+    waits = port[0][3]["barrier"][1]
+    assert waits[2] >= 0.9, waits
+    assert max(waits[3:]) < 0.9, waits
+
+
 def test_one_rank_is_an_identity_without_a_process_group():
     """At (1, 1) every method returns its input (the same tensor) and no
     process group exists."""
@@ -248,7 +361,7 @@ def test_one_rank_is_an_identity_without_a_process_group():
     assert kops.ep_all_to_all(x, group=env.mesh.tp_group) is x
     assert (env.tp_index(), env.dp_index()) == (0, 0)
     assert not torch.distributed.is_initialized()
-    assert tmesh.make_local_mesh(1, 1).world.pg is None
+    assert tmesh.make_local_mesh(1, 1, device="cpu").world.pg is None
 
 
 def test_gloo_on_a_card_stages_the_collectives_it_lacks():
@@ -267,7 +380,7 @@ def test_gloo_on_a_card_stages_the_collectives_it_lacks():
 def test_specs_and_shards():
     """The spec helpers as the reference's: FSDP only over dp > 1, the
     replication count, and a rank's slice of a global array."""
-    env = sharding.make_axis_env(tmesh.Mesh.at(2, 2, 3))
+    env = sharding.make_axis_env(tmesh.Mesh.at(2, 2, 3, device="cpu"))
     assert sharding.fsdp_spec(env, 2, 0, 1) == sharding.P("dp", "tp")
     assert sharding.ep_spec(env, 3, 1, 0) == sharding.P("tp", "dp", None)
     assert sharding.fsdp_spec(sharding.LOCAL, 2, 0, 1) == \

@@ -15,9 +15,9 @@ tree) and the same numpy-made batch and prompts:
   * at (1, 2): greedy dense decode fed token by token, the dense prefill
     into caches sharded over tp and its ticks, the paged OnlineEngine
     (page 8, so each rank holds 4 in-page offsets) greedy, and a sampled
-    burst through the engine: every stream equal to the reference's;
-  * at dp * tp > 1 the block families (nemotron, danube, recurrentgemma,
-    whisper) raise, naming ROADMAP item 9.
+    burst through the engine: every stream equal to the reference's.
+  (The other architectures on a mesh: test_torch_mesh_archs and
+  test_torch_mesh_families.)
 
 The reference runs once for the file, in subprocesses with 4 host
 devices forced before JAX starts (the pattern of test_sharded_parity and
@@ -64,6 +64,18 @@ from repro_torch.models import prng
 from repro_torch.optim import adamw
 from repro_torch.serving.online import (OnlineConfig, OnlineEngine,
                                         OnlineRequest)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The file's torch work on one intra-op thread: the suite runs
+    several files at once beside their spawned ranks, and an
+    oversubscribed torch thread pool slows each of them severalfold."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TIMEOUT_S = 120.0
@@ -283,7 +295,8 @@ def _worker(rank: int, tmp: str, params_np, data):
         tmesh.init_distributed(r, dp * tp,
                                init_method=f"file://{tmp}/store-{store}",
                                backend="gloo", timeout_s=TIMEOUT_S)
-        mesh = tmesh.make_local_mesh(dp, tp, timeout_s=TIMEOUT_S)
+        mesh = tmesh.make_local_mesh(dp, tp, device="cpu",
+                                     timeout_s=TIMEOUT_S)
         out = globals()[name](mesh, params_np, data)
         with open(os.path.join(tmp, f"{name}_{dp}x{tp}_{r}.pkl"),
                   "wb") as f:
@@ -348,7 +361,7 @@ def runs(tmp_path_factory):
 def _env(dp, tp, rank):
     """An AxisEnv at a rank's coordinates (no process group): for cutting
     global arrays."""
-    return sharding.make_axis_env(tmesh.Mesh.at(dp, tp, rank))
+    return sharding.make_axis_env(tmesh.Mesh.at(dp, tp, rank, device="cpu"))
 
 
 def _specs(dp, tp):
@@ -442,15 +455,3 @@ def test_serving_streams_on_1x2_match_the_reference(runs, stream):
                                       err_msg=f"{stream} rank {r}")
     assert serve[0]["pool_rows"] == 4
 
-
-@pytest.mark.parametrize("arch", ["nemotron-4-15b", "recurrentgemma-2b",
-                                  "h2o-danube-1.8b", "whisper-tiny"])
-def test_other_architectures_raise_on_a_mesh(arch):
-    """The block families (LayerNorm, sliding windows, RG-LRU, the
-    encoder-decoder) do not run over more than one rank yet: they raise
-    at the Runner, naming ROADMAP item 9 (no process group is touched);
-    the uniform-attention architectures and rwkv6 run
-    (test_torch_mesh_archs)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
-        tapi.Runner(get_smoke_config(arch), device="cpu",
-                    mesh=tmesh.Mesh.at(1, 2, 0))

@@ -70,6 +70,18 @@ from repro_torch.serving import draft as tdraft
 from repro_torch.serving import online as tonline
 from repro_torch.telemetry.slo import SLOConfig
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The file's torch work on one intra-op thread: the suite runs
+    several files at once beside their spawned ranks, and an
+    oversubscribed torch thread pool slows each of them severalfold."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TIMEOUT_S = 120.0
 B, S, LR = 4, 16, 1e-4                  # training and scoring batch
@@ -506,7 +518,8 @@ def _worker(rank: int, tmp: str, data):
         tmesh.init_distributed(r, dp * tp,
                                init_method=f"file://{tmp}/store-{store}",
                                backend="gloo", timeout_s=TIMEOUT_S)
-        mesh = tmesh.make_local_mesh(dp, tp, timeout_s=TIMEOUT_S)
+        mesh = tmesh.make_local_mesh(dp, tp, device="cpu",
+                                     timeout_s=TIMEOUT_S)
         out = globals()[name](mesh, data)
         with open(os.path.join(tmp, f"{name}_{r}.pkl"), "wb") as f:
             pickle.dump(out, f)
@@ -568,7 +581,7 @@ def runs(tmp_path_factory):
 
 
 def _env(dp, tp, rank):
-    return sharding.make_axis_env(tmesh.Mesh.at(dp, tp, rank))
+    return sharding.make_axis_env(tmesh.Mesh.at(dp, tp, rank, device="cpu"))
 
 
 # ---------------------------------------------------------------------------
@@ -818,7 +831,7 @@ def test_slo_gate_on_1x2_sheds_rank0s_decisions(runs):
     engine sheds on rank 0's clock, though rank 1's clock runs ten times
     faster and its own tracker would decide otherwise."""
     data, _, port = runs
-    one, _ = _slo_engine(tmesh.Mesh.local(), data, SLO_CLOCK)
+    one, _ = _slo_engine(tmesh.Mesh.local("cpu"), data, SLO_CLOCK)
     (shed0, own0), (shed1, own1) = (port["hi"][r]["slo"] for r in range(2))
     print(f"\nshed (1, 1) {one}; (1, 2) ranks {shed0} {shed1}")
     assert one and len(one) < 12, one

@@ -20,6 +20,17 @@ from repro_torch.kernels import paged_attn as pa
 from repro_torch.models import layers as TL
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The file's torch work on one intra-op thread: the suite runs
+    several files at once beside their spawned ranks, and an
+    oversubscribed torch thread pool slows each of them severalfold."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _reference():
     import jax.numpy as jnp
     from repro.kernels import ops as jops

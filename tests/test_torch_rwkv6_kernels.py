@@ -24,6 +24,17 @@ from repro_torch.kernels import ops as tops
 from repro_torch.kernels import wkv6 as wk
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The file's torch work on one intra-op thread: the suite runs
+    several files at once beside their spawned ranks, and an
+    oversubscribed torch thread pool slows each of them severalfold."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _reference():
     """(jax.numpy, repro.kernels.ops, repro.kernels.ref): imported here,
     not at the top, so the card-only tests need no JAX; a reference that

@@ -228,11 +228,11 @@ def test_train_launcher_on_the_cpu(capsys):
 
 
 @pytest.mark.parametrize("flag", [["--tp", "2", "--edit-workers", "2"],
-                                  ["--dp", "2", "--arch",
-                                   "recurrentgemma-2b"]])
+                                  ["--dp", "2", "--edit-workers", "2"]])
 def test_train_launcher_refuses_paths_not_yet_ported(flag):
-    """EDiT on a mesh, and a block family on a mesh (ROADMAP item 9,
-    sub-item 6.4; rwkv6-3b runs there since the uniform archs' slice)."""
+    """EDiT on a mesh, over tp or over dp (ROADMAP queue 3: the launcher
+    refuses --edit-workers with --dp / --tp); every architecture it
+    trains runs on a mesh."""
     with pytest.raises(SystemExit):
         tlaunch.main(["--smoke", "--device", "cpu"] + flag)
 

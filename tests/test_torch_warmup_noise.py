@@ -29,6 +29,18 @@ from repro_torch.models import prng
 from repro_torch.optim.schedule import AccumWarmup
 from repro_torch.training.trainer import TrainConfig, Trainer
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The file's torch work on one intra-op thread: the suite runs
+    several files at once beside their spawned ranks, and an
+    oversubscribed torch thread pool slows each of them severalfold."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 SEEDS = [0, 7, 2**31 + 5, 2**32 - 1]
 
 
