@@ -10,8 +10,10 @@ Phases, each failing loudly (non-zero exit, no result line):
      sm_90a (one nvcc per source, in parallel), timed;
   3. per-kernel checks at Ling-Lite shapes against their plain PyTorch
      versions on identical inputs, with error, tolerance, median
-     CUDA-event times, the roofline bound (3.35 TB/s; 989 TFLOP/s bf16)
-     and, where one PyTorch call computes the same function, its time
+     CUDA-event times, the roofline bound (each kernel's cost function in
+     `roofline` on the counts read from the data, over the H100
+     datasheet's 3.35 TB/s and 989 TFLOP/s bf16, 67 fp32) and, where one
+     PyTorch call computes the same function, its time
      (every kernel's `ms`: the wrapper from an idle queue, host dispatch
      included):
      K1 fused MoE FFN (T=8 decode, T=64 prefill, T=40 a k=4 verify pass,
@@ -112,7 +114,7 @@ Phases, each failing loudly (non-zero exit, no result line):
      at k=4 with a 4-layer self-draft (greedy streams phase 5's; K1, K3,
      K4 launched (k+1)*4 + 28 and K5 (k+1) + 1 times per spec tick, and
      28 + 4 and 2 per prefill chunk), with a 28-layer self-draft (every
-     draft accepted; 16 of the 32 tokens, both waves of the 8 slots),
+     draft accepted; all 32 tokens, both waves of the 8 slots),
      and sampled at 0.8; each run's tokens/s, TTFT and
      ITL p50/p99, ticks per token and acceptance, and one sampling call
      at 8 and 40 rows of the vocabulary (CUDA events);
@@ -270,8 +272,8 @@ Phases, each failing loudly (non-zero exit, no result line):
      and seconds per step;
   9c. two ranks over gloo on the one card (`mesh_paths`), Ling-Lite at
      full width on (1, 2), 28 layers: speculative decoding (k=4, a
-     1-layer self-draft) on 9b's prompts, 5 tokens each (greedy streams
-     the first 5 of 9b's bit for bit, both ranks equal, K1/K3/K4
+     1-layer self-draft) on 9b's prompts, 9 tokens each (greedy streams
+     the first 9 of 9b's bit for bit, both ranks equal, K1/K3/K4
      (k+1) + 28 and K5 (k+1) + 1 launches per spec tick, 29 and 2 per
      prefill chunk) and one request with a 28-layer self-draft (every
      draft accepted, the stream 9b's), phase 6c's 8 x 512
@@ -322,7 +324,23 @@ Phases, each failing loudly (non-zero exit, no result line):
      recurrentgemma a 2040-token prompt teacher-forced 12 ticks across
      its windows' wrap at 2048 (1024 rolling slots a rank) on the same
      bar; its seconds printed;
-  10. the `kernels` JSON line (launches of phase 9's paths too), the
+  10. the dry run (`launch.dryrun.trace` on `meta`, the CLI's function)
+     against the card, on one more step of phases 8, 6c and 9b each,
+     run through the dry run's own `step_args` and `count_step` under
+     the roofline counter, outside their timed steps: (a) phase 8's
+     4-layer step: launches per step (K1 16, K2 48, weight gradient 24)
+     equal to the card's, FLOPs by dtype and bytes equal to the card's
+     step under the same counter, the record's argument bytes
+     (parameters, AdamW state, guard, batch) and peak bytes within
+     DRY_MEM_GAP (and DRY_PEAK_TOL) of what the card's allocator held
+     for the arguments and of those plus max_memory_allocated over the
+     step; the three terms beside the median step time (printed); (b)
+     6c's dense prefill and tick: launches (K1 28 and K5 1; K1/K3/K4 28
+     and K5 1), FLOPs and bytes equal to the card's; the terms beside
+     6c's ms (printed); (c) 9b's (2, 1) and (1, 2) steps: rank 0's dry
+     run gives the collective calls and bytes per op rank 0 counted in
+     a step;
+  11. the `kernels` JSON line (launches of phase 9's paths too), the
      card line, and the result line.
 """
 from __future__ import annotations
@@ -340,9 +358,6 @@ import time
 import types
 from pathlib import Path
 
-HBM_BYTES_S = 3.35e12          # H100 SXM HBM3
-BF16_FLOPS = 989e12            # H100 SXM dense bf16 tensor-core peak
-FP32_FLOPS = 67e12             # H100 SXM fp32 outside the tensor cores
 SERVE_KERNELS = ("fused_moe_ffn", "paged_attn_scores_max",
                  "paged_attn_accumulate")      # once per layer and step
 # phase 3's paged-attention cases (`paged_case`'s arguments), also timed
@@ -585,12 +600,6 @@ def kernel_name(mangled: str) -> str:
     return mangled[:72]
 
 
-def bound(nbytes: float, flops: float, flops_s: float = BF16_FLOPS):
-    t_bytes, t_ops = nbytes / HBM_BYTES_S, flops / flops_s
-    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
-                                       else "operations")
-
-
 def bf16_ulp(t):
     """One bf16 ulp at each element of t (2^(e-8) for |t| in
     [2^(e-1), 2^e))."""
@@ -741,6 +750,7 @@ def check_k1(cfg, T: int, gen, case=None):
     prepared arguments (its kernels' time, also split by kernel with the
     profiler: up, down, and the combine with its index passes)."""
     import torch
+    from repro_torch import roofline
     from repro_torch.kernels import build
     from repro_torch.kernels import grouped_matmul as gm
     from repro_torch.kernels import ops
@@ -762,13 +772,13 @@ def check_k1(cfg, T: int, gen, case=None):
     # summation order over d=2048 and ff=1408
     tol = 1e-4 * ref.abs().max().item()
     n_experts = int((group_sizes > 0).sum())
-    w_bytes = n_experts * 3 * cfg.d_model * m.expert_d_ff * 2
-    # the operations of the rows that hold a slot (an "ep" or a tp > 1
-    # "fused" buffer's trailing rows are empty)
-    b_ms, b_by = bound(w_bytes + nbytes(x, row_idx, g, tile_group)
-                       + T * cfg.d_model * 4,
-                       2 * int(group_sizes.sum()) * 3 * cfg.d_model
-                       * m.expert_d_ff)
+    # the experts routed, and the operations of the rows that hold a slot
+    # (an "ep" or a tp > 1 "fused" buffer's trailing rows are empty)
+    b_ms, b_by = roofline.bound_ms(roofline.k1_cost(
+        T, cfg.d_model, m.expert_d_ff, group_sizes.shape[0],
+        row_idx.shape[0], bm, gated=p["we3"] is not None,
+        x_itemsize=x.element_size(), w_itemsize=p["we1"].element_size(),
+        rows=int(group_sizes.sum()), experts=n_experts))
     ms = cuda_ms(lambda: gm.fused_moe_ffn(*args))
     plain_ms = cuda_ms(lambda: gm.fused_moe_ffn_ref(*args))
     rows = int(group_sizes.sum())
@@ -879,20 +889,18 @@ def pa_bounds(gq, k_pool, table, mask4, pass2: bool, heads=None):
     per valid PV term in pass 2) of each of the `heads` query heads (all
     of the layout's rows by default; a regrouped layout's zero rows are
     no work the function needs, so its q, m_safe and outputs count the
-    real heads' rows only)."""
+    real heads' rows only): `roofline.paged_attn_cost` on the counts read
+    from the mask."""
+    from repro_torch import roofline
     B, KV, GQ, hd = gq.shape
-    Q = mask4.shape[1]
-    g = GQ // Q if heads is None else heads / KV
-    ps = k_pool.shape[1]
-    live_pages = int(mask4.any(dim=1).any(dim=-1).sum())
-    page_bytes = live_pages * ps * KV * hd * 2 * (2 if pass2 else 1)
-    valid = int(mask4.sum())
-    flops = (4 if pass2 else 2) * hd * valid * g * KV
-    rows = B * KV * g * Q
-    q_bytes = rows * hd * gq.element_size()
-    out_bytes = rows * 4 * ((hd + 2) if pass2 else 1)
-    return bound(page_bytes + q_bytes + nbytes(table, mask4) + out_bytes,
-                 flops)
+    _, Q, n_lp, ps = mask4.shape
+    return roofline.bound_ms(roofline.paged_attn_cost(
+        B, KV, GQ, hd, ps, n_lp, Q, second_pass=pass2,
+        q_itemsize=gq.element_size(), pool_itemsize=k_pool.element_size(),
+        table_itemsize=table.element_size(),
+        mask_itemsize=mask4.element_size(), heads=heads,
+        live_pages=int(mask4.any(dim=1).any(dim=-1).sum()),
+        valid=int(mask4.sum())))
 
 
 def check_pa(cfg, label, case, heads=None):
@@ -991,6 +999,7 @@ def check_k2(cfg, gen, case=None):
     gradient, each in every operand form the backward launches, against
     their plain versions."""
     import torch
+    from repro_torch import roofline
     from repro_torch.kernels import grouped_matmul as gm
     from repro_torch.kernels import ops
     p, x, tok, gates, gs = case or moe_case(cfg, 2048, gen)
@@ -1022,9 +1031,10 @@ def check_k2(cfg, gen, case=None):
         # fp32 products of operands exact in fp32 (bf16 upcast): the two
         # differ only in fp32 summation order over K
         tol = 1e-4 * ref.abs().max().item()
-        b_ms, b_by = bound(n_live * bm * K * lhs.element_size()
-                           + n_routed * K * N * 2 + out.numel() * 4
-                           + nbytes(lay.tile_group), 2 * cap * K * N)
+        b_ms, b_by = roofline.bound_ms(roofline.k2_cost(
+            lhs_pad.shape[0], K, N, G, bm, lhs_itemsize=lhs.element_size(),
+            rhs_itemsize=w.element_size(), rows=cap, live_tiles=n_live,
+            experts=n_routed))
         ms, plain_ms = cuda_ms(run), cuda_ms(plain, iters=5, warmup=1)
         a16 = lhs.to(torch.bfloat16)
         b16 = w.transpose(1, 2) if trans else w
@@ -1072,7 +1082,10 @@ def check_k2(cfg, gen, case=None):
             .max().item()
         tol = 1e-4 * ref32.abs().max().item()
         K, N = lhs.shape[1], rhs.shape[1]
-        b_ms, b_by = bound(nbytes(lhs, rhs, gs, out), 2 * cap * K * N)
+        b_ms, b_by = roofline.bound_ms(roofline.wgrad_cost(
+            cap, K, N, G, lhs_itemsize=lhs.element_size(),
+            rhs_itemsize=rhs.element_size(), out_itemsize=out.element_size(),
+            sizes_itemsize=gs.element_size(), rows=cap))
         ms, plain_ms = cuda_ms(run), cuda_ms(plain, iters=5, warmup=1)
         lt16, r16 = lhs.t().to(torch.bfloat16), rhs.to(torch.bfloat16)
         lt16_rm = lt16.contiguous()
@@ -1122,6 +1135,7 @@ def check_k5(label, x, w):
     cuBLAS product x W_n^T on a head normalized beforehand (the same
     bytes read once: a yardstick, not the same function)."""
     import torch
+    from repro_torch import roofline
     from repro_torch.core.normhead import normalize_rows
     from repro_torch.kernels import normhead as nh
     (T, d), V = x.shape, w.shape[0]
@@ -1131,7 +1145,8 @@ def check_k5(label, x, w):
     # fp32 sums in another order, and the division after the product
     # where the plain version divides W first: fp32 rounding only
     tol = 1e-4 * ref.abs().max().item()
-    b_ms, b_by = bound(nbytes(x, w, out), 2 * T * V * d + 2 * V * d)
+    b_ms, b_by = roofline.bound_ms(roofline.normhead_cost(
+        T, V, d, x_itemsize=x.element_size(), w_itemsize=w.element_size()))
     run = lambda: nh.normhead_matmul(x, w)
     plain = lambda: nh.normhead_matmul_ref(x, w)
     ms, plain_ms = cuda_ms(run), cuda_ms(plain)
@@ -1179,6 +1194,7 @@ def check_k6(label, r, k, v, w, u, s0):
     the state is written in place.  Beside `ms`: the card's time for the
     call (queue held) and the host dispatch alone."""
     import torch
+    from repro_torch import roofline
     from repro_torch.kernels import wkv6 as wk
     (B, T, H, hd), dtype = r.shape, r.dtype
     state = s0.clone()
@@ -1204,8 +1220,9 @@ def check_k6(label, r, k, v, w, u, s0):
     plain_ms = cuda_ms(plain, iters=5, warmup=1)
     dv, hs = device_ms(run), host_ms(run)
     pdv = device_ms(plain, iters=5, warmup=1)
-    b_ms, b_by = bound(nbytes(r, k, v, w, u, s0, y) + sT.numel() * 4,
-                       5 * hd * hd * B * H * T)
+    b_ms, b_by = roofline.bound_ms(roofline.wkv6_cost(
+        B, T, H, hd, dtype=str(dtype).replace("torch.", ""),
+        itemsize=r.element_size()))
     shape = (f"{label} B={B} T={T} H={H} hd={hd} r/k/v={dtype} "
              f"(y max_abs_err beyond one ulp {err_y:.3e}, tolerance "
              f"{tol_y:.3e}; state {err_s:.3e}, tolerance {tol_s:.3e})")
@@ -1241,6 +1258,7 @@ def check_decay(label, x, a, b, w0):
     that row alone, bit for bit.  Beside `ms`: the card's time for the
     call (queue held) and the host dispatch alone."""
     import torch
+    from repro_torch import roofline
     from repro_torch.kernels import rwkv_decay as dk
     M, d = x.shape
     n = b.shape[1]
@@ -1256,8 +1274,8 @@ def check_decay(label, x, a, b, w0):
     plain = lambda: dk.rwkv_decay_ref(x, a, b, w0)
     ms, plain_ms = cuda_ms(run), cuda_ms(plain)
     dv, hs, pdv = device_ms(run), host_ms(run), device_ms(plain)
-    b_ms, b_by = bound(nbytes(x, a, b, w0, w),
-                       2 * M * 32 * (d + n), FP32_FLOPS)
+    b_ms, b_by = roofline.bound_ms(roofline.decay_cost(
+        M, d, n, x_itemsize=x.element_size()))
     same = torch.equal(alone, w[:alone.shape[0]])
     shape = (f"{label} rows={M} d={d} n={n} x={x.dtype} (each of "
              f"{alone.shape[0]} rows alone gives the same bits: {same})")
@@ -1444,9 +1462,9 @@ def _burst(runner, params, ocfg, reqs, drafter=None):
     return [list(r.out) for r in reqs], fig, eng
 
 
-# phase 6b's full-depth self-draft serves the first FULL_DRAFT_NEW tokens
-# of phase 5's 32 a request (all 32 took 61-85 s of the script's 1200)
-FULL_DRAFT_NEW = 16
+# phase 6b's full-depth self-draft serves FULL_DRAFT_NEW tokens a request,
+# all 32 of phase 5's (61-85 s of the script's 1200)
+FULL_DRAFT_NEW = 32
 
 
 def serve_sampled(cfg, params, base, card):
@@ -1534,8 +1552,7 @@ def serve_sampled(cfg, params, base, card):
                  f"({per_tick.get(name, 0)} per spec tick)")
 
     # 3. a full-depth self-draft accepts every draft (16 requests, two
-    # waves of the 8 slots; FULL_DRAFT_NEW tokens each, for the script's
-    # time)
+    # waves of the 8 slots; FULL_DRAFT_NEW tokens each)
     full, fig, eng = _burst(runner, params, OnlineConfig(**geo, spec_k=K),
                             reqs(mixed=False, new=FULL_DRAFT_NEW),
                             SelfDrafter(cfg.n_layers))
@@ -1677,6 +1694,18 @@ def dense_serve(cfg, params, base, card):
              "paged_attn_accumulate": L_ * ticks,
              "normhead_matmul": 1 + ticks})
     del caches
+    # phase 10b's card side: the dry run's prefill and tick
+    # (`launch.dryrun`'s `step_args` and `count_step`) once more each on
+    # the card, under the roofline counter, outside the timed ones
+    from repro_torch.launch import dryrun
+    base["dense_10b"] = {"prefill_ms": 1e3 * (t1 - t0),
+                         "tick_ms": 1e3 * (t2 - t1) / ticks, "BPS": (B, P, S)}
+    for label, shape, st in dense_dry_steps(B, P, S):
+        args = dryrun.step_args(runner, shape, st, params=params)
+        c, _ = dryrun.count_step(runner, shape, st, args)
+        base["dense_10b"][label] = counts(c)
+        del args, c
+    torch.cuda.synchronize()
 
     # 2. token by token through the ticks vs the online engine (hard), and
     # the prefill's last logits against the ticks' (printed)
@@ -2601,8 +2630,11 @@ def train(card):
     steps = 4
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    held0 = torch.cuda.memory_allocated()
     trainer, cfg, (B, S, accum) = train_setup(steps)
     torch.cuda.synchronize()
+    setup_bytes = torch.cuda.memory_allocated() - held0
     n_par = sum(t.numel() for t in adamw.leaves(trainer.params))
     print(f"[train] ling-lite d={cfg.d_model} layers={cfg.n_layers} (of 28) "
           f"experts={cfg.moe.n_experts} top{cfg.moe.top_k} vocab="
@@ -2652,7 +2684,73 @@ def train(card):
         fail(f"training launches per step {per_step} != {want}")
     if not peak < 80e9:
         fail(f"training peak memory {peak / 1e9:.2f} GB >= 80 GB")
-    return launches, hist
+    # phase 10a's card side: one more step under the roofline counter,
+    # outside the timed ones
+    counted = counted_train_step(trainer, B, S, accum, steps, setup_bytes)
+    return launches, hist, dict(
+        counted=counted, cfg=cfg, step_s=step_s,
+        dry=train_dry_step(trainer, B, S, accum, steps),
+        dry_mesh=train_dry_step(trainer, B, S, MESH_ACCUM, MESH_STEPS - 1))
+
+
+def counts(c) -> dict:
+    """A roofline counter's totals: flops by dtype, bytes, launches."""
+    return {"flops": dict(c.flops), "bytes": c.bytes,
+            "launches": c.launches}
+
+
+def dense_dry_steps(B: int, P: int, S: int):
+    """Phase 6c's dense prefill (B x P into caches of S) and tick (at
+    position P) as the dry run's shapes and `Step`s (phase 10b)."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun
+    return (("prefill", ShapeConfig("dense_prefill", P, B, "prefill"),
+             dryrun.Step(cache_len=S)),
+            ("tick", ShapeConfig("dense_tick", S, B, "decode"),
+             dryrun.Step(pos=P)))
+
+
+def train_dry_step(trainer, B: int, S: int, accum: int, step: int):
+    """Phase 8's step as the dry run's shape and `Step`: B x S a
+    microbatch, accum microbatches, the Trainer's AdamW and spike guard,
+    step index `step` (phases 10a and 10c)."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun
+    return (ShapeConfig("phase8_train", S, B, "train"),
+            dryrun.Step(accum=accum, opt=trainer.cfg.opt,
+                        spike=trainer.cfg.spike, index=step))
+
+
+def counted_train_step(trainer, B: int, S: int, accum: int, step: int,
+                       setup_bytes: int):
+    """The dry run's train step (`launch.dryrun`'s `step_args` and
+    `count_step`, at phase 8's shape and `Step`) once on the card with
+    the Trainer's parameters and state and a zero batch: its counts under
+    the roofline counter, the launches the wrappers made, and what the
+    card's allocator measured: the step's arguments (`setup_bytes`, what
+    building the Trainer left allocated, and the batch) and its peak over
+    the bytes held before it (phase 10a)."""
+    import torch
+    from repro_torch.kernels import build
+    from repro_torch.launch import dryrun
+    shape, st = train_dry_step(trainer, B, S, accum, step)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    args = dryrun.step_args(trainer.runner, shape, st, params=trainer.params,
+                            opt_state=trainer.opt_state,
+                            guard=trainer.guard_state)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launches()
+    c, _ = dryrun.count_step(trainer.runner, shape, st, args)
+    torch.cuda.synchronize()
+    del args
+    return dict(counts(c), card_launches={k: v for k, v in
+                                          build.LAUNCHES.items() if v},
+                live_peak=c.peak,
+                card_args=setup_bytes + held - before,
+                card_peak=torch.cuda.max_memory_allocated() - held)
 
 
 def train_setup(steps: int, mesh=None, debug_guards: bool = True,
@@ -2892,7 +2990,7 @@ def train_edit(card):
     import dataclasses
     import numpy as np
     import torch
-    from repro_torch import api
+    from repro_torch import api, roofline
     from repro_torch.configs.base import get_config
     from repro_torch.core import edit as E
     from repro_torch.core import spikes as spikes_lib
@@ -2953,7 +3051,8 @@ def train_edit(card):
         out_bytes = n_bytes + sum(nbytes(*adamw.leaves(t))
                                   for t in (out[0], out[2]))
         syncs.append({"ms": e0.elapsed_time(e1), "cpu_s": cpu_s,
-                      "bound_ms": bound(out_bytes, 0)[0], "rel": rel,
+                      "bound_ms": roofline.bound_ms(
+                          roofline.Cost({}, out_bytes))[0], "rel": rel,
                       "tree_err": tree_err,
                       "kept": got_info["kept"].cpu().tolist(),
                       "count": int(out[1]["count"])})
@@ -3624,6 +3723,7 @@ def _gloo_rank(rank, world, tmp, prompts, tf_tokens):
         times = []
         try:
             for k in range(1, n_steps + 1):
+                before = {op: dict(v) for op, v in m.stats.items()}
                 t1 = time.perf_counter()
                 trainer.train(k)
                 torch.cuda.synchronize()
@@ -3637,6 +3737,12 @@ def _gloo_rank(rank, world, tmp, prompts, tf_tokens):
                         for r in trainer.history],
                "times": times,
                "stats": {k: dict(v) for k, v in m.stats.items()},
+               # the last step's collectives (phase 10c)
+               "step_stats": {op: {n: v[n] - before.get(op, {}).get(n, 0)
+                                   for n in ("calls", "bytes")}
+                              for op, v in m.stats.items()
+                              if v["calls"] > before.get(op, {})
+                              .get("calls", 0)},
                "launches": dict(build.LAUNCHES),
                "peak": torch.cuda.max_memory_allocated(),
                "describe": m.describe()}
@@ -4174,7 +4280,9 @@ def mesh_gloo(card, base, tf_tokens, tf_one, train_hist):
     print(f"[mesh-9b] phase 9b took {time.perf_counter() - t0:.1f}s (9d "
           f"and 9e included)")
     base["mesh_9b"] = {"streams": r0["streams"], "tick_ms": r0["tick_ms"],
-                       "train_1x2": r0["train"]["1x2"]}
+                       "train_1x2": r0["train"]["1x2"],
+                       "step_stats": {label: r0["train"][label]["step_stats"]
+                                      for label in ("1x2", "2x1")}}
     return {"mesh_serve": r0["serve_launches"],
             "mesh_train_2x1": a["launches"],
             "mesh_train_1x2": r0["train"]["1x2"]["launches"], **archs}
@@ -4185,8 +4293,9 @@ def mesh_gloo(card, base, tf_tokens, tf_one, train_hist):
 
 MESH_SPEC_K, MESH_DRAFT_LAYERS = 4, 1
 # phase 9c's spec run emits the first MESH_SPEC_NEW tokens of 9b's
-# greedy streams (9b's 17 a prompt take ~23 spec ticks of 1-2 s on gloo)
-MESH_SPEC_NEW = 5
+# greedy streams (9b's 33 a prompt; the spec ticks' collectives go through
+# the card exchange)
+MESH_SPEC_NEW = 9
 # phase 9c's bar on the int8-SP step against 9b's native (1, 2) step:
 # loss and grad norm relative, the reference's own int8 bar
 # (tests/test_sharded_parity.py)
@@ -4650,6 +4759,141 @@ def mesh_paths(card, base):
             "mesh_train_int8": i8["launches"]}
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the dry run against the card
+# ---------------------------------------------------------------------------
+
+# phase 10a's bars on the dry run's memory against the card's allocator:
+# the ceiling the dry run must stay within, and the tight one it is held
+# to.  The allocator rounds each block up to 512 bytes and may hand out a
+# cached block up to 1 MiB longer than asked; at ~34 GB of arguments and
+# ~28 GB of step, a lost AdamW temporary, or the fp32 gradients of one
+# layer, is tens to hundreds of times the tight bar.
+DRY_PEAK_TOL = 0.15
+DRY_MEM_GAP = 1e-3
+
+
+def rec_counts(rec) -> dict:
+    """A dry-run record's totals, as `counts` gives a counter's."""
+    return {"flops": rec["roofline"]["flops_by_dtype"],
+            "bytes": rec["roofline"]["hbm_bytes"],
+            "launches": {k: v["launches"] for k, v in rec["kernels"].items()}}
+
+
+def terms_line(c, ms: float) -> str:
+    """The roofline's compute and memory terms of a one-rank count beside
+    a measured time, each with its share of it."""
+    from repro_torch import roofline
+    r = roofline.roofline(c["flops"], c["bytes"], {})
+    return (f"compute {1e3 * r.compute_s:.3f}ms ({1e3 * r.compute_s / ms:.1%}"
+            f" of {ms:.3f}ms), memory {1e3 * r.memory_s:.3f}ms "
+            f"({1e3 * r.memory_s / ms:.1%}), collective 0 (one rank); "
+            f"bottleneck {r.bottleneck}; flops by dtype "
+            f"{ {k: f'{v:.4e}' for k, v in r.flops_by_dtype.items()} }, "
+            f"bytes {r.hbm_bytes:.4e}")
+
+
+def dry_run_check(card, base, p8):
+    """Phase 10: the dry run (`launch.dryrun.trace` on `meta`, the
+    function the CLI runs) held against the card, on runs phases 6c, 8
+    and 9b made (each one more step under the counter, outside their
+    timed steps, through `dryrun.step_args` and `count_step`).
+      (a) phase 8's 4-layer step: launches per step equal to
+          `build.LAUNCHES` of the card's step and to phase 8's formula,
+          FLOPs by dtype and bytes equal to the card's step under the
+          same counter; the record's argument bytes (parameters, AdamW
+          state, spike guard, batch) against what the card's allocator
+          holds for them, and its peak bytes against the arguments plus
+          `max_memory_allocated` over the step above what the card held
+          before it, each within DRY_MEM_GAP (and DRY_PEAK_TOL); the
+          three terms beside phase 8's median step time (printed);
+      (b) phase 6c's dense prefill (8 x 64 into caches of 512) and tick
+          (B = 8): launches equal to 6c's counts and to the card's under
+          the counter, FLOPs and bytes equal to the card's; the terms
+          beside 6c's measured ms (printed);
+      (c) phase 9b's (2, 1) and (1, 2) steps: rank 0's dry run gives the
+          collective calls and bytes per op rank 0 counted in its last
+          step."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch import dryrun
+    t0 = time.perf_counter()
+    # (a)
+    card_c, cfg8 = p8["counted"], p8["cfg"]
+    shape, st = p8["dry"]
+    rec = dryrun.trace(cfg8, shape, 1, 1, st=st)
+    dry = rec_counts(rec)
+    mem = rec["memory"]
+    want = {k: v for k, v in step_launches(cfg8, [st.accum]).items() if v}
+    card_peak = card_c["card_args"] + card_c["card_peak"]
+    gaps = {"arguments": (mem["argument_bytes"], card_c["card_args"]),
+            "peak": (mem["peak_bytes"], card_peak)}
+    print(f"[dry-10a] phase 8's step ({cfg8.n_layers} layers, seq "
+          f"{shape.seq_len}, microbatch {shape.global_batch}, accum "
+          f"{st.accum}): launches dry {dry['launches']} card "
+          f"{card_c['card_launches']} counter {card_c['launches']} (formula "
+          f"{want}); flops dry {dry['flops']} card {card_c['flops']}; bytes "
+          f"dry {dry['bytes']:.6e} card {card_c['bytes']:.6e}; the record's "
+          f"memory {mem}; the card's allocator: arguments "
+          f"{card_c['card_args']} B, peak {card_peak} B (arguments + "
+          f"max_memory_allocated {card_c['card_peak']} B over the held "
+          f"bytes; the counter on the card {card_c['live_peak']} B); gaps "
+          f"dry - card "
+          + ", ".join(f"{k} {d - c:+d} B ({(d - c) / max(c, 1):+.2e})"
+                      for k, (d, c) in gaps.items())
+          + f" [{card}]")
+    print(f"[dry-10a] terms of the step: "
+          f"{terms_line(dry, 1e3 * p8['step_s'])}")
+    if not (dry["launches"] == card_c["card_launches"]
+            == card_c["launches"] == want):
+        fail(f"phase 10a: launches dry {dry['launches']}, card "
+             f"{card_c['card_launches']}, counter {card_c['launches']}, "
+             f"formula {want}")
+    if dry["flops"] != card_c["flops"] or dry["bytes"] != card_c["bytes"]:
+        fail(f"phase 10a: the dry run's flops {dry['flops']} / bytes "
+             f"{dry['bytes']} differ from the card's step under the counter "
+             f"({card_c['flops']} / {card_c['bytes']})")
+    for k, (d, c) in gaps.items():
+        if not (abs(d - c) <= DRY_PEAK_TOL * c
+                and abs(d - c) <= DRY_MEM_GAP * c):
+            fail(f"phase 10a: the record's {k} bytes {d} are past "
+                 f"{DRY_MEM_GAP:.0e} of the card's {c}")
+    # (b)
+    d = base["dense_10b"]
+    cfg = get_config("ling-lite")
+    L_ = cfg.n_layers
+    want = {"prefill": {"fused_moe_ffn": L_, "normhead_matmul": 1},
+            "tick": {"fused_moe_ffn": L_, "paged_attn_scores_max": L_,
+                     "paged_attn_accumulate": L_, "normhead_matmul": 1}}
+    for label, shape, st in dense_dry_steps(*d["BPS"]):
+        dry = rec_counts(dryrun.trace(cfg, shape, 1, 1, st=st))
+        on_card, ms = d[label], d[f"{label}_ms"]
+        print(f"[dry-10b] dense {label}: launches dry {dry['launches']} "
+              f"card {on_card['launches']} (6c's {want[label]}); flops dry "
+              f"{dry['flops']} card {on_card['flops']}; bytes dry "
+              f"{dry['bytes']:.6e} card {on_card['bytes']:.6e}; terms: "
+              f"{terms_line(dry, ms)} [{card}]")
+        if not dry["launches"] == on_card["launches"] == want[label]:
+            fail(f"phase 10b: dense {label} launches dry {dry['launches']}, "
+                 f"card {on_card['launches']}, 6c's {want[label]}")
+        if dry["flops"] != on_card["flops"] or \
+                dry["bytes"] != on_card["bytes"]:
+            fail(f"phase 10b: dense {label} flops / bytes dry "
+                 f"{dry['flops']} / {dry['bytes']}, card {on_card['flops']} "
+                 f"/ {on_card['bytes']}")
+    # (c)
+    shape, st = p8["dry_mesh"]
+    for label, (dp, tp) in (("2x1", (2, 1)), ("1x2", (1, 2))):
+        stats = dryrun.trace(cfg8, shape, dp, tp, 0,
+                             st=st)["collective_stats"]
+        got = base["mesh_9b"]["step_stats"][label]
+        print(f"[dry-10c] ({dp}, {tp}) rank 0's step: collectives dry "
+              f"{stats} card {got}")
+        if stats != got:
+            fail(f"phase 10c: ({dp}, {tp}) rank 0's collectives dry {stats} "
+                 f"!= the rank's {got}")
+    print(f"[dry] phase 10 took {time.perf_counter() - t0:.1f}s")
+
+
 def main():
     t_script = time.perf_counter()
     src = Path(__file__).resolve().parent / "src"
@@ -4849,7 +5093,7 @@ def main():
 
     mark("8")
     # -- 8. training --------------------------------------------------------
-    train_launches, train_hist = train(card)
+    train_launches, train_hist, p8 = train(card)
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -4889,7 +5133,11 @@ def main():
     mesh_launches.update(mesh_gloo(card, base, tf_tokens, tf_one, hist_9b))
     mesh_launches.update(mesh_paths(card, base))
 
-    # -- 10. results --------------------------------------------------------
+    mark("10")
+    # -- 10. the dry run against the card -------------------------------------
+    dry_run_check(card, base, p8)
+
+    # -- 11. results --------------------------------------------------------
     # (source, TPU kernel it replaces, the row's shape, the path whose
     # launch count the row reports)
     meta = {"fused_moe_ffn": ("src/repro_torch/kernels/csrc/fused_moe_ffn.cu",

@@ -21,10 +21,15 @@ rank builds its own Runner and calls the same steps in the same order)
 the runner holds the rank's `AxisEnv` and spec tree: `init_params` gives
 the rank its shards of the same global parameters as at (1, 1), the
 train step takes the global batch and keeps the rank's dp rows
-(`batch_sharding`), and the serving steps run on a (1, tp) mesh with
-every rank's tokens equal, speculative decoding's draft and verify
-steps included; `make_score_fn` splits the rows over dp and the
-vocabulary over tp.  `sp_comm="int8"` quantizes the sequence-parallel
+(`batch_sharding`), the dense prefill and decode steps and
+`make_score_fn` split the rows over dp the same way (a rank's dense
+caches hold its rows; every rank returns every row's result), and the
+paged serving steps run on a (1, tp) mesh with every rank's tokens
+equal, speculative decoding's draft and verify steps included.  The
+parameters are stored FSDP over dp whenever dp > 1, in serving too;
+`fsdp=False` keeps them whole on each dp rank (the reference's `fsdp`
+switch, off in its dry run's prefill and, without `--serve-fsdp`, its
+decode).  `sp_comm="int8"` quantizes the sequence-parallel
 boundaries of the train step (`sharding.quant_rows`).  Every
 architecture runs there; an encoder-decoder's `batch["enc_frames"]`
 (B, S_enc, d) splits over dp with the tokens, and its encoder runs on
@@ -66,6 +71,14 @@ def local_rows(env: AxisEnv, batch: Dict[str, torch.Tensor],
             for k, v in batch.items()}
 
 
+def _all_rows(env: AxisEnv, local: torch.Tensor, B: int) -> torch.Tensor:
+    """Every row's values from each rank's `local_rows` share of B rows:
+    gathered over dp where the rows were split."""
+    if env.dp == 1 or batch_sharding(env, B) is None:
+        return local
+    return env.mesh.dp_group.all_gather(local, 0)
+
+
 def resolve_device(device: Union[str, torch.device]) -> torch.device:
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -82,11 +95,13 @@ class Runner:
     max_seq: int = 4096     # an encoder-decoder's learned decoder positions
     mesh: Optional[Mesh] = None
     sp_comm: str = "native"            # "native" | "int8"
+    fsdp: bool = True                  # parameters FSDP over dp at dp > 1
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
         M.check_ported_blocks(self.cfg)
-        self.env = sharding.make_axis_env(self.mesh, sp_comm=self.sp_comm)
+        self.env = sharding.make_axis_env(self.mesh, sp_comm=self.sp_comm,
+                                          fsdp=self.fsdp)
         if self.mesh is not None and self.mesh.size > 1 \
                 and self.mesh.device != self.device:
             raise ValueError(f"the mesh works on {self.mesh.device}, the "
@@ -228,12 +243,15 @@ class Runner:
     # -- prefill and dense decode -------------------------------------------
     def init_caches(self, batch: int, seq_len: Optional[int] = None):
         """Zeroed dense decode caches for `batch` sequences (a leading
-        layer dim or a list; see `models.model.init_caches`).  An
+        layer dim or a list; see `models.model.init_caches`); over dp the
+        rank's rows (`batch_sharding`).  An
         attention model needs `seq_len`, of any length
         (`layers.init_decode_cache`); recurrent layers ignore it.  An
         encoder-decoder's cross caches hold `cfg.encoder_seq_len`
         positions."""
-        return M.init_caches(self.cfg, batch, self.device, seq_len, self.env)
+        rows = (batch // self.env.dp if batch_sharding(self.env, batch)
+                else batch)
+        return M.init_caches(self.cfg, rows, self.device, seq_len, self.env)
 
     def make_prefill(self, seq_len: Optional[int] = None):
         """Greedy prefill: ``(params, batch) -> (next (B,) int32,
@@ -243,12 +261,17 @@ class Runner:
         attention model's caches hold S positions, or `seq_len` (the
         prompt's rows, then zeros) when given, ready for
         `make_decode_step` at pos S; a sliding window's hold min(window,
-        that), and a prompt longer than the window raises."""
+        that), and a prompt longer than the window raises.  Over dp the
+        rank runs its rows (`local_rows`) and keeps their caches; every
+        rank returns the (B,) tokens of all rows."""
         cfg, flags, env = self.cfg, self.flags, self.env
 
         @torch.no_grad()
         def fn(params, batch):
-            return M.prefill(cfg, params, batch, flags, seq_len, env)
+            B = batch["tokens"].shape[0]
+            nxt, caches = M.prefill(cfg, params, local_rows(env, batch),
+                                    flags, seq_len, env)
+            return _all_rows(env, nxt, B), caches
         return fn
 
     def make_decode_step(self, sample: bool = False):
@@ -257,20 +280,30 @@ class Runner:
         the position every sequence writes.  With
         ``sample`` it takes four more (B,) tensors ``(seeds, temperature,
         top_p, top_k)`` and draws under the online path's (seed, pos,
-        stream) key schedule (bit for bit greedy at temperature <= 0)."""
+        stream) key schedule (bit for bit greedy at temperature <= 0).
+        Over dp the rank steps its rows of `token` (and of the sampling
+        knobs) on its caches (`init_caches`, `make_prefill`), and every
+        rank returns the (B,) tokens of all rows."""
         cfg, flags, env = self.cfg, self.flags, self.env
 
         if sample:
             @torch.no_grad()
             def fn(params, caches, token, pos, seeds, temp, top_p, top_k):
-                return M.decode_step(cfg, params, caches, token, pos,
-                                     sample=(seeds, temp, top_p, top_k),
-                                     flags=flags, env=env)
+                rows = local_rows(env, {"token": token, "seeds": seeds,
+                                        "temp": temp, "top_p": top_p,
+                                        "top_k": top_k})
+                nxt, caches = M.decode_step(
+                    cfg, params, caches, rows["token"], pos,
+                    sample=(rows["seeds"], rows["temp"], rows["top_p"],
+                            rows["top_k"]), flags=flags, env=env)
+                return _all_rows(env, nxt, token.shape[0]), caches
         else:
             @torch.no_grad()
             def fn(params, caches, token, pos):
-                return M.decode_step(cfg, params, caches, token, pos,
-                                     flags=flags, env=env)
+                nxt, caches = M.decode_step(
+                    cfg, params, caches, local_rows(env, {"t": token})["t"],
+                    pos, flags=flags, env=env)
+                return _all_rows(env, nxt, token.shape[0]), caches
         return fn
 
     # -- sequence scoring (evaluation harness) ---------------------------------
@@ -323,9 +356,7 @@ class Runner:
             corr = env.psum_tp(torch.where(in_rng, picked, 0.0))
             tok_lp = torch.where(labels.reshape(-1) >= 0, corr - lse, 0.0)
             scores = tok_lp.reshape(tokens.shape[0], -1).sum(dim=-1)
-            if env.dp > 1 and batch_sharding(env, B) is not None:
-                scores = env.mesh.dp_group.all_gather(scores, 0)
-            return scores
+            return _all_rows(env, scores, B)
         return fn
 
     # -- paged serving (all-attn models) --------------------------------------

@@ -2,13 +2,16 @@
 
 `ModelConfig` and `MoEConfig` keep the reference's fields and defaults
 so a config built here describes exactly the model the JAX package
-builds.  Every architecture of the reference registry resolves.
+builds.  Every architecture of the reference registry resolves.  The
+analytic parameter counts and the assigned input shapes (`INPUT_SHAPES`,
+`supported_shapes`) are the reference's too: the dry run
+(`launch.dryrun`) reads them.
 """
 from __future__ import annotations
 
 import dataclasses
 import importlib
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 
 @dataclasses.dataclass(frozen=True)
@@ -88,6 +91,94 @@ class ModelConfig:
     def uniform_blocks(self) -> bool:
         return len(set(self.block_pattern)) == 1
 
+    @property
+    def sub_quadratic(self) -> bool:
+        """True if no block requires O(S^2) full attention (long_500k gate)."""
+        return all(k != "attn" for k in self.block_pattern)
+
+    def param_count(self) -> int:
+        """Analytic total parameter count (embeddings included once)."""
+        d, v = self.d_model, self.vocab_size
+        hd = self.head_dim
+        n = v * d  # embedding
+        if not self.tie_embeddings:
+            n += v * d  # lm head
+        enc = 0
+        if self.is_encoder_decoder:
+            enc = self.encoder_layers * (
+                (self.n_heads + 2 * self.n_kv_heads) * hd * d + self.n_heads * hd * d
+                + self._mlp_params(self.d_ff) + 2 * d)
+            # decoder cross attention
+            n += self.n_layers * ((self.n_heads + 2 * self.n_kv_heads) * hd * d
+                                  + self.n_heads * hd * d + d)
+        for layer in range(self.n_layers):
+            kind = self.block_kind(layer)
+            if kind in ("attn", "swa"):
+                n += (self.n_heads + 2 * self.n_kv_heads) * hd * d
+                n += self.n_heads * hd * d
+            elif kind == "rglru":
+                dr = _rglru_dim(d)
+                n += 2 * d * dr + dr * d + 3 * dr + 2 * dr * (dr // _RGLRU_BLOCKS)
+            elif kind == "rwkv":
+                nh = d // self.rwkv_head_dim
+                n += 4 * d * d + d * nh * self.rwkv_head_dim  # r,k,v,o,g approx
+                n += 2 * (d * 32 + 32 * d)  # lora-style decay/mix
+            n += self._ffn_params(layer)
+            n += 2 * d  # norms
+        return n + enc
+
+    def _mlp_params(self, ff: int) -> int:
+        mult = 3 if self.mlp_act == "swiglu" else 2
+        return mult * self.d_model * ff
+
+    def _ffn_params(self, layer: int) -> int:
+        if self.moe is None or layer < self.moe.first_dense_layers:
+            return self._mlp_params(self.d_ff)
+        m = self.moe
+        n = m.n_experts * self._mlp_params(m.expert_d_ff)
+        if m.n_shared_experts:
+            n += self._mlp_params(m.shared_ff)
+        n += self.d_model * m.n_experts  # router
+        return n
+
+    def active_param_count(self) -> int:
+        """Parameters activated per token (MoE: top_k + shared only)."""
+        if self.moe is None:
+            return self.param_count()
+        m = self.moe
+        full_moe_layers = self.n_layers - m.first_dense_layers
+        inactive = full_moe_layers * (m.n_experts - m.top_k) * self._mlp_params(m.expert_d_ff)
+        return self.param_count() - inactive
+
+
+# the analytic counts' RG-LRU width: RecurrentGemma's RNN width taken as
+# d_model, one gate block (the reference's count, not the model's
+# N_BLOCKS-way block-diagonal gates)
+_RGLRU_BLOCKS = 1
+
+
+def _rglru_dim(d_model: int) -> int:
+    """RecurrentGemma uses an RNN width slightly larger than d_model."""
+    return d_model
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    """One assigned input shape: a train step, a prefill or a decode
+    tick of `global_batch` sequences of `seq_len` positions."""
+    name: str
+    seq_len: int
+    global_batch: int
+    mode: str  # "train" | "prefill" | "decode"
+
+
+INPUT_SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
+}
+
 
 # The reference registry; `PORTED` is the subset whose configs resolve
 # here: all of it.
@@ -136,3 +227,11 @@ def cut_depth(cfg: ModelConfig, n_layers: Optional[int]) -> ModelConfig:
 def get_smoke_config(arch_id: str) -> ModelConfig:
     """Reduced same-family variant: <=2 layers, d_model<=512, <=4 experts."""
     return _module(arch_id).smoke_config()
+
+
+def supported_shapes(cfg: ModelConfig) -> Sequence[str]:
+    """long_500k only for sub-quadratic (SSM / hybrid / SWA) architectures."""
+    out = ["train_4k", "prefill_32k", "decode_32k"]
+    if cfg.sub_quadratic or all(k in ("swa", "rglru", "rwkv") for k in cfg.block_pattern):
+        out.append("long_500k")
+    return out

@@ -26,12 +26,17 @@ The result is (T, d) fp32: sum over rows of gate * FFN_e(x[row_idx]).
 
 Every wrapper takes the plain version for CPU tensors and launches its
 kernel for CUDA tensors, raising on anything the kernel does not take.
-Never a fallback.
+Never a fallback.  Tensors on the `meta` device (the dry run,
+`launch.dryrun`) get the CUDA path's shape checks and its outputs and
+scratch in the same shapes and dtypes, and launch nothing.  While a
+`roofline.counter()` is active each call counts as one launch with the
+kernel's cost (`roofline.k1_cost`, `k2_cost`, `wgrad_cost`).
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch import roofline
 from repro_torch.kernels import build
 
 GATED_ACTS = ("swiglu", "geglu")
@@ -108,11 +113,11 @@ def k1_path(n_m: int, bm: int, G: int) -> str:
     return "tensor_cores"
 
 
-def _k1_launch(x, w1, w2, w3, row_idx, gates, tile_group, act):
-    """Checks K1's CUDA operands and prepares its launch: (out, the C
-    entry's arguments, the tensors they point into).  Allocation
-    only: the combine's index arrays are computed by the C entry's own
-    launches."""
+def _k1_operands(x, w1, w2, w3, row_idx, gates, tile_group, act):
+    """Checks K1's operands (their dtypes and alignment on the card only)
+    and allocates what the launch writes: (row_idx int32, gates fp32,
+    tile_group int32, the scratch hy (h and y, fp32) and idx (the
+    combine's index arrays, int32), out (T, d) fp32)."""
     T, d = x.shape
     G, _, ff = w1.shape
     n_m, bm = row_idx.shape
@@ -120,7 +125,8 @@ def _k1_launch(x, w1, w2, w3, row_idx, gates, tile_group, act):
     if gated != (w3 is not None):
         raise ValueError(f"act={act!r} needs w3 iff it is gated")
     weights = (w1, w2) + ((w3,) if gated else ())
-    for name, t in (("x", x),) + tuple(zip(("w1", "w2", "w3"), weights)):
+    named = (("x", x),) + tuple(zip(("w1", "w2", "w3"), weights))
+    for name, t in named if x.device.type == "cuda" else ():
         if t.dtype != torch.bfloat16 or not t.is_contiguous():
             raise ValueError(f"fused_moe_ffn: {name} must be contiguous "
                              f"bf16, got {t.dtype}")
@@ -144,6 +150,21 @@ def _k1_launch(x, w1, w2, w3, row_idx, gates, tile_group, act):
     hy = torch.empty(rows * (ff + d), dtype=torch.float32, device=x.device)
     idx = torch.empty(3 * T + 2 * rows, dtype=torch.int32, device=x.device)
     out = torch.empty((T, d), dtype=torch.float32, device=x.device)
+    return row_idx, gates, tile_group, hy, idx, out
+
+
+def _k1_launch(x, w1, w2, w3, row_idx, gates, tile_group, act):
+    """Checks K1's CUDA operands and prepares its launch: (out, the C
+    entry's arguments, the tensors they point into).  Allocation
+    only: the combine's index arrays are computed by the C entry's own
+    launches."""
+    T, d = x.shape
+    G, _, ff = w1.shape
+    n_m, bm = row_idx.shape
+    gated = act in GATED_ACTS
+    row_idx, gates, tile_group, hy, idx, out = _k1_operands(
+        x, w1, w2, w3, row_idx, gates, tile_group, act)
+    rows = n_m * bm
     stream = torch.cuda.current_stream(x.device).cuda_stream
     ptr = lambda t: None if t is None else t.data_ptr()
     c_args = tuple(ptr(t) for t in (x, w1, w3, w2, row_idx, gates,
@@ -156,14 +177,26 @@ def _k1_launch(x, w1, w2, w3, row_idx, gates, tile_group, act):
     return out, c_args, held
 
 
+def _k1_cost(x, w1, w2, w3, row_idx, gates, tile_group, *, act="swiglu"):
+    (T, d), (G, _, ff), (n_m, bm) = x.shape, w1.shape, row_idx.shape
+    return roofline.k1_cost(T, d, ff, G, n_m, bm, gated=w3 is not None,
+                            x_itemsize=x.element_size(),
+                            w_itemsize=w1.element_size())
+
+
+@roofline.counted("fused_moe_ffn", _k1_cost)
 def fused_moe_ffn(x, w1, w2, w3, row_idx, gates, tile_group, *,
                   act: str = "swiglu") -> torch.Tensor:
     """K1.  CPU tensors: the plain version.  CUDA tensors: the kernels of
     `k1_path`'s path (x and the weights bf16, 16-byte aligned, d and ff
-    multiples of 8)."""
+    multiples of 8).  Meta tensors: the CUDA path's shape checks, output
+    and scratch, in any dtype the plain version takes."""
     if x.device.type == "cpu":
         return fused_moe_ffn_ref(x, w1, w2, w3, row_idx, gates, tile_group,
                                  act=act)
+    if x.device.type == "meta":
+        return _k1_operands(x, w1, w2, w3, row_idx, gates, tile_group,
+                            act)[-1]
     if x.device.type != "cuda":
         raise ValueError(f"fused_moe_ffn: unsupported device {x.device}")
     out, c_args, _ = _k1_launch(x, w1, w2, w3, row_idx, gates, tile_group,
@@ -225,24 +258,35 @@ def _check_cuda(name: str, **tensors):
             raise ValueError(f"{name}: {arg} must be 8-byte aligned")
 
 
+def _k2_cost(lhs, rhs, tile_group, *, bm: int, trans_b: bool = False):
+    M_pad, K = lhs.shape
+    N = rhs.shape[1] if trans_b else rhs.shape[2]
+    return roofline.k2_cost(M_pad, K, N, rhs.shape[0], bm,
+                            lhs_itemsize=lhs.element_size(),
+                            rhs_itemsize=rhs.element_size())
+
+
+@roofline.counted("grouped_matmul_aligned", _k2_cost)
 def grouped_matmul_aligned(lhs, rhs, tile_group, *, bm: int,
                            trans_b: bool = False) -> torch.Tensor:
     """K2.  CPU tensors: the plain version.  CUDA tensors: the kernel
     (lhs fp32 or bf16, rhs bf16; K and N multiples of 4; an fp32 lhs takes
-    three bf16 wgmma passes)."""
+    three bf16 wgmma passes).  Meta tensors: the CUDA path's shape
+    checks and output."""
     if lhs.device.type == "cpu":
         return grouped_matmul_aligned_ref(lhs, rhs, tile_group, bm=bm,
                                           trans_b=trans_b)
-    if lhs.device.type != "cuda":
+    if lhs.device.type not in ("cuda", "meta"):
         raise ValueError(f"grouped_matmul_aligned: unsupported device "
                          f"{lhs.device}")
     M_pad, K = lhs.shape
     G = rhs.shape[0]
     N = rhs.shape[1] if trans_b else rhs.shape[2]
     K_rhs = rhs.shape[2] if trans_b else rhs.shape[1]
-    _check_cuda("grouped_matmul_aligned",
-                lhs=(lhs, (torch.float32, torch.bfloat16)),
-                rhs=(rhs, (torch.bfloat16,)))
+    if lhs.device.type == "cuda":
+        _check_cuda("grouped_matmul_aligned",
+                    lhs=(lhs, (torch.float32, torch.bfloat16)),
+                    rhs=(rhs, (torch.bfloat16,)))
     tile_group = tile_group.to(torch.int32).contiguous()
     if (K_rhs != K or M_pad % bm or tile_group.shape != (M_pad // bm,)
             or K % 4 or N % 4):
@@ -251,6 +295,8 @@ def grouped_matmul_aligned(lhs, rhs, tile_group, *, bm: int,
                          f"{bm}, tile_group {tuple(tile_group.shape)}: "
                          f"shapes must agree and K, N be multiples of 4")
     out = torch.empty((M_pad, N), dtype=torch.float32, device=lhs.device)
+    if lhs.device.type == "meta":
+        return out
     stream = torch.cuda.current_stream(lhs.device).cuda_stream
     err = build.entry("grouped_matmul_aligned")(
         lhs.data_ptr(), rhs.data_ptr(), tile_group.data_ptr(),
@@ -280,24 +326,37 @@ def grouped_matmul_wgrad_ref(lhs, rhs, group_sizes, *,
     return out.to(out_dtype)
 
 
+def _wgrad_cost(lhs, rhs, group_sizes, *, out_dtype=torch.float32):
+    (M, K), N, G = lhs.shape, rhs.shape[1], group_sizes.shape[0]
+    return roofline.wgrad_cost(
+        M, K, N, G, lhs_itemsize=lhs.element_size(),
+        rhs_itemsize=rhs.element_size(),
+        out_itemsize=out_dtype.itemsize,
+        sizes_itemsize=group_sizes.element_size())
+
+
+@roofline.counted("grouped_matmul_wgrad", _wgrad_cost)
 def grouped_matmul_wgrad(lhs, rhs, group_sizes, *,
                          out_dtype=torch.float32) -> torch.Tensor:
     """The grouped weight gradient.  CPU tensors: the plain version.  CUDA
     tensors: the kernel (lhs and rhs fp32 or bf16; K and N multiples of
     4), with the group offsets cumulated on the device.  `out_dtype`
     fp32 or bf16: a bf16 result is the fp32 sum rounded once to nearest
-    even, what `.to(torch.bfloat16)` of the fp32 result gives."""
+    even, what `.to(torch.bfloat16)` of the fp32 result gives.  Meta
+    tensors: the CUDA path's shape checks, offsets and output."""
     if lhs.device.type == "cpu":
         return grouped_matmul_wgrad_ref(lhs, rhs, group_sizes,
                                         out_dtype=out_dtype)
-    if lhs.device.type != "cuda":
+    if lhs.device.type not in ("cuda", "meta"):
         raise ValueError(f"grouped_matmul_wgrad: unsupported device "
                          f"{lhs.device}")
     M, K = lhs.shape
     N = rhs.shape[1]
     G = group_sizes.shape[0]
     both = (torch.float32, torch.bfloat16)
-    _check_cuda("grouped_matmul_wgrad", lhs=(lhs, both), rhs=(rhs, both))
+    if lhs.device.type == "cuda":
+        _check_cuda("grouped_matmul_wgrad", lhs=(lhs, both),
+                    rhs=(rhs, both))
     if rhs.shape[0] != M or K % 4 or N % 4 or out_dtype not in both:
         raise ValueError(f"grouped_matmul_wgrad: lhs {tuple(lhs.shape)}, "
                          f"rhs {tuple(rhs.shape)}, out_dtype {out_dtype}: "
@@ -307,6 +366,8 @@ def grouped_matmul_wgrad(lhs, rhs, group_sizes, *,
     offsets = (torch.cumsum(group_sizes.long(), 0) - group_sizes.long()) \
         .to(torch.int32)
     out = torch.empty((G, K, N), dtype=out_dtype, device=lhs.device)
+    if lhs.device.type == "meta":
+        return out
     stream = torch.cuda.current_stream(lhs.device).cuda_stream
     err = build.entry("grouped_matmul_wgrad")(
         lhs.data_ptr(), rhs.data_ptr(), offsets.data_ptr(), sizes.data_ptr(),

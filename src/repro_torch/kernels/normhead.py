@@ -20,11 +20,17 @@ one; a bf16 x (bf16 serving) is one piece, and an fp32 x (fp32
 activations: the tests and chip_smoke.py's fp32 consistency runs) is cut
 here into its three bf16 pieces (`split_bf16`), so fp32 x fp32 runs the
 six piece products with i + j <= 2.
+
+Tensors on the `meta` device (the dry run) get the CUDA path's checks,
+its split of an fp32 x and its output, and launch nothing.  While a
+`roofline.counter()` is active each call counts as one launch with
+`roofline.normhead_cost`.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch import roofline
 from repro_torch.core.normhead import normalize_rows
 from repro_torch.kernels import build
 from repro_torch.kernels.grouped_matmul import split_bf16
@@ -38,15 +44,23 @@ def normhead_matmul_ref(x, w, eps: float = EPS):
     return x.float() @ normalize_rows(w, eps).T
 
 
+def _cost(x, w, eps: float = EPS):
+    (T, d), V = x.shape, w.shape[0]
+    return roofline.normhead_cost(T, V, d, x_itemsize=x.element_size(),
+                                  w_itemsize=w.element_size())
+
+
+@roofline.counted("normhead_matmul", _cost)
 def normhead_matmul(x, w, eps: float = EPS):
-    """K5.  CPU tensors: the plain version.  CUDA tensors: the kernel."""
+    """K5.  CPU tensors: the plain version.  CUDA tensors: the kernel.
+    Meta tensors: its checks and output."""
     if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
         raise RuntimeError("normhead_matmul has no backward: call it under "
                            "torch.no_grad() or on tensors that do not "
                            "require grad (training uses core.normhead)")
     if x.device.type == "cpu":
         return normhead_matmul_ref(x, w, eps)
-    if x.device.type != "cuda" or w.device != x.device:
+    if x.device.type not in ("cuda", "meta") or w.device != x.device:
         raise ValueError(f"normhead_matmul: unsupported devices {x.device}, "
                          f"{w.device}")
     both = (torch.float32, torch.bfloat16)
@@ -68,6 +82,8 @@ def normhead_matmul(x, w, eps: float = EPS):
     if x_ptr % 16 or w_ptr % 16:
         raise ValueError("normhead_matmul: x and w must be 16-byte aligned")
     out = torch.empty((T, V), dtype=torch.float32, device=x.device)
+    if x.device.type == "meta":
+        return out
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = build.entry("normhead_matmul")(
         x_ptr, w_ptr, out.data_ptr(), T, V, d, n_x,

@@ -23,6 +23,11 @@ ascending run order) and resets its ticket.  The tickets and the
 partials' scratch are kept per pass, device and stream (`_scratch`), so
 calls on one stream run in order and calls on two streams never share
 them.
+
+Tensors on the `meta` device (the dry run) get the CUDA path's shape
+checks, outputs and scratch (allocated for the call) and launch nothing.  While
+a `roofline.counter()` is active each call counts as one launch with
+`roofline.paged_attn_cost`.
 """
 from __future__ import annotations
 
@@ -30,6 +35,7 @@ from typing import Dict, Tuple
 
 import torch
 
+from repro_torch import roofline
 from repro_torch.kernels import build
 
 HD_MAX = 256   # csrc/paged_attn.cu limits (its kernels are instantiated
@@ -52,12 +58,17 @@ def n_splits(n_lp: int, ps: int) -> int:
     return max(1, -(-n_lp // P))
 
 
-def _scratch(name: str, q, stream: int, n_tickets: int, n_part: int):
+def _scratch(name: str, q, stream, n_tickets: int, n_part: int):
     """The pass's ticket counters (zero; each launch leaves them zero) and
     fp32 partials on q's device for `stream`, at least n_tickets and
     n_part long: allocated on the pass's first call on the stream, and
     again only to grow.  Launches on one stream are ordered, so the next
-    call finds both free; another stream gets buffers of its own."""
+    call finds both free; another stream gets buffers of its own.  On
+    `meta` (stream None) both are made for the call."""
+    if stream is None:
+        return (torch.zeros(max(n_tickets, 256), dtype=torch.int32,
+                            device=q.device),
+                torch.empty(n_part, dtype=torch.float32, device=q.device))
     key = (name, q.get_device(), stream)
     s = _SCRATCH.get(key)
     if s is None or s[0].numel() < n_tickets or s[1].numel() < n_part:
@@ -114,12 +125,13 @@ def paged_attn_accumulate_ref(q, k_pool, v_pool, table, mask, m_safe):
 
 
 def _cuda_operands(q, pools, table, mask):
-    """Validate and prepare the operands both kernels share."""
+    """Validate and prepare the operands both kernels share (their dtypes
+    on the card only; the stream is None on `meta`)."""
     B, KV, GQ, hd, ps, n_lp, n_q, _ = _check_shapes(q, pools[0], table,
                                                     mask)
-    if not q.is_cuda:
+    if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"paged attention: unsupported device {q.device}")
-    for t in (q,) + tuple(pools):
+    for t in (q, *pools) if q.device.type == "cuda" else ():
         if t.dtype != torch.bfloat16 or not t.is_contiguous():
             raise ValueError("paged attention kernels take contiguous bf16 "
                              f"q and pools, got {t.dtype}")
@@ -132,11 +144,33 @@ def _cuda_operands(q, pools, table, mask):
     if mask.dtype != torch.bool or not mask.is_contiguous():
         mask = mask.to(torch.bool).contiguous()
     dims = (B, KV, GQ, hd, ps, n_lp, n_q, split_pages(ps), hd ** -0.5)
-    return table, mask, dims, torch.cuda.current_stream(q.device).cuda_stream
+    stream = (None if q.device.type == "meta"
+              else torch.cuda.current_stream(q.device).cuda_stream)
+    return table, mask, dims, stream
 
 
+def _pa_cost(q, k_pool, table, mask, second_pass: bool):
+    B, KV, GQ, hd = q.shape
+    return roofline.paged_attn_cost(
+        B, KV, GQ, hd, k_pool.shape[1], table.shape[1], mask.shape[1],
+        second_pass=second_pass, q_itemsize=q.element_size(),
+        pool_itemsize=k_pool.element_size(),
+        table_itemsize=table.element_size(),
+        mask_itemsize=mask.element_size())
+
+
+def _k3_cost(q, k_pool, table, mask):
+    return _pa_cost(q, k_pool, table, mask, False)
+
+
+def _k4_cost(q, k_pool, v_pool, table, mask, m_safe):
+    return _pa_cost(q, k_pool, table, mask, True)
+
+
+@roofline.counted("paged_attn_scores_max", _k3_cost)
 def paged_attn_scores_max(q, k_pool, table, mask):
-    """K3.  CPU tensors: the plain version.  CUDA tensors: the kernel."""
+    """K3.  CPU tensors: the plain version.  CUDA tensors: the kernel.
+    Meta tensors: its shape checks, output and scratch."""
     if q.device.type == "cpu":
         return paged_attn_scores_max_ref(q, k_pool, table, mask)
     table, mask, dims, stream = _cuda_operands(q, (k_pool,), table, mask)
@@ -144,6 +178,8 @@ def paged_attn_scores_max(q, k_pool, table, mask):
     m = torch.empty((B, KV, GQ), dtype=torch.float32, device=q.device)
     tickets, part = _scratch("scores_max", q, stream, B * KV * GQ,
                              n_splits(n_lp, ps) * 2 * B * KV * GQ)
+    if stream is None:
+        return m
     err = build.entry("paged_attn_scores_max")(
         q.data_ptr(), k_pool.data_ptr(), table.data_ptr(), mask.data_ptr(),
         m.data_ptr(), part.data_ptr(), tickets.data_ptr(), *dims, stream)
@@ -152,8 +188,10 @@ def paged_attn_scores_max(q, k_pool, table, mask):
     return m
 
 
+@roofline.counted("paged_attn_accumulate", _k4_cost)
 def paged_attn_accumulate(q, k_pool, v_pool, table, mask, m_safe):
-    """K4.  CPU tensors: the plain version.  CUDA tensors: the kernel."""
+    """K4.  CPU tensors: the plain version.  CUDA tensors: the kernel.
+    Meta tensors: its shape checks, outputs and scratch."""
     if q.device.type == "cpu":
         return paged_attn_accumulate_ref(q, k_pool, v_pool, table, mask,
                                          m_safe)
@@ -171,6 +209,8 @@ def paged_attn_accumulate(q, k_pool, v_pool, table, mask, m_safe):
     den = torch.empty((B, KV, GQ), dtype=torch.float32, device=q.device)
     tickets, part = _scratch("accumulate", q, stream, R,
                              n_splits(n_lp, ps) * R * (hd + 2))
+    if stream is None:
+        return num, den
     err = build.entry("paged_attn_accumulate")(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), table.data_ptr(),
         mask.data_ptr(), m_safe.data_ptr(), num.data_ptr(), den.data_ptr(),

@@ -19,11 +19,16 @@ kernel for CUDA tensors, raising on anything the kernel does not take.
 Inference only: it raises where autograd would have to track an
 operand.  tests/test_torch_decay_split.py emulates the kernel's order on
 the CPU.
+
+Tensors on the `meta` device (the dry run) get the CUDA path's checks,
+output and scratch and launch nothing.  While a `roofline.counter()` is
+active each call counts as one launch with `roofline.decay_cost`.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch import roofline
 from repro_torch.kernels import build
 
 RANK = 32       # csrc/rwkv_decay.cu: one lane per LoRA column
@@ -36,8 +41,16 @@ def rwkv_decay_ref(x, a, b, w0):
     return torch.exp(-torch.exp(dec))
 
 
+def _cost(x, a, b, w0):
+    d, n = x.shape[-1], b.shape[-1]
+    return roofline.decay_cost(x.numel() // max(d, 1), d, n,
+                               x_itemsize=x.element_size())
+
+
+@roofline.counted("rwkv_decay", _cost)
 def rwkv_decay(x, a, b, w0):
-    """CPU tensors: the plain version.  CUDA tensors: the kernel."""
+    """CPU tensors: the plain version.  CUDA tensors: the kernel.  Meta
+    tensors: its checks, output and scratch."""
     if torch.is_grad_enabled() and any(t.requires_grad
                                        for t in (x, a, b, w0)):
         raise RuntimeError("rwkv_decay has no backward: call it under "
@@ -45,7 +58,7 @@ def rwkv_decay(x, a, b, w0):
                            "require grad")
     if x.device.type == "cpu":
         return rwkv_decay_ref(x, a, b, w0)
-    if x.device.type != "cuda" or any(t.device != x.device
+    if x.device.type not in ("cuda", "meta") or any(t.device != x.device
                                       for t in (a, b, w0)):
         raise ValueError(f"rwkv_decay: unsupported devices {x.device}, "
                          f"{a.device}, {b.device}, {w0.device}")
@@ -67,6 +80,8 @@ def rwkv_decay(x, a, b, w0):
     out = torch.empty((M, n), dtype=torch.float32, device=x.device)
     part = torch.empty((NCHUNK, M, RANK), dtype=torch.float32,
                        device=x.device)
+    if x.device.type == "meta":
+        return out.reshape(x.shape[:-1] + (n,))
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = build.entry("rwkv_decay")(
         rows.data_ptr(), a.data_ptr(), b.data_ptr(), w0.data_ptr(),

@@ -22,6 +22,10 @@ each, 8 rows x 4 columns a thread), stages
 next one computes, and adds the row groups' partial y in a fixed order (`y = sum_i r_i S_ij +
 v_j * sum_i r_i u_i k_i`); tests/test_torch_k6_split.py emulates that
 order on the CPU.
+
+Tensors on the `meta` device (the dry run) get the CUDA path's checks and
+outputs and launch nothing.  While a `roofline.counter()` is active each
+call counts as one launch with `roofline.wkv6_cost`.
 """
 from __future__ import annotations
 
@@ -29,6 +33,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch import roofline
 from repro_torch.kernels import build
 
 HD = 64   # csrc/wkv6.cu: the head dim the kernel takes
@@ -50,7 +55,7 @@ def wkv6_ref(r, k, v, w, u, s0):
 
 def _check(r, k, v, w, u, s0, out_state):
     B, T, H, hd = r.shape
-    if r.device.type != "cuda":
+    if r.device.type not in ("cuda", "meta"):
         raise ValueError(f"wkv6: unsupported device {r.device}")
     if r.dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"wkv6: r, k, v must be bf16 or fp32, got {r.dtype}")
@@ -72,8 +77,17 @@ def _check(r, k, v, w, u, s0, out_state):
                          "shaped like s0")
 
 
+def _cost(r, k, v, w, u, s0, *, out_state=None):
+    B, T, H, hd = r.shape
+    return roofline.wkv6_cost(B, T, H, hd,
+                              dtype=str(r.dtype).replace("torch.", ""),
+                              itemsize=r.element_size())
+
+
+@roofline.counted("wkv6", _cost)
 def wkv6(r, k, v, w, u, s0, *, out_state: Optional[torch.Tensor] = None):
-    """K6.  CPU tensors: the plain version.  CUDA tensors: the kernel."""
+    """K6.  CPU tensors: the plain version.  CUDA tensors: the kernel.
+    Meta tensors: its checks and outputs."""
     if torch.is_grad_enabled() and any(t.requires_grad
                                        for t in (r, k, v, w, u, s0)):
         raise RuntimeError("wkv6 has no backward: call it under "
@@ -94,6 +108,8 @@ def wkv6(r, k, v, w, u, s0, *, out_state: Optional[torch.Tensor] = None):
     B, T, H, hd = r.shape
     y = torch.empty_like(r)
     sT = out_state if out_state is not None else torch.empty_like(s0)
+    if r.device.type == "meta":
+        return y, sT
     stream = torch.cuda.current_stream(r.device).cuda_stream
     err = build.entry("wkv6")(
         r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(),

@@ -31,6 +31,11 @@ Every group carries a timeout, so a rank whose peers diverged fails in
 its own seconds instead of hanging.  A mesh's `stats` count each
 collective's calls, its bytes, the bytes staged through the host and
 the host seconds spent in it (waits for the peers included).
+
+`Mesh.dry` is one rank of a mesh that communicates with no one, for the
+dry run (`launch.dryrun`): its groups have the mesh's sizes and no
+process group, and each collective returns a `meta` tensor of its
+result's shape and counts in `stats` as a real one would.
 """
 from __future__ import annotations
 
@@ -272,6 +277,11 @@ class Group:
     stats: Dict[str, Dict[str, float]] = dataclasses.field(
         default_factory=dict)
     exchange: Optional[CardExchange] = None
+    # a dry group (`Mesh.dry`): no communication; `own` counts this
+    # group's collectives apart from the mesh's `stats`
+    dry: bool = False
+    own: Dict[str, Dict[str, float]] = dataclasses.field(
+        default_factory=dict)
 
     @property
     def size(self) -> int:
@@ -293,10 +303,12 @@ class Group:
         exchange, `card` = (fill, out_shape) makes the result instead: a
         new tensor of out_shape that fill(out, lo, hi, every member's
         x.flatten()[lo:hi]) fills piece by piece, the waits announced
-        too."""
+        too.  A dry group makes an empty `meta` tensor of out_shape."""
         t0 = time.perf_counter()
         staged = op in self.staged and self.exchange is None
-        if self.exchange is not None:
+        if self.dry:
+            out = torch.empty(card[1], dtype=x.dtype, device=x.device)
+        elif self.exchange is not None:
             fill, out_shape = card
             out = torch.empty(out_shape, dtype=x.dtype, device=x.device)
             with contracts.announced_drain():
@@ -313,13 +325,10 @@ class Group:
             x = x.contiguous()
             out = fn(x, lambda shape: torch.empty(shape, dtype=x.dtype,
                                                   device=x.device))
-        s = self.stats.setdefault(op, {"calls": 0, "bytes": 0,
-                                       "host_bytes": 0, "seconds": 0.0})
-        nbytes = x.numel() * x.element_size()
-        s["calls"] += 1
-        s["bytes"] += nbytes
-        s["host_bytes"] += nbytes if staged else 0
-        s["seconds"] += time.perf_counter() - t0
+        seconds = time.perf_counter() - t0
+        _count(self.stats, op, x, staged, seconds)
+        if self.dry:
+            _count(self.own, op, x, staged, seconds)
         return out
 
     def _blocks(self, fill_block, n: int):
@@ -426,6 +435,17 @@ class Group:
                          (self._blocks(put, n), x.shape))
 
 
+def _count(stats, op: str, x: torch.Tensor, staged: bool, seconds: float):
+    """One call of collective `op` on operand x into `stats`."""
+    s = stats.setdefault(op, {"calls": 0, "bytes": 0, "host_bytes": 0,
+                              "seconds": 0.0})
+    nbytes = x.numel() * x.element_size()
+    s["calls"] += 1
+    s["bytes"] += nbytes
+    s["host_bytes"] += nbytes if staged else 0
+    s["seconds"] += seconds
+
+
 def _local_group(device) -> Group:
     return Group(None, (0,), 0, "none", torch.device(device))
 
@@ -459,6 +479,27 @@ class Mesh:
         for a collective."""
         g = _local_group(device)
         return cls(dp, tp, rank, "none", torch.device(device), g, g, g)
+
+    @classmethod
+    def dry(cls, dp: int, tp: int, rank: int = 0) -> "Mesh":
+        """Rank `rank` of a (dp, tp) mesh on the `meta` device, with no
+        process group: each collective returns an empty `meta` tensor of
+        its result's shape and counts its calls and bytes in `stats`
+        (and in its group's `own`) through the same bookkeeping as a real
+        group's.  For the dry run: shapes, work and traffic, no data."""
+        if not 0 <= rank < dp * tp:
+            raise ValueError(f"rank {rank} of a (dp={dp}, tp={tp}) mesh")
+        d, t = rank // tp, rank % tp
+        stats: Dict[str, Dict[str, float]] = {}
+        meta = torch.device("meta")
+
+        def group(ranks, index):
+            return Group(None, tuple(ranks), index, "dry", meta, stats,
+                         dry=True)
+        return cls(dp, tp, rank, "dry", meta,
+                   group(range(dp * tp), rank),
+                   group([d * tp + j for j in range(tp)], t),
+                   group([i * tp + t for i in range(dp)], d))
 
     @property
     def dp_index(self) -> int:

@@ -212,13 +212,15 @@ SP_COMMS = ("native", "int8")
 @dataclasses.dataclass(frozen=True)
 class AxisEnv:
     """The mesh axes a model function runs under.  Parameters are
-    FSDP-sharded over dp wherever dp > 1 (the reference's default) and
+    FSDP-sharded over dp wherever dp > 1 and `fsdp` is on (the
+    reference's default; off, each dp rank holds them whole) and
     `seq_parallel` shards the boundary activations over tp (off in the
     decode steps, `denv`); `sp_comm="int8"` quantizes the SP boundaries
     (`quant_rows`)."""
     mesh: Mesh
     seq_parallel: bool = True
     sp_comm: str = "native"
+    fsdp: bool = True
 
     def __post_init__(self):
         if self.sp_comm not in SP_COMMS:
@@ -313,6 +315,8 @@ class AxisEnv:
         gather's transpose) runs in it too."""
         if dtype is not None:
             w = w.to(dtype)
+        if not self.fsdp:
+            return w
         return all_gather(w, self.mesh.dp_group, axis)
 
     # -- sequence-parallel boundaries ---------------------------------------------
@@ -338,12 +342,12 @@ LOCAL = AxisEnv(Mesh.local())
 
 
 def make_axis_env(mesh: Optional[Mesh] = None, *,
-                  seq_parallel: bool = True,
-                  sp_comm: str = "native") -> AxisEnv:
+                  seq_parallel: bool = True, sp_comm: str = "native",
+                  fsdp: bool = True) -> AxisEnv:
     """The AxisEnv of a mesh built by `launch.mesh.make_local_mesh` (the
     one-rank env without one)."""
     return AxisEnv(mesh if mesh is not None else Mesh.local(),
-                   seq_parallel=seq_parallel, sp_comm=sp_comm)
+                   seq_parallel=seq_parallel, sp_comm=sp_comm, fsdp=fsdp)
 
 
 def denv(env: AxisEnv) -> AxisEnv:
@@ -374,7 +378,7 @@ def fsdp_spec(env: AxisEnv, ndim: int, fsdp_dim: Optional[int],
     """A weight stored FSDP-sharded over dp (dim `fsdp_dim`) and
     TP-sharded over tp (dim `tp_dim`)."""
     parts: list = [None] * ndim
-    if fsdp_dim is not None and env.dp > 1:
+    if fsdp_dim is not None and env.fsdp and env.dp > 1:
         parts[fsdp_dim] = "dp"
     if tp_dim is not None:
         parts[tp_dim] = "tp"

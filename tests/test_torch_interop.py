@@ -103,14 +103,30 @@ def test_full_size_init_shapes_match_reference_specs():
     assert all(t.device.type == "meta" for _, t in _leaves(port))
 
 
-@pytest.mark.parametrize("arch", ["ling-lite", "rwkv6-3b", "h2o-danube-1.8b",
-                                  "nemotron-4-15b", "whisper-tiny",
-                                  "recurrentgemma-2b"])
+# every arch of the reference registry (checked in the test)
+CONFIG_ARCHS = ["ling-lite", "rwkv6-3b", "h2o-danube-1.8b", "nemotron-4-15b",
+                "whisper-tiny", "recurrentgemma-2b", "ling-plus",
+                "phi3-mini-3.8b", "chameleon-34b", "deepseek-moe-16b",
+                "granite-moe-3b-a800m", "moonshot-v1-16b-a3b"]
+
+
+@pytest.mark.parametrize("arch", CONFIG_ARCHS)
 def test_config_copies_match_reference(arch):
+    """Every arch's configs, field for field, and what the dry run reads
+    of them: the analytic parameter counts and the supported input
+    shapes (full and smoke configs)."""
+    assert sorted(CONFIG_ARCHS) == sorted(jbase.ARCH_IDS)
     for get in ("get_config", "get_smoke_config"):
-        ours = dataclasses.asdict(getattr(tbase, get)(arch))
-        theirs = dataclasses.asdict(getattr(jbase, get)(arch))
-        assert ours == theirs, get
+        ours_cfg, theirs_cfg = (getattr(m, get)(arch) for m in (tbase, jbase))
+        assert dataclasses.asdict(ours_cfg) == dataclasses.asdict(theirs_cfg), get
+        assert ours_cfg.param_count() == theirs_cfg.param_count(), get
+        assert (ours_cfg.active_param_count()
+                == theirs_cfg.active_param_count()), get
+        assert ours_cfg.sub_quadratic == theirs_cfg.sub_quadratic, get
+        assert (list(tbase.supported_shapes(ours_cfg))
+                == list(jbase.supported_shapes(theirs_cfg))), get
+    assert {k: dataclasses.asdict(v) for k, v in tbase.INPUT_SHAPES.items()} \
+        == {k: dataclasses.asdict(v) for k, v in jbase.INPUT_SHAPES.items()}
 
 
 def test_unported_arch_raises():

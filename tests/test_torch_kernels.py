@@ -20,6 +20,7 @@ from repro_torch.kernels import grouped_matmul as gm
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import paged_attn as pa
 from repro_torch.models import layers as TL
+from torch_helpers import Elsewhere
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -181,17 +182,17 @@ def test_cpu_wrappers_take_the_plain_version_and_count_nothing():
 
 
 def test_wrappers_refuse_devices_without_a_kernel():
-    x = torch.empty((4, 64), dtype=torch.bfloat16, device="meta")
-    w = torch.empty((2, 64, 64), dtype=torch.bfloat16, device="meta")
-    ri = torch.empty((1, 8), dtype=torch.int32, device="meta")
+    x = Elsewhere(4, 64, dtype=torch.bfloat16)
+    w = Elsewhere(2, 64, 64, dtype=torch.bfloat16)
+    ri = Elsewhere(1, 8, dtype=torch.int32)
     with pytest.raises(ValueError, match="unsupported device"):
-        gm.fused_moe_ffn(x, w, w, w, ri, ri.float(), ri[0])
-    q = torch.empty((1, 2, 2, 32), dtype=torch.bfloat16, device="meta")
-    pool = torch.empty((3, 8, 2, 32), dtype=torch.bfloat16, device="meta")
+        gm.fused_moe_ffn(x, w, w, w, ri, Elsewhere(1, 8),
+                         Elsewhere(1, dtype=torch.int32))
+    q = Elsewhere(1, 2, 2, 32, dtype=torch.bfloat16)
+    pool = Elsewhere(3, 8, 2, 32, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="unsupported device"):
-        pa.paged_attn_scores_max(q, pool, ri[:, :2],
-                                 torch.empty((1, 1, 2, 8), dtype=torch.bool,
-                                             device="meta"))
+        pa.paged_attn_scores_max(q, pool, Elsewhere(1, 2, dtype=torch.int32),
+                                 Elsewhere(1, 1, 2, 8, dtype=torch.bool))
 
 
 # ---------------------------------------------------------------------------

@@ -15,7 +15,16 @@ tree) and the same numpy-made batch and prompts:
   * at (1, 2): greedy dense decode fed token by token, the dense prefill
     into caches sharded over tp and its ticks, the paged OnlineEngine
     (page 8, so each rank holds 4 in-page offsets) greedy, and a sampled
-    burst through the engine: every stream equal to the reference's.
+    burst through the engine: every stream equal to the reference's;
+  * at (2, 1): greedy dense decode token by token and after the dense
+    prefill, each rank on its half of the rows (`api.local_rows`, its
+    caches its rows), every rank returning every row's token, with the
+    parameters FSDP over dp and whole on each dp rank (`fsdp=False`):
+    the reference's streams at (2, 1);
+  * the dry run (`launch.dryrun`): each rank's collectives in one train
+    step at (2, 2), (2, 1) and (1, 2), and in one (2, 1) decode tick of
+    each parameter storage, calls and bytes per op, equal to the
+    parent's dry run of that rank.
   (The other architectures on a mesh: test_torch_mesh_archs and
   test_torch_mesh_families.)
 
@@ -57,7 +66,8 @@ import torch.multiprocessing as mp
 
 from repro_torch import api as tapi
 from repro_torch import interop, sharding
-from repro_torch.configs.base import get_smoke_config
+from repro_torch.configs.base import ShapeConfig, get_smoke_config
+from repro_torch.launch import dryrun
 from repro_torch.launch import mesh as tmesh
 from repro_torch.models import model as TM
 from repro_torch.models import prng
@@ -187,9 +197,26 @@ REF_SCRIPT = textwrap.dedent("""
         return np.stack([np.asarray(eng.reqs[base + i].out)
                          for i in range(SB)])
 
+    # greedy dense decode at (2, 1): the rows over dp, caches zeros at
+    # the global shapes the shard_mapped step takes
+    r21 = api.Runner(cfg, make_local_mesh(2, 1), fsdp=False,
+                     seq_parallel=False, max_seq=SEQ)
+    decode21, _ = r21.make_decode_step(global_batch=SB, seq_len=SEQ)
+    decode21 = jax.jit(decode21)
+    caches = jax.tree.map(lambda s: jnp.zeros(s.shape, s.dtype),
+                          r21.init_cache_shapes(SB, SEQ)[0])
+    for pos in range(P):
+        tok, caches = decode21(params, caches, jnp.asarray(prompts[:, pos]),
+                               jnp.int32(pos))
+    dense21 = [np.asarray(tok)]
+    for pos in range(P, P + NEW - 1):
+        tok, caches = decode21(params, caches, tok, jnp.int32(pos))
+        dense21.append(np.asarray(tok))
+
     pickle.dump({"train": {}, "serve": {
         "dense": np.stack(dense, 1), "paged": engine_streams({}, 0),
-        "sampled": engine_streams(SAMPLED, SB)}}, open(sys.argv[2], "wb"))
+        "sampled": engine_streams(SAMPLED, SB),
+        "dense21": np.stack(dense21, 1)}}, open(sys.argv[2], "wb"))
 """)
 
 
@@ -230,9 +257,12 @@ def _train_phase(mesh, params_np, data):
     opt = adamw.init_opt_state(params)
     out["steps"] = []
     for i in (1, 2):
+        mesh.stats.clear()
         params, opt, _, m = step(params, opt, None, batch, i,
                                  prng.prng_key(i), LR)
         out["steps"].append({k: float(v) for k, v in m.items()})
+        if i == dryrun.TRAIN_STEP:
+            out["stats"] = _calls_and_bytes(mesh)
     out["params2"] = _np(params)
     return out
 
@@ -279,11 +309,61 @@ def _serve_phase(mesh, params_np, data):
             "pool_rows": runner.init_paged_pools(2, 8)["self"]["k"].shape[2]}
 
 
+def _serve21_phase(mesh, params_np, data):
+    """One rank's dense decode at (2, 1): token by token, then after the
+    dense prefill; and one tick's collectives."""
+    cfg = _cfg()
+    runner = tapi.Runner(cfg, device="cpu", max_seq=SEQ, mesh=mesh)
+    params = interop.params_from_numpy(params_np, cfg, device="cpu",
+                                       env=runner.env)
+    prompts = torch.from_numpy(data["prompts"]).long()
+    decode = runner.make_decode_step()
+    caches = runner.init_caches(SB, SEQ)
+    rows = caches["self"]["k"].shape[1]
+    for pos in range(P):
+        tok, caches = decode(params, caches, prompts[:, pos], pos)
+    dense = [tok]
+    for pos in range(P, P + NEW - 1):
+        mesh.stats.clear()
+        tok, caches = decode(params, caches, tok, pos)
+        dense.append(tok)
+    stats = _calls_and_bytes(mesh)
+    tok, caches = runner.make_prefill(seq_len=SEQ)(params,
+                                                   {"tokens": prompts})
+    prefilled = [tok]
+    for pos in range(P, P + NEW - 1):
+        tok, caches = decode(params, caches, tok, pos)
+        prefilled.append(tok)
+    # the parameters whole on each dp rank (`fsdp=False`)
+    wrunner = tapi.Runner(cfg, device="cpu", max_seq=SEQ, mesh=mesh,
+                          fsdp=False)
+    wparams = interop.params_from_numpy(params_np, cfg, device="cpu",
+                                        env=wrunner.env)
+    tok, caches = wrunner.make_prefill(seq_len=SEQ)(wparams,
+                                                    {"tokens": prompts})
+    whole, wdecode = [tok], wrunner.make_decode_step()
+    for pos in range(P, P + NEW - 1):
+        mesh.stats.clear()
+        tok, caches = wdecode(wparams, caches, tok, pos)
+        whole.append(tok)
+    return {"dense": torch.stack(dense, 1).numpy(),
+            "prefilled": torch.stack(prefilled, 1).numpy(),
+            "whole": torch.stack(whole, 1).numpy(),
+            "cache_rows": rows, "stats": stats,
+            "whole_stats": _calls_and_bytes(mesh)}
+
+
+def _calls_and_bytes(mesh):
+    return {op: {"calls": s["calls"], "bytes": s["bytes"]}
+            for op, s in mesh.stats.items()}
+
+
 # each phase: (store, mesh, function, the global ranks that run it)
 PHASES = (("all", (2, 2), "_train_phase", (0, 1, 2, 3)),
           ("lo", (2, 1), "_train_phase", (0, 1)),
           ("hi", (1, 2), "_train_phase", (2, 3)),
-          ("hi-serve", (1, 2), "_serve_phase", (2, 3)))
+          ("hi-serve", (1, 2), "_serve_phase", (2, 3)),
+          ("lo-serve", (2, 1), "_serve21_phase", (0, 1)))
 
 
 def _worker(rank: int, tmp: str, params_np, data):
@@ -355,7 +435,8 @@ def runs(tmp_path_factory):
     port = {m: [load("_train_phase", m, r) for r in range(m[0] * m[1])]
             for m in TRAIN_MESHES}
     serve = [load("_serve_phase", (1, 2), r) for r in range(2)]
-    return ref, port, serve
+    serve21 = [load("_serve21_phase", (2, 1), r) for r in range(2)]
+    return ref, port, serve, serve21
 
 
 def _env(dp, tp, rank):
@@ -382,7 +463,7 @@ def _hold_params(got, ref, what):
 def test_init_params_are_slices_of_the_one_rank_parameters(runs, mesh):
     """Every rank's `init_params(0)` and `init_train_params(0)` equal its
     slice of the (1, 1) runner's, bit for bit."""
-    _, port, _ = runs
+    _, port, _, _ = runs
     one = tapi.Runner(_cfg(), device="cpu", max_seq=S)
     full = {"init": _np(one.init_train_params(0)),
             "serve_init": _np(one.init_params(0))}
@@ -401,7 +482,7 @@ def test_gradients_loss_and_metrics_match_the_reference(runs, mesh):
     """`make_loss_and_grad` at step 1 (router warmup active): every rank's
     reduced gradient shards against its slice of the reference's global
     gradients, the loss and the metrics."""
-    ref, port, _ = runs
+    ref, port, _, _ = runs
     rt = ref["train"][mesh]
     specs = _specs(*mesh)
     print(f"\n{mesh} moe/dropped_frac port "
@@ -427,7 +508,7 @@ def test_gradients_loss_and_metrics_match_the_reference(runs, mesh):
 def test_two_train_steps_match_the_reference(runs, mesh):
     """Two optimizer steps (router warmup active): each step's loss and
     grad norm, then every rank's parameter shards."""
-    ref, port, _ = runs
+    ref, port, _, _ = runs
     rt = ref["train"][mesh]
     specs = _specs(*mesh)
     for r, rank in enumerate(port[mesh]):
@@ -448,10 +529,64 @@ def test_serving_streams_on_1x2_match_the_reference(runs, stream):
     prefill into tp-sharded caches), the paged OnlineEngine (each rank 4
     of a page's 8 offsets) greedy and sampled: both ranks' streams equal
     each other and the reference's."""
-    ref, _, serve = runs
+    ref, _, serve, _ = runs
     want = ref["serve"]["dense" if stream == "prefilled" else stream]
     for r in range(2):
         np.testing.assert_array_equal(serve[r][stream], want,
                                       err_msg=f"{stream} rank {r}")
     assert serve[0]["pool_rows"] == 4
 
+
+@pytest.mark.parametrize("stream", ["dense", "prefilled"])
+def test_dense_serving_on_2x1_splits_the_rows_and_matches_the_reference(
+        runs, stream):
+    """At (2, 1) each rank decodes its 2 of the 4 rows (its caches hold
+    them) and returns all 4 rows' tokens: the reference's (2, 1) greedy
+    streams, token by token and after the prefill."""
+    ref, _, _, serve21 = runs
+    for r in range(2):
+        np.testing.assert_array_equal(serve21[r][stream],
+                                      ref["serve"]["dense21"],
+                                      err_msg=f"{stream} rank {r}")
+        assert serve21[r]["cache_rows"] == SB // 2
+
+
+@pytest.mark.parametrize("mesh", TRAIN_MESHES)
+def test_dry_run_collectives_equal_each_ranks_train_step(runs, mesh):
+    """The dry run of rank r's train step (the file's config, batch and
+    step) gives the collectives rank r counted, calls and bytes per op."""
+    _, port, _, _ = runs
+    for r, rank in enumerate(port[mesh]):
+        rec = dryrun.trace(_cfg(), ShapeConfig("mesh_parity", S, B, "train"),
+                           *mesh, rank=r)
+        assert rec["collective_stats"] == rank["stats"], (mesh, r)
+        assert rank["stats"]
+
+
+def test_dry_run_collectives_equal_each_ranks_decode_tick(runs):
+    _, _, _, serve21 = runs
+    for r in range(2):
+        rec = dryrun.trace(_cfg(), ShapeConfig("mesh_parity", SEQ, SB,
+                                               "decode"), 2, 1, rank=r,
+                           serve_fsdp=True)
+        assert rec["collective_stats"] == serve21[r]["stats"], r
+        assert serve21[r]["stats"]
+
+
+def test_whole_parameter_serving_on_2x1_matches_the_reference(runs):
+    """At (2, 1) with the parameters whole on each dp rank (`fsdp=False`,
+    the reference dry run's serving storage): the reference's (2, 1)
+    stream after the prefill, and the dry run's tick (without
+    `serve_fsdp`) gives the collectives each rank counted: no weight
+    gathered over dp."""
+    ref, _, _, serve21 = runs
+    for r in range(2):
+        np.testing.assert_array_equal(serve21[r]["whole"],
+                                      ref["serve"]["dense21"],
+                                      err_msg=f"rank {r}")
+        rec = dryrun.trace(_cfg(), ShapeConfig("mesh_parity", SEQ, SB,
+                                               "decode"), 2, 1, rank=r)
+        assert rec["collective_stats"] == serve21[r]["whole_stats"], r
+        assert serve21[r]["whole_stats"]["all_gather"]["calls"] == 1
+        assert (serve21[r]["stats"]["all_gather"]["calls"]
+                > serve21[r]["whole_stats"]["all_gather"]["calls"])

@@ -22,6 +22,7 @@ from repro_torch.kernels import build
 from repro_torch.kernels import normhead as nh
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import wkv6 as wk
+from torch_helpers import Elsewhere
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -145,12 +146,12 @@ def test_normhead_refuses_autograd_and_cpu_launches_nothing():
 
 
 def test_kernels_refuse_devices_without_a_kernel():
-    meta = lambda *s: torch.empty(s, device="meta")
+    xpu = Elsewhere
     with pytest.raises(ValueError, match="unsupported device"):
-        tops.normhead_logits(meta(2, 64), meta(16, 64))
+        tops.normhead_logits(xpu(2, 64), xpu(16, 64))
     with pytest.raises(ValueError, match="unsupported device"):
-        tops.wkv6(meta(1, 2, 1, 64), meta(1, 2, 1, 64), meta(1, 2, 1, 64),
-                  meta(1, 2, 1, 64), meta(1, 64), meta(1, 1, 64, 64))
+        tops.wkv6(xpu(1, 2, 1, 64), xpu(1, 2, 1, 64), xpu(1, 2, 1, 64),
+                  xpu(1, 2, 1, 64), xpu(1, 64), xpu(1, 1, 64, 64))
 
 
 # ---------------------------------------------------------------------------

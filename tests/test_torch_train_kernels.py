@@ -21,6 +21,7 @@ from repro_torch.core import moe as TMOE
 from repro_torch.kernels import build
 from repro_torch.kernels import grouped_matmul as gm
 from repro_torch.kernels import ops as tops
+from torch_helpers import Elsewhere
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -189,9 +190,9 @@ def test_cpu_wrappers_take_the_plain_version_and_count_nothing():
 
 
 def test_k2_wrappers_refuse_devices_without_a_kernel():
-    lhs = torch.empty((16, 64), device="meta")
-    rhs = torch.empty((2, 64, 64), dtype=torch.bfloat16, device="meta")
-    tg = torch.empty((2,), dtype=torch.int32, device="meta")
+    lhs = Elsewhere(16, 64)
+    rhs = Elsewhere(2, 64, 64, dtype=torch.bfloat16)
+    tg = Elsewhere(2, dtype=torch.int32)
     with pytest.raises(ValueError, match="unsupported device"):
         gm.grouped_matmul_aligned(lhs, rhs, tg, bm=8)
     with pytest.raises(ValueError, match="unsupported device"):
